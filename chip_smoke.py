@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+Run from the root of a checkout with no arguments:
+
+    python3 chip_smoke.py [--report PATH]
+
+Phases, each of which raises on failure (the exit code is then non-zero
+and no result line is printed):
+
+1. device — the card's name and power limit as ``nvidia-smi`` reports them;
+2. build  — compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` (one
+   ``nvcc`` per source, all at once) and load the library;
+3. kernels — each hand-written kernel against its plain PyTorch version at
+   the shapes the main paths give it, with kernel, plain and (where one
+   PyTorch call computes the same function) library times;
+4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
+   device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
+   worker through the kernels against one through the numpy oracle;
+5. value-iteration main path — Garnet S = 10^6, A = 4, b = 5, same config;
+6. small-input parity — the ``jacobi_async_plain`` golden trajectory
+   reproduced byte for byte on the card, and an accelerated VI run on the
+   card against the same run on the CPU (plain versions).
+
+The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
+on the main paths (counts are reset right before each path and read right
+after), the largest deviation from the plain version, the median times of
+20 CUDA-event-timed calls and the least time the card could take (bytes
+over memory bandwidth or float64 operations over peak, whichever is
+larger; NVIDIA H100 data-sheet figures).  The last line is the device
+summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: (bytes/s, float64 FLOP/s) by part, from NVIDIA's H100 data sheet
+_PEAKS = {"PCIe": (2.0e12, 26e12), "NVL": (3.9e12, 30e12),
+          "SXM": (3.35e12, 34e12)}
+
+#: main-path sizes: the Jacobi grid side and the Garnet state count
+JACOBI_GRID = 2048
+VI_STATES = 10 ** 6
+
+#: the Jacobi golden of tests/test_hotpath_goldens.py (jacobi_async_plain)
+_JACOBI_GOLDEN = (600, 0.4318607003352541,
+                  "af8fd221f9b65b94b6d21a5e5dcc7dbef42cf475a86dd05ad8e08d5b43b1bfc9")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def peaks(name: str):
+    for part, vals in _PEAKS.items():
+        if part in name:
+            return vals
+    return _PEAKS["SXM"]
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of one call, CUDA-event timed after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] torch.cuda.get_device_name(0) = {name}; "
+          f"count = {torch.cuda.device_count()}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    return name
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    info = _build.build_info()
+    print(f"[build] {info.path.name} in {info.seconds:.2f} s "
+          f"(load {time.perf_counter() - t0:.2f} s)")
+    for line in info.log.splitlines():
+        if "registers" in line or line.startswith("=="):
+            print(f"[build] {line.strip()}")
+
+
+def phase_kernels(torch, dev, name):
+    """Each kernel against its plain version at the main-path shapes."""
+    from repro_torch.kernels import ops, ref
+
+    bw, fp64 = peaks(name)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, **f64)
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / bw * 1e3, flops / fp64 * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    rows_out = {}
+
+    def record(key, shape, err, tol, kfn, pfn, nbytes, flops, lfn=None,
+               source="", replaces="", extra=None):
+        check(err <= tol, f"{key}: max_abs_err {err:.3e} > tol {tol:.3e}")
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(name=key, route="cuda", source=source, replaces=replaces,
+                   shape=shape, max_abs_err=err, tol=tol,
+                   ms=time_ms(torch, kfn), plain_ms=time_ms(torch, pfn),
+                   bound_ms=b_ms, bound_by=b_by, bound_us=b_ms * 1e3,
+                   library_ms=time_ms(torch, lfn) if lfn else None)
+        row["kernel_ms"] = row["ms"]
+        row.update(extra or {})
+        rows_out[key] = row
+        print(f"[kernels] {key} {shape}: err {err:.2e} (tol {tol:.0e}) "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+
+    def err_of(a, b):
+        return float((a - b).abs().max())
+
+    # jacobi_halo_sweeps: one device-plane block of the g=2048 grid.
+    g, sweeps = JACOBI_GRID, 10
+    rows = g // 4
+    xb, bb, top, bot = randn(rows, g), randn(rows, g), randn(g), randn(g)
+    out, norm = ops.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps)
+    want, wnorm = ref.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps)
+    norm_rel = float((norm - wnorm).abs() / wnorm.abs())
+    check(norm_rel <= 1e-12, f"halo norm rel err {norm_rel:.3e}")
+    record("jacobi_halo_sweeps", [rows, g, sweeps], err_of(out, want), 0.0,
+           lambda: ops.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps),
+           lambda: ref.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps),
+           (3 * rows * g + 2 * g) * 8, sweeps * rows * g * 5 + 3 * rows * g,
+           source="src/repro_torch/csrc/jacobi_stencil.cu",
+           replaces="src/repro/kernels/jacobi_stencil.py:78",
+           extra=dict(norm_rel_err=norm_rel))
+
+    # jacobi_sweep: the full map of the g=2048 grid.
+    n = g * g
+    x, b = randn(n), randn(n)
+    record("jacobi_sweep", [n], err_of(ops.jacobi_sweep(x, b, g),
+                                       ref.jacobi_sweep(x, b, g)), 0.0,
+           lambda: ops.jacobi_sweep(x, b, g),
+           lambda: ref.jacobi_sweep(x, b, g), 3 * n * 8, 5 * n,
+           source="src/repro_torch/csrc/jacobi_stencil.cu",
+           replaces="src/repro/kernels/jacobi_stencil.py:109")
+
+    # bellman / bellman_block: the S=10^6 Garnet MDP and one worker block.
+    S, A, B, gamma = VI_STATES, 4, 5, 0.95
+    idx = torch.randint(0, S, (S, A, B), generator=gen, device=dev,
+                        dtype=torch.int32)
+    probs = torch.rand(S, A, B, generator=gen, **f64)
+    probs /= probs.sum(-1, keepdim=True)
+    R = torch.rand(S, A, generator=gen, **f64)
+    v = randn(S)
+    touched = int(torch.unique(idx).numel())
+    tv = ops.bellman(idx, probs, R, v, gamma=gamma)
+    want = ref.bellman(idx, probs, R, v, gamma=gamma)
+    record("bellman", [S, A, B], err_of(tv, want),
+           1e-13 * float(want.abs().max()),
+           lambda: ops.bellman(idx, probs, R, v, gamma=gamma),
+           lambda: ref.bellman(idx, probs, R, v, gamma=gamma),
+           idx.numel() * 4 + (probs.numel() + R.numel() + touched + S) * 8,
+           S * A * (2 * B + 2) + S * A,
+           source="src/repro_torch/csrc/bellman.cu",
+           replaces="src/repro/kernels/bellman.py:80")
+    rows_b = S // 4
+    bi, bp, bR = idx[:rows_b], probs[:rows_b], R[:rows_b]
+    v_old = randn(rows_b)
+    touched_b = int(torch.unique(bi).numel())
+    tvb, nb = ops.bellman_block(bi, bp, bR, v, v_old, gamma=gamma)
+    wtv, wnb = ref.bellman_block(bi, bp, bR, v, v_old, gamma=gamma)
+    check(float((nb - wnb).abs()) <= 1e-13 * float(wnb.abs()),
+          "bellman_block norm disagrees")
+    record("bellman_block", [rows_b, A, B, S], err_of(tvb, wtv),
+           1e-13 * float(wtv.abs().max()),
+           lambda: ops.bellman_block(bi, bp, bR, v, v_old, gamma=gamma),
+           lambda: ref.bellman_block(bi, bp, bR, v, v_old, gamma=gamma),
+           bi.numel() * 4
+           + (bp.numel() + bR.numel() + touched_b + 2 * rows_b) * 8,
+           rows_b * A * (2 * B + 2) + rows_b * A + 3 * rows_b,
+           source="src/repro_torch/csrc/bellman.cu",
+           replaces="src/repro/kernels/bellman.py:62")
+
+    # anderson_mix: the Jacobi fire's (6, n) window (and VI's (6, S)),
+    # every beta path checked, beta = 1 (the main path's) timed.
+    h = 6
+    errs = {}
+    for N in (n, S):
+        X, G = randn(h, N), randn(h, N)
+        a = randn(h)
+        a = a / a.sum()
+        for beta in (1.0, 0.5, 0.0):
+            got = ops.anderson_mix(X, G, a, beta=beta)
+            want = ref.anderson_mix(X, G, a, beta=beta)
+            errs[f"{N}/{beta}"] = err_of(got, want) / float(want.abs().max())
+    X, G = randn(h, n), randn(h, n)
+    a = randn(h)
+    a = a / a.sum()
+    worst = max(errs.values())
+    record("anderson_mix", [h, n], worst, 1e-12,
+           lambda: ops.anderson_mix(X, G, a, beta=1.0),
+           lambda: ref.anderson_mix(X, G, a, beta=1.0),
+           (h * n + h + n) * 8, 2 * h * n, lfn=lambda: a @ G,
+           source="src/repro_torch/csrc/anderson_mix.cu",
+           replaces="src/repro/kernels/anderson_mix.py:46",
+           extra=dict(rel_err_by_n_beta=errs))
+    del X, G, idx, probs, R
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def run_path(label, problem, cfg):
+    """One main-path run with the launch counters reset around it."""
+    import numpy as np
+
+    from repro_torch import run_fixed_point
+    from repro_torch.kernels import ops
+
+    r0 = problem.residual_norm(problem.initial())
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_fixed_point(problem, cfg)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(res.x.shape == (problem.n,), f"{label}: iterate shape {res.x.shape}")
+    check(bool(np.isfinite(res.x).all()), f"{label}: non-finite iterate")
+    check(res.residual_norm < r0,
+          f"{label}: residual {res.residual_norm:.3e} did not fall below "
+          f"{r0:.3e}")
+    print(f"[{label}] worker_updates {res.worker_updates}, fires "
+          f"{res.accel_fires}, accepts {res.accel_accepts}, residual "
+          f"{r0:.6e} -> {res.residual_norm:.6e}, run wall {res.wall_time:.3f}"
+          f" s (call {wall:.3f} s), inline fires {res.fire_window_s:.3f} s,"
+          f" coordinator busy share {res.coordinator_busy_frac:.3f}, "
+          f"device_dispatches {res.device_dispatches}, device_refreshes "
+          f"{res.device_refreshes}, launches {json.dumps(launches)}")
+    return res, launches, r0
+
+
+def main_cfg(**kw):
+    from repro_torch import AndersonConfig, FaultProfile, RunConfig
+
+    base = dict(mode="async", executor="thread", n_workers=4,
+                device_plane="on", accel=AndersonConfig(m=5), fire_every=4,
+                tol=1e-6, max_updates=200,
+                faults={0: FaultProfile(delay_mean=0.1)})
+    base.update(kw)
+    return RunConfig(**base)
+
+
+def phase_jacobi(dev):
+    import numpy as np
+
+    from repro_torch import JacobiProblem
+
+    prob = JacobiProblem(grid=JACOBI_GRID, sweeps=10, seed=0, device=dev)
+    res, launches, _ = run_path("jacobi", prob, main_cfg())
+    for k in ("jacobi_halo_sweeps", "jacobi_sweep", "anderson_mix"):
+        check(launches[k] > 0, f"jacobi: {k} was never launched")
+    check(res.device_dispatches > 0, "jacobi: the device plane never ran")
+    # One worker through the kernels against one through the numpy oracle.
+    one = dict(n_workers=1, faults=None, max_updates=20)
+    rk = run_path("jacobi-1w-kernel", prob, main_cfg(**one))[0]
+    rr = run_path("jacobi-1w-ref", prob, main_cfg(device_plane="ref",
+                                                  **one))[0]
+    rel = float(np.max(np.abs(rk.x - rr.x)) / np.max(np.abs(rr.x)))
+    print(f"[jacobi-1w] kernel vs numpy-oracle iterate rel diff {rel:.3e} "
+          f"(tol 1e-12)")
+    check(rk.worker_updates == rr.worker_updates == 20,
+          "jacobi-1w: update counts differ")
+    check(rel <= 1e-12, f"jacobi-1w: iterates differ by {rel:.3e}")
+    return launches
+
+
+def phase_vi(dev):
+    from repro_torch import GarnetMDP, ValueIterationProblem
+
+    t0 = time.perf_counter()
+    mdp = GarnetMDP(S=VI_STATES, A=4, b=5, gamma=0.95, seed=0,
+                    sample="fast", device=dev)
+    print(f"[vi] Garnet S={VI_STATES} built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    res, launches, _ = run_path("vi", ValueIterationProblem(mdp), main_cfg())
+    for k in ("bellman_block", "bellman", "anderson_mix"):
+        check(launches[k] > 0, f"vi: {k} was never launched")
+    check(res.device_dispatches > 0, "vi: the device plane never ran")
+    return launches
+
+
+def phase_small_parity(dev):
+    """Small inputs with a known answer: the committed Jacobi golden, and
+    the card against the CPU's plain versions for accelerated VI."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch import (AndersonConfig, FaultProfile, GarnetMDP,
+                             JacobiProblem, RunConfig, ValueIterationProblem,
+                             run_fixed_point)
+
+    faults = FaultProfile(delay_mean=0.002, delay_std=0.001)
+    r = run_fixed_point(
+        JacobiProblem(grid=16, sweeps=5, seed=0, device=dev),
+        RunConfig(mode="async", tol=1e-10, max_updates=600, compute_time=1e-3,
+                  faults=faults, seed=7))
+    sha = hashlib.sha256(np.ascontiguousarray(r.x).tobytes()).hexdigest()
+    got = (r.worker_updates, r.wall_time, sha)
+    print(f"[parity] jacobi_async_plain on the card: {got}")
+    check(got == _JACOBI_GOLDEN, "jacobi_async_plain golden not reproduced")
+    cfg = RunConfig(mode="async", tol=1e-12, max_updates=800,
+                    compute_time=1e-3, faults=faults, seed=11,
+                    accel=AndersonConfig(m=5, mix_kernel_n=1), fire_every=4)
+    runs = {}
+    for d in (dev, "cpu"):
+        runs[str(d)] = run_fixed_point(ValueIterationProblem(GarnetMDP(
+            S=60, A=4, b=5, gamma=0.9, seed=0, device=d)), cfg)
+    rc, rh = runs[str(dev)], runs["cpu"]
+    rel = float(np.max(np.abs(rc.x - rh.x)) / np.max(np.abs(rh.x)))
+    print(f"[parity] vi_async_accel card vs CPU: updates {rc.worker_updates}"
+          f"/{rh.worker_updates}, fires {rc.accel_fires}/{rh.accel_fires}, "
+          f"accepts {rc.accel_accepts}/{rh.accel_accepts}, rel diff "
+          f"{rel:.3e} (tol 1e-12)")
+    check((rc.worker_updates, rc.accel_fires, rc.accel_accepts)
+          == (rh.worker_updates, rh.accel_fires, rh.accel_accepts),
+          "vi parity: counts differ")
+    check(rel <= 1e-12, f"vi parity: iterates differ by {rel:.3e}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--report", type=Path, default=None,
+                    help="also write the full results as JSON here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        raise SystemExit(f"chip_smoke: no repro_torch sources under {src}")
+    sys.path.insert(0, str(src))
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    name = phase_device(torch)
+    phase_build()
+    kernels = phase_kernels(torch, dev, name)
+    launches = {k: 0 for k in kernels}
+    for path in (phase_jacobi, phase_vi):
+        for k, c in path(dev).items():
+            launches[k] += c
+    phase_small_parity(dev)
+    for k, row in kernels.items():
+        row["launches"] = launches[k]
+    line = {"kernels": list(kernels.values())}
+    if args.report is not None:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(line, indent=1))
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,160 @@
+"""The port on the card: each CUDA kernel against its plain version, and
+the problems and the Anderson window on CUDA against the same objects on
+the CPU.
+
+Every test here needs a CUDA device and ``nvcc`` (the kernels build on
+first use) and skips without one; the file imports nothing of JAX, so it
+runs on the machine with the card:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the Jacobi kernels are exact (adds and an exact scaling, in
+the plain version's order); Bellman 1e-13 (the CUDA kernel may contract
+``R + gamma * ev`` to an FMA); ``anderson_mix`` 1e-12 (FMAs over the
+window); norms 1e-12 relative (per-CTA partial sums).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.anderson import AndersonConfig, AndersonState  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.problems import (  # noqa: E402
+    GarnetMDP,
+    JacobiProblem,
+    ValueIterationProblem,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _mdp(S, A, b, D, seed):
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, D, size=(S, A, b)).astype(np.int32)
+    probs = r.dirichlet(np.ones(b), (S, A))
+    rewards = r.uniform(size=(S, A))
+    return idx, probs, rewards, r.standard_normal(D), r.standard_normal(S)
+
+
+class TestKernelsMatchPlain:
+    @pytest.mark.parametrize("rows,g", [(1, 8), (37, 45), (512, 256)])
+    def test_jacobi_halo_sweeps(self, dev, rows, g):
+        r = np.random.default_rng(rows)
+        args = [torch.as_tensor(a, device=dev) for a in (
+            r.standard_normal((rows, g)), r.standard_normal(g),
+            r.standard_normal(g), r.standard_normal((rows, g)))]
+        for sweeps in (1, 2, 5):
+            out, norm = ops.jacobi_halo_sweeps(*args, sweeps=sweeps)
+            want, wnorm = ref.jacobi_halo_sweeps(*args, sweeps=sweeps)
+            torch.testing.assert_close(out, want, rtol=0, atol=0)
+            torch.testing.assert_close(norm, wnorm, rtol=1e-12, atol=0)
+
+    @pytest.mark.parametrize("g", [1, 31, 64, 100])
+    def test_jacobi_sweep(self, dev, g):
+        r = np.random.default_rng(g)
+        x, b = (torch.as_tensor(r.standard_normal(g * g), device=dev)
+                for _ in range(2))
+        torch.testing.assert_close(ops.jacobi_sweep(x, b, g),
+                                   ref.jacobi_sweep(x, b, g), rtol=0, atol=0)
+
+    @pytest.mark.parametrize("S,A,b,D", [
+        (300, 4, 5, 300),        # a ragged last tile of states
+        (140_000, 4, 5, 1000),   # more tiles than CTAs: grid-stride
+        (50, 19, 7, 80),         # the longest row a CTA can stage
+    ])
+    def test_bellman_and_block(self, dev, S, A, b, D):
+        idx, probs, R, v, v_old = (torch.as_tensor(a, device=dev)
+                                   for a in _mdp(S, A, b, D, 2))
+        if D == S:  # the full operator gathers from a v of its own length
+            torch.testing.assert_close(
+                ops.bellman(idx, probs, R, v, gamma=0.95),
+                ref.bellman(idx, probs, R, v, gamma=0.95),
+                rtol=1e-13, atol=1e-13)
+        tv, norm = ops.bellman_block(idx, probs, R, v, v_old, gamma=0.95)
+        wtv, wnorm = ref.bellman_block(idx, probs, R, v, v_old, gamma=0.95)
+        torch.testing.assert_close(tv, wtv, rtol=1e-13, atol=1e-13)
+        torch.testing.assert_close(norm, wnorm, rtol=1e-13, atol=1e-13)
+
+    def test_bellman_rejects_rows_too_long_to_stage(self, dev):
+        idx, probs, R, v, _ = (torch.as_tensor(a, device=dev)
+                               for a in _mdp(8, 20, 7, 8, 2))
+        with pytest.raises(ValueError, match="successors per state"):
+            ops.bellman(idx, probs, R, v, gamma=0.9)
+
+    @pytest.mark.parametrize("beta", [0.0, 0.5, 1.0])
+    @pytest.mark.parametrize("h,N", [(1, 7), (6, 1001), (16, 4096)])
+    def test_anderson_mix(self, dev, beta, h, N):
+        r = np.random.default_rng(h * N)
+        X, G = (torch.as_tensor(r.standard_normal((h, N)), device=dev)
+                for _ in range(2))
+        a = torch.as_tensor(r.standard_normal(h), device=dev)
+        torch.testing.assert_close(ops.anderson_mix(X, G, a, beta=beta),
+                                   ref.anderson_mix(X, G, a, beta=beta),
+                                   rtol=1e-12, atol=1e-12)
+
+    def test_launches_are_counted(self, dev):
+        ops.reset_launch_counts()
+        x = torch.zeros(16, dtype=torch.float64, device=dev)
+        ops.jacobi_sweep(x, x, 4)
+        ops.jacobi_sweep(x, x, 4)
+        assert ops.launch_counts()["jacobi_sweep"] == 2
+
+    def test_wrong_dtype_raises(self, dev):
+        x = torch.zeros(16, dtype=torch.float32, device=dev)
+        with pytest.raises(ValueError, match="dtype"):
+            ops.jacobi_sweep(x, x, 4)
+
+
+class TestProblemsOnTheCard:
+    def test_jacobi_matches_cpu(self, dev):
+        gpu = JacobiProblem(grid=64, sweeps=4, seed=1, device=dev)
+        cpu = JacobiProblem(grid=64, sweeps=4, seed=1, device="cpu")
+        x = np.random.default_rng(0).standard_normal(gpu.n)
+        for blk in gpu.default_blocks(4):  # whole-rows blocks: 16 rows each
+            np.testing.assert_array_equal(gpu.block_update(x, blk),
+                                          cpu.block_update(x, blk))
+            plan = gpu.device_block_plan(blk, "kernel")
+            plan.refresh(x[blk])
+            vals, norm = plan.step(*[np.copy(x[s]) for s in plan.needs])
+            np.testing.assert_array_equal(vals, cpu.block_update(x, blk))
+        np.testing.assert_array_equal(gpu.full_map(x), cpu.full_map(x))
+        assert gpu.residual_norm(x) == pytest.approx(cpu.residual_norm(x),
+                                                     rel=1e-13)
+
+    def test_value_iteration_matches_cpu(self, dev):
+        kw = dict(S=500, A=4, b=5, gamma=0.95, seed=3)
+        gpu = ValueIterationProblem(GarnetMDP(device=dev, **kw))
+        cpu = ValueIterationProblem(GarnetMDP(device="cpu", **kw))
+        x = np.random.default_rng(1).standard_normal(500)
+        np.testing.assert_allclose(gpu.full_map(x), cpu.full_map(x),
+                                   rtol=1e-13, atol=1e-13)
+        for blk in gpu.default_blocks(4):
+            plan = gpu.device_block_plan(blk, "kernel")
+            plan.refresh(x[blk])
+            vals, _ = plan.step(*[np.copy(x[s]) for s in plan.needs])
+            np.testing.assert_allclose(vals, cpu.block_update(x, blk),
+                                       rtol=1e-13, atol=1e-13)
+
+    @pytest.mark.parametrize("beta", [0.5, 1.0])
+    def test_anderson_window_matches_cpu(self, dev, beta):
+        r = np.random.default_rng(9)
+        n = 3000
+        cfg = AndersonConfig(m=4, beta=beta, mix_kernel_n=1)
+        gpu = AndersonState(cfg, device=dev)
+        cpu = AndersonState(cfg, device="cpu")
+        for _ in range(12):  # wraps the ring buffer
+            x = r.standard_normal(n)
+            g = x + 0.1 * r.standard_normal(n)
+            gpu.push(x, g)
+            cpu.push(x, g)
+            np.testing.assert_allclose(gpu.propose(), cpu.propose(),
+                                       rtol=1e-10, atol=1e-12)
