@@ -20,20 +20,30 @@ and no result line is printed):
 5. value-iteration main path — Garnet S = 10^6, A = 4, b = 5, same config;
 6. small-input parity — the ``jacobi_async_plain`` golden trajectory
    reproduced byte for byte on the card, and an accelerated VI run on the
-   card against the same run on the CPU (plain versions).
+   card against the same run on the CPU (plain versions);
+7. LM serving main path — Gemma-2-2B at its published widths (26 layers,
+   float32, weights from a seeded generator) through
+   ``repro_torch.launch.lm_serve``: batched prefill of 2 x 8192 tokens
+   (past the 4096 window, so the local layers' window mask and ring caches
+   bind) and 32 greedy tokens; prefill attention must launch the flash
+   kernel once per layer;
+8. LM parity — Gemma-2-2B widths at depth 2 with window 128, prompt 512:
+   prefill logits and 8 greedy decode steps on the card (kernel) against
+   the same weights on the CPU (plain version).
 
 The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
 on the main paths (counts are reset right before each path and read right
 after), the largest deviation from the plain version, the median times of
 20 CUDA-event-timed calls and the least time the card could take (bytes
-over memory bandwidth or float64 operations over peak, whichever is
-larger; NVIDIA H100 data-sheet figures).  The last line is the device
-summary.
+over memory bandwidth or operations over the peak rate of their type,
+whichever is larger; NVIDIA H100 data-sheet figures).  The last line is
+the device summary.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,13 +53,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: (bytes/s, float64 FLOP/s) by part, from NVIDIA's H100 data sheet
-_PEAKS = {"PCIe": (2.0e12, 26e12), "NVL": (3.9e12, 30e12),
-          "SXM": (3.35e12, 34e12)}
+#: (bytes/s, float64 FLOP/s, float32 FLOP/s outside the tensor cores,
+#: bfloat16 dense tensor FLOP/s) by part, from NVIDIA's H100 data sheet
+_PEAKS = {"PCIe": (2.0e12, 26e12, 51e12, 756e12),
+          "NVL": (3.9e12, 30e12, 60e12, 835e12),
+          "SXM": (3.35e12, 34e12, 67e12, 989e12)}
 
 #: main-path sizes: the Jacobi grid side and the Garnet state count
 JACOBI_GRID = 2048
 VI_STATES = 10 ** 6
+
+#: LM serving main path: Gemma-2-2B, batch x prompt tokens, tokens generated
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma2_2b", 2, 8192, 32
 
 #: the Jacobi golden of tests/test_hotpath_goldens.py (jacobi_async_plain)
 _JACOBI_GOLDEN = (600, 0.4318607003352541,
@@ -115,23 +130,23 @@ def phase_kernels(torch, dev, name):
     """Each kernel against its plain version at the main-path shapes."""
     from repro_torch.kernels import ops, ref
 
-    bw, fp64 = peaks(name)
+    bw, fp64, fp32, bf16 = peaks(name)
     gen = torch.Generator(device=dev).manual_seed(0)
     f64 = dict(dtype=torch.float64, device=dev)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, **f64)
 
-    def bound(nbytes, flops):
-        tb, tf = nbytes / bw * 1e3, flops / fp64 * 1e3
+    def bound(nbytes, flops, peak=fp64):
+        tb, tf = nbytes / bw * 1e3, flops / peak * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
     rows_out = {}
 
     def record(key, shape, err, tol, kfn, pfn, nbytes, flops, lfn=None,
-               source="", replaces="", extra=None):
+               source="", replaces="", extra=None, peak=fp64):
         check(err <= tol, f"{key}: max_abs_err {err:.3e} > tol {tol:.3e}")
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, peak)
         row = dict(name=key, route="cuda", source=source, replaces=replaces,
                    shape=shape, max_abs_err=err, tol=tol,
                    ms=time_ms(torch, kfn), plain_ms=time_ms(torch, pfn),
@@ -235,7 +250,136 @@ def phase_kernels(torch, dev, name):
            extra=dict(rel_err_by_n_beta=errs))
     del X, G, idx, probs, R
     torch.cuda.empty_cache()
+
+    flash_row(torch, dev, record, bound, err_of, (fp32, bf16))
     return rows_out
+
+
+#: flash-attention checks at small shapes (TestFlashAttention's sweep, a
+#: q_offset case, a ragged one): B, Sq, Skv, nq, nkv, hd, causal, window,
+#: softcap, q_offset
+FLASH_SWEEP = [
+    (1, 128, 128, 4, 4, 64, True, None, None, 0),
+    (2, 256, 256, 8, 2, 64, True, None, None, 0),
+    (2, 128, 128, 4, 1, 128, True, None, None, 0),
+    (1, 256, 256, 4, 2, 64, True, 64, None, 0),
+    (1, 128, 128, 2, 2, 64, True, None, 30.0, 0),
+    (2, 128, 128, 4, 4, 64, False, None, None, 0),
+    (1, 256, 256, 8, 2, 64, True, 32, 50.0, 0),
+    (2, 64, 256, 4, 4, 64, True, None, None, 192),
+    (2, 1000, 1000, 8, 4, 256, True, 300, 50.0, 0),
+]
+
+
+def attention_pairs(Sq, Skv, causal, window, q_offset=0):
+    """Unmasked (query, key) pairs of one head: what the work needs."""
+    import numpy as np
+
+    qpos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(Sq, np.int64))
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_row(torch, dev, record, bound, err_of, peaks_fp):
+    """flash_attention at the Gemma-2-2B serve shape (a local layer of the
+    LM main path) in float32 and bfloat16, plus the small sweep; timed
+    against its plain version and, with the softcap off (SDPA has none),
+    against ``scaled_dot_product_attention`` with an explicit mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    fp32, bf16 = peaks_fp
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    # At the serve shape a row of 4096 keys gives outputs of ~0.03, so 2e-2
+    # would hide a bfloat16 fault; there both sides round the same float32
+    # result to bfloat16, so hold each element to the float32 tolerance
+    # plus two bfloat16 ulps of the plain value.
+    bf16_rtol = 2.0 ** -6
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sweep_err = {}
+    for case in FLASH_SWEEP:
+        B, Sq, Skv, nq, nkv, hd, causal, window, cap, off = case
+        for dt, tol in tols.items():
+            q = torch.randn(B, Sq, nq, hd, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, Skv, nkv, hd, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, Skv, nkv, hd, generator=gen, device=dev).to(dt)
+            kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+            err = err_of(ops.flash_attention(q, k, v, **kw).float(),
+                         ref.flash_attention(q, k, v, **kw).float())
+            check(err <= tol, f"flash_attention {case} {dt}: err {err:.3e}")
+            key = f"{dt}".replace("torch.", "")
+            sweep_err[key] = max(sweep_err.get(key, 0.0), err)
+    print(f"[kernels] flash_attention sweep ({len(FLASH_SWEEP)} shapes): "
+          f"max err {sweep_err}")
+
+    B, S, nq, nkv, hd, window, cap = LM_BATCH, LM_PROMPT, 8, 4, 256, 4096, 50.0
+    pairs = attention_pairs(S, S, True, window)
+    flops = 4 * B * nq * hd * pairs
+    elems = 2 * B * S * nq * hd + 2 * B * S * nkv * hd  # q, o, k, v
+    kw = dict(causal=True, window=window, softcap=cap)
+    qf = torch.randn(B, S, nq, hd, generator=gen, device=dev)
+    kf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
+    vf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = qf.to(dt), kf.to(dt), vf.to(dt)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ref.flash_attention(q, k, v, **kw).float()
+        err = err_of(got, want)
+        rtol = bf16_rtol if dt == torch.bfloat16 else 0.0
+        excess = float(((got - want).abs() - rtol * want.abs()).max())
+        del got, want
+        check(excess <= tols[torch.float32],
+              f"flash_attention serve shape {dt}: |err| - {rtol:g}|ref| "
+              f"reaches {excess:.3e} > {tols[torch.float32]:.0e}")
+        if dt == torch.bfloat16:
+            b_ms, b_by = bound(elems * 2, flops, bf16)
+            out.update(bf16_max_abs_err=err,
+                       bf16_tol=f"{tols[torch.float32]:g} + {rtol:g}|ref|",
+                       bf16_ms=time_ms(torch, lambda: ops.flash_attention(
+                           q, k, v, **kw)),
+                       bf16_plain_ms=time_ms(torch, lambda: ref.flash_attention(
+                           q, k, v, **kw), reps=5, warmup=1),
+                       bf16_bound_ms=b_ms, bf16_bound_by=b_by)
+            del q, k, v
+            torch.cuda.empty_cache()
+    # SDPA: the same masks (boolean, True = attend), GQA, no softcap.
+    pos = torch.arange(S, device=dev)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    nocap = dict(causal=True, window=window)
+    lib_err = err_of(sdpa().transpose(1, 2),
+                     ops.flash_attention(qf, kf, vf, **nocap))
+    out.update(ms_softcap_off=time_ms(torch, lambda: ops.flash_attention(
+                   qf, kf, vf, **nocap)),
+               library_softcap="off", library_max_abs_err=lib_err,
+               pairs=pairs, flops=flops, dtype="float32",
+               sweep_max_abs_err=sweep_err)
+    print(f"[kernels] flash_attention bf16 {[B, S, nq, nkv, hd]}: err "
+          f"{out['bf16_max_abs_err']:.2e}, kernel {out['bf16_ms']:.3f} ms, "
+          f"plain {out['bf16_plain_ms']:.3f} ms, bound "
+          f"{out['bf16_bound_ms']:.4f} ms ({out['bf16_bound_by']}); f32 with "
+          f"softcap off {out['ms_softcap_off']:.3f} ms (SDPA agrees to "
+          f"{lib_err:.2e})")
+    q, k, v = qf, kf, vf
+    record("flash_attention", [B, S, S, nq, nkv, hd, "causal", window, cap],
+           err_of(ops.flash_attention(q, k, v, **kw),
+                  ref.flash_attention(q, k, v, **kw)), tols[torch.float32],
+           lambda: ops.flash_attention(q, k, v, **kw),
+           lambda: ref.flash_attention(q, k, v, **kw), elems * 4, flops,
+           lfn=sdpa, source="src/repro_torch/csrc/flash_attention.cu",
+           replaces="src/repro/kernels/flash_attention.py:132", extra=out,
+           peak=fp32)
+    del q, k, v, qf, kf, vf, qt, kt, vt, mask
+    torch.cuda.empty_cache()
 
 
 def run_path(label, problem, cfg):
@@ -355,6 +499,82 @@ def phase_small_parity(dev):
     check(rel <= 1e-12, f"vi parity: iterates differ by {rel:.3e}")
 
 
+def phase_lm(torch, dev):
+    """Gemma-2-2B at its published widths through lm_serve's functions."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_serve
+
+    cfg = lm_serve.make_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm_serve.make_params(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B float32 parameters drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    lm_serve.serve(cfg, params, lm_serve.make_prompt(cfg, LM_BATCH, 64, dev),
+                   2)  # warm-up: cuBLAS handles and plans, not measured
+    prompt = lm_serve.make_prompt(cfg, LM_BATCH, LM_PROMPT, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, params, prompt, LM_GEN)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(tuple(res.tokens.shape) == (LM_BATCH, LM_GEN),
+          f"lm: tokens shape {tuple(res.tokens.shape)}")
+    check(bool(torch.isfinite(res.prefill_logits).all()),
+          "lm: non-finite prefill logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "lm: token out of the vocabulary")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"lm: flash_attention launched {launches['flash_attention']} "
+          f"times in one prefill, expected {cfg.n_layers}")
+    decode_s = res.decode_ms_per_step * (LM_GEN - 1) / 1e3
+    print(f"[lm] prefill {LM_BATCH} x {LM_PROMPT} tokens: {res.prefill_s:.3f}"
+          f" s ({LM_BATCH * LM_PROMPT / res.prefill_s:.0f} tokens/s); decode "
+          f"{res.decode_ms_per_step:.2f} ms/step ({LM_BATCH * 1e3 / res.decode_ms_per_step:.1f}"
+          f" tokens/s); {LM_BATCH * LM_GEN} tokens generated in "
+          f"{res.prefill_s + decode_s:.3f} s "
+          f"({LM_BATCH * LM_GEN / (res.prefill_s + decode_s):.1f} tokens/s); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; flash_attention "
+          f"launches {launches['flash_attention']}")
+    print(f"[lm] row0: {res.tokens[0].tolist()}")
+    del params, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_parity(torch, dev):
+    """Gemma-2-2B widths at depth 2, window 128, prompt 512: the card (flash
+    kernel) against the CPU (plain version) on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2, window=128)
+    cpu = torch.device("cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(1),
+                         dtype=torch.float32, device=cpu)
+    prompt = lm_serve.make_prompt(cfg, 2, 512, cpu, seed=1)
+    t0 = time.perf_counter()
+    want = lm_serve.serve(cfg, params, prompt, 9, keep_logits=True)
+    cpu_s = time.perf_counter() - t0
+    got = lm_serve.serve(cfg, params.to(dev), prompt.to(dev), 9,
+                         keep_logits=True)
+    rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+              for a, b in zip([got.prefill_logits] + got.step_logits,
+                              [want.prefill_logits] + want.step_logits))
+    same = torch.equal(got.tokens.cpu(), want.tokens)
+    print(f"[lm-parity] depth 2, window 128, prompt 2 x 512, 8 decode steps:"
+          f" logits rel diff {rel:.3e} (tol 1e-4), tokens identical {same} "
+          f"(CPU run {cpu_s:.1f} s)")
+    check(rel <= 1e-4, f"lm parity: logits differ by {rel:.3e}")
+    check(same, "lm parity: greedy tokens differ")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -372,14 +592,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    # The LM stack's float32 products run in full float32, as the
+    # reference's einsums do (PyTorch's default; stated, not assumed).
+    torch.backends.cuda.matmul.allow_tf32 = False
     name = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch, dev, name)
     launches = {k: 0 for k in kernels}
-    for path in (phase_jacobi, phase_vi):
+    for path in (phase_jacobi, phase_vi, lambda d: phase_lm(torch, d)):
         for k, c in path(dev).items():
             launches[k] += c
     phase_small_parity(dev)
+    phase_lm_parity(torch, dev)
     for k, row in kernels.items():
         row["launches"] = launches[k]
     line = {"kernels": list(kernels.values())}

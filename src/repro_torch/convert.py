@@ -9,13 +9,18 @@ so both sides compute on identical data.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ._device import resolve_device
+from .configs.base import ModelConfig
 from .core.anderson import AndersonConfig, AndersonState
+from .models.common import tree_map
+from .models.transformer import DecoderLM, model_spec
 from .problems.jacobi import JacobiProblem
 from .problems.value_iteration import GarnetMDP
 
 __all__ = ["jacobi_from_arrays", "garnet_from_arrays",
-           "anderson_from_snapshot"]
+           "anderson_from_snapshot", "lm_params_from_arrays"]
 
 
 def jacobi_from_arrays(b, grid: int, sweeps: int, device=None) -> JacobiProblem:
@@ -52,3 +57,41 @@ def anderson_from_snapshot(snap: dict, config: AndersonConfig,
     state = AndersonState(config, device=device)
     state.restore(snap)
     return state
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree: dict,
+                          device=None) -> DecoderLM:
+    """The port's :class:`~repro_torch.models.transformer.DecoderLM` holding
+    exactly the arrays of a reference parameter tree (``init_params``'s
+    output as nested dicts of numpy arrays).
+
+    Both packages keep the reference's einsum layouts (``wq (d, nq, hd)``,
+    ``wi (d, 2, f)``, ...), so this is a renaming, never a transpose: the
+    stacked ``stack`` leaves ``(n_periods, ...)`` are split per layer, in
+    order, followed by the ``rest`` layers.  Shapes are checked against
+    the port's own :func:`~repro_torch.models.transformer.model_spec`.
+    The tensors land on ``device`` (None: the card).
+    """
+    spec = model_spec(cfg)
+    device = resolve_device(device)
+
+    def check(spec_node, node, path):
+        if isinstance(spec_node, dict):
+            if not isinstance(node, dict) or set(node) != set(spec_node):
+                raise ValueError(f"{path or 'tree'}: expected keys "
+                                 f"{sorted(spec_node)}")
+            for k in spec_node:
+                check(spec_node[k], node[k], f"{path}/{k}")
+        elif tuple(np.shape(node)) != tuple(spec_node.shape):
+            raise ValueError(f"{path}: expected shape {spec_node.shape}, got "
+                             f"{np.shape(node)}")
+
+    check(spec, tree, "")
+    to_t = lambda a: torch.as_tensor(np.array(a), device=device)  # noqa: E731
+    layers = [tree_map(lambda a, p=p: to_t(np.asarray(a)[p]),
+                       tree["stack"][str(i)])
+              for p in range(cfg.n_periods) for i in range(len(cfg.period))]
+    layers += [tree_map(to_t, tree["rest"][str(i)])
+               for i in range(len(cfg.remainder))]
+    return DecoderLM(cfg, tree_map(to_t, tree["embed"]), layers,
+                     tree_map(to_t, tree["final_norm"]))

@@ -119,8 +119,27 @@ def diis_solve(F, reg: float) -> np.ndarray:
     Returns:
       alpha: (h,) simplex-constrained coefficients (host numpy).
     """
-    F = torch.as_tensor(F, dtype=torch.float64)
-    return _solve_kkt(to_host(F @ F.T), reg)
+    return _solve_kkt(_gram(torch.as_tensor(F, dtype=torch.float64)), reg)
+
+
+def _gram(F: torch.Tensor) -> np.ndarray:
+    """``F Fᵀ`` as host numpy.  On the CPU it is numpy's product of the
+    zero-copy ``.numpy()`` views, the reference's float operations in the
+    reference's order (a torch matmul differs in the last place, and the
+    async accelerated Jacobi trajectory amplifies that); on CUDA it is one
+    device matmul."""
+    if F.device.type == "cpu":
+        Fn = F.numpy()
+        return Fn @ Fn.T
+    return to_host(F @ F.T)
+
+
+def _gram_row(W: torch.Tensor, f: torch.Tensor) -> np.ndarray:
+    """``W f`` (one incremental Gram row) as host numpy; numpy's GEMV on
+    the CPU, as :func:`_gram`."""
+    if W.device.type == "cpu":
+        return W.numpy() @ f.numpy()
+    return to_host(W @ f)
 
 
 @dataclass
@@ -225,7 +244,7 @@ class AndersonState:
         self._len += 1
         if self._B is not None:  # rank-1 row/column update with the new f
             h = self._len
-            r = to_host(self._window(self._F) @ self._F[row])
+            r = _gram_row(self._window(self._F), self._F[row])
             self._B[h - 1, :h] = r
             self._B[:h, h - 1] = r
 
@@ -275,7 +294,7 @@ class AndersonState:
         self._start, self._len = 0, h
         if self._B is not None:
             for k in range(h):
-                r = to_host(self._F[:k + 1] @ self._F[k])
+                r = _gram_row(self._F[:k + 1], self._F[k])
                 self._B[k, :k + 1] = r
                 self._B[:k + 1, k] = r
 
@@ -297,8 +316,7 @@ class AndersonState:
         if self._B is not None:
             B = self._B[:h, :h]
         else:
-            F = self._window(self._F)
-            B = to_host(F @ F.T)
+            B = _gram(self._window(self._F))
         alpha = _solve_kkt(B, self.config.reg)
         if not np.all(np.isfinite(alpha)) or np.abs(alpha).sum() > self.config.max_coeff:
             return None

@@ -12,20 +12,21 @@ that its main path went through the kernels.
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 from . import anderson_mix as _mix
 from . import bellman as _bellman
+from . import flash_attention as _flash
 from . import jacobi_stencil as _jacobi
 from . import ref
 
 __all__ = ["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
-           "anderson_mix", "launch_counts", "reset_launch_counts",
-           "KERNELS"]
+           "anderson_mix", "flash_attention", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
 
 #: the wrappers that count launches, in the order of the kernel table
 KERNELS = ("jacobi_halo_sweeps", "jacobi_sweep", "bellman_block", "bellman",
-           "anderson_mix")
+           "anderson_mix", "flash_attention")
 
 _count_lock = threading.Lock()
 _counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -57,6 +58,28 @@ def _on_cpu(*tensors) -> bool:
         return False
     raise ValueError(f"inputs must all be on the CPU or all on CUDA, got "
                      f"{sorted(kinds)}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None, q_offset: int = 0):
+    """GQA attention, q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), with the
+    causal, sliding-window, softcap and ``q_offset`` options."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("expected (B, S, heads, head_dim) inputs")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v mismatch: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads "
+                         f"{k.shape[2]}")
+    if _on_cpu(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
+    out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset)
+    _counted("flash_attention")
+    return out
 
 
 def jacobi_sweep(x, b, g: int):

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five CUDA kernels, plus numpy oracles.
+"""Plain PyTorch versions of the six CUDA kernels, plus numpy oracles.
 
 Each torch function computes exactly what its kernel computes, with the
 same argument order (``kernels/ref.py`` and the Pallas kernels of the JAX
@@ -10,6 +10,10 @@ against them.  The arithmetic order is part of the contract:
   like ``_halo_kernel`` and the host path's ``_block_sweeps``;
 * ``jacobi_sweep`` sums ``((((b + up) + down) + left) + right) * 0.25``
   like ``_jacobi_kernel`` (not ``ref_jacobi_sweep``'s order).
+
+``flash_attention`` is ``ref_attention`` (materialised float32 scores)
+with its conventions: ``-2e38`` for masked scores, zeros for fully-masked
+rows, kv head ``h // (nq / nkv)``.
 
 The ``oracle_*`` functions are numpy copies of the reference's
 ``ref_jacobi_halo_sweeps``/``ref_bellman_block``: the device plane's
@@ -23,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
-           "anderson_mix", "oracle_jacobi_halo_sweeps", "oracle_bellman_block"]
+           "anderson_mix", "flash_attention", "oracle_jacobi_halo_sweeps",
+           "oracle_bellman_block"]
 
 
 def jacobi_sweep(x: torch.Tensor, b: torch.Tensor, g: int) -> torch.Tensor:
@@ -69,6 +74,35 @@ def anderson_mix(X: torch.Tensor, G: torch.Tensor, alpha: torch.Tensor, *,
     window."""
     combined = (1.0 - beta) * X + beta * G
     return alpha.to(combined.dtype) @ combined
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, softcap=None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Grouped-query attention, q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd),
+    computed in float32 and returned in q's dtype.  Query row i sits at
+    position ``i + q_offset``; key j at position j."""
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    qg = q.reshape(B, Sq, nkv, g, hd).float()
+    s = torch.einsum("bsngh,btnh->bngst", qg * hd ** -0.5, k.float())
+    if softcap is not None:
+        s.div_(softcap).tanh_().mul_(softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s.masked_fill_(~mask, -2.0e38)
+    w = torch.softmax(s, dim=-1)
+    del s
+    out = torch.einsum("bngst,btnh->bsngh", w, v.float())
+    # fully-masked rows: zero output (the kernel's convention)
+    out.masked_fill_(~mask.any(-1)[None, :, None, None, None], 0.0)
+    return out.reshape(B, Sq, nq, hd).to(q.dtype)
 
 
 def oracle_jacobi_halo_sweeps(xb, top, bot, b, *, sweeps: int):

@@ -11,7 +11,12 @@ runs on the machine with the card:
 Tolerances: the Jacobi kernels are exact (adds and an exact scaling, in
 the plain version's order); Bellman 1e-13 (the CUDA kernel may contract
 ``R + gamma * ev`` to an FMA); ``anderson_mix`` 1e-12 (FMAs over the
-window); norms 1e-12 relative (per-CTA partial sums).
+window); norms 1e-12 relative (per-CTA partial sums); ``flash_attention``
+2e-5 in float32 and 2e-2 in bfloat16 (an online softmax against the plain
+version's one-shot softmax, as ``tests/test_kernels.py`` holds the Pallas
+kernel); the LM serving path on the card against the same weights on the
+CPU 1e-4 relative in the logits (float32 matmuls in other orders through
+a stack of layers) with identical greedy tokens.
 """
 
 import numpy as np
@@ -21,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.anderson import AndersonConfig, AndersonState  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import lm_serve  # noqa: E402
 from repro_torch.problems import (  # noqa: E402
     GarnetMDP,
     JacobiProblem,
@@ -158,3 +164,96 @@ class TestProblemsOnTheCard:
             cpu.push(x, g)
             np.testing.assert_allclose(gpu.propose(), cpu.propose(),
                                        rtol=1e-10, atol=1e-12)
+
+
+#: B, Sq, Skv, nq, nkv, hd, causal, window, softcap, q_offset
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 64, True, None, None, 0),    # TestFlashAttention's
+    (2, 256, 256, 8, 2, 64, True, None, None, 0),    # sweep
+    (2, 128, 128, 4, 1, 128, True, None, None, 0),
+    (1, 256, 256, 4, 2, 64, True, 64, None, 0),
+    (1, 128, 128, 2, 2, 64, True, None, 30.0, 0),
+    (2, 128, 128, 4, 4, 64, False, None, None, 0),
+    (1, 256, 256, 8, 2, 64, True, 32, 50.0, 0),
+    (2, 64, 256, 4, 4, 64, True, None, None, 192),   # q_offset
+    (2, 77, 50, 4, 2, 32, True, 20, 50.0, -27),      # ragged, masked rows
+    (1, 100, 300, 2, 1, 16, False, 40, None, 150),   # window, no causal
+    (1, 200, 200, 8, 4, 256, True, 96, 50.0, 0),     # gemma2's head dim
+]
+
+
+class TestFlashAttentionKernel:
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("B,Sq,Skv,nq,nkv,hd,causal,window,softcap,off",
+                             FLASH_CASES)
+    def test_matches_plain(self, dev, dtype, tol, B, Sq, Skv, nq, nkv, hd,
+                           causal, window, softcap, off):
+        r = np.random.default_rng(Sq * hd + Skv)
+        q = torch.as_tensor(r.standard_normal((B, Sq, nq, hd)),
+                            dtype=dtype, device=dev)
+        k, v = (torch.as_tensor(r.standard_normal((B, Skv, nkv, hd)),
+                                dtype=dtype, device=dev) for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, **kw)
+        assert got.dtype == dtype and got.shape == (B, Sq, nq, hd)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+    def test_strided_views_read_in_place(self, dev):
+        """k and v as head slices of one fused (B, S, 2*nkv, hd) tensor."""
+        r = np.random.default_rng(4)
+        q = torch.as_tensor(r.standard_normal((2, 96, 4, 32)),
+                            dtype=torch.float32, device=dev)
+        kv = torch.as_tensor(r.standard_normal((2, 96, 4, 32)),
+                             dtype=torch.float32, device=dev)
+        k, v = kv[:, :, :2], kv[:, :, 2:]
+        assert not k.is_contiguous()
+        torch.testing.assert_close(ops.flash_attention(q, k, v, window=16),
+                                   ref.flash_attention(q, k, v, window=16),
+                                   rtol=2e-5, atol=2e-5)
+
+    def test_fully_masked_rows_are_zero(self, dev):
+        q = torch.ones(1, 64, 2, 32, device=dev)
+        out = ops.flash_attention(q, q, q, causal=True, q_offset=-64)
+        assert bool((out == 0).all())
+
+    def test_launches_are_counted(self, dev):
+        ops.reset_launch_counts()
+        q = torch.zeros(1, 8, 2, 16, device=dev)
+        ops.flash_attention(q, q, q)
+        ops.flash_attention(q, q, q)
+        assert ops.launch_counts()["flash_attention"] == 2
+
+    @pytest.mark.parametrize("shape,dtype,match", [
+        ((1, 8, 2, 48), torch.float32, "head dim"),
+        ((1, 8, 2, 16), torch.float64, "dtype"),
+    ])
+    def test_rejects_what_the_kernel_does_not_take(self, dev, shape, dtype,
+                                                   match):
+        q = torch.zeros(shape, dtype=dtype, device=dev)
+        with pytest.raises(ValueError, match=match):
+            ops.flash_attention(q, q, q)
+
+
+class TestLmOnTheCard:
+    @pytest.mark.parametrize("arch", ["gemma2_2b", "gemma3_4b"])
+    def test_serve_matches_cpu(self, dev, arch):
+        """Reduced config, prompt past the window: prefill through the
+        kernel and greedy decode on the card against the CPU run."""
+        cfg = lm_serve.make_config(arch, reduced=True)
+        cpu = torch.device("cpu")
+        params = lm_serve.make_params(cfg, cpu, seed=1)
+        prompt = lm_serve.make_prompt(cfg, 2, 40, cpu)
+        want = lm_serve.serve(cfg, params, prompt, gen=6, keep_logits=True)
+        ops.reset_launch_counts()
+        got = lm_serve.serve(cfg, params.to(dev), prompt.to(dev), gen=6,
+                             keep_logits=True)
+        assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+        assert torch.equal(got.tokens.cpu(), want.tokens)
+        for a, b in zip([got.prefill_logits] + got.step_logits,
+                        [want.prefill_logits] + want.step_logits):
+            rel = float((a.cpu() - b).abs().max() / b.abs().max())
+            assert rel <= 1e-4

@@ -9,14 +9,18 @@ problems on the port's side:
   and an exact division in the same order on both sides).
 * The accelerated runs and the value-iteration runs are held to identical
   update, fire and accept counts, with iterates within 1e-12 relative.
-  The Anderson Gram is a torch matmul in the port and a numpy product in
+  The Anderson combine is a torch GEMV in the port and a numpy product in
   the reference, and the VI expectation is reduced in another order, so
   the bytes may differ in the last place.
 * ``jacobi_async_accel`` is the one exception: 1e-8 relative.  Async
   Jacobi with Anderson is the paper's iterate-level-corruption case; its
-  trajectory amplifies a last-ulp difference in the Gram (torch matmul
-  against numpy's) to ~1e-9 relative in the final iterate, while every
-  count still matches.  ROADMAP.md queue 3 records this.
+  trajectory amplifies a last-ulp difference to ~1e-9 relative in the
+  final iterate, while every count still matches.  The CPU Gram is
+  numpy's product, as the reference's (``TestCpuGram``); what still
+  differs is the full map's add order (the port's ``jacobi_sweep``
+  follows the Pallas kernel, the reference problem's default path
+  ``_full_sweep``) and the combine (a torch GEMV).  ROADMAP.md queue 3
+  records this.
 
 Also here: the thread executor with the device plane against the JAX
 thread run, the device-plane resolver matrix, and the guard that refuses
@@ -153,6 +157,32 @@ class TestGoldenParity:
             jr.restarts, jr.sdc_rejects, jr.quarantined)
         assert tr.sdc_rejects > 0 and tr.crashes > 0
         np.testing.assert_array_equal(tr.x, jr.x)
+
+
+class TestCpuGram:
+    """On the CPU the Anderson Gram is numpy's ``F @ F.T`` (and its
+    incremental rows numpy GEMVs) on the window's zero-copy views: the
+    reference's float operations, bit for bit."""
+
+    @pytest.mark.parametrize("gram", ["exact", "incremental"])
+    def test_gram_equals_reference_bytes(self, gram):
+        from repro.core.anderson import AndersonState as JState
+        from repro_torch.core.anderson import AndersonState, _gram
+
+        r = np.random.default_rng(3)
+        jst = JState(JAnderson(m=3, gram=gram))
+        tst = AndersonState(AndersonConfig(m=3, gram=gram), device="cpu")
+        for _ in range(6):  # wraps and compacts the window once
+            x, g = r.standard_normal(1001), r.standard_normal(1001)
+            jst.push(x, g)
+            tst.push(x, g)
+        if gram == "incremental":
+            want, got = jst._B, tst._B
+        else:
+            F = jst._window(jst._F)
+            want, got = F @ F.T, _gram(tst._window(tst._F))
+        assert got.shape == want.shape == (4, 4)
+        assert got.tobytes() == want.tobytes()
 
 
 class TestThreadExecutor:

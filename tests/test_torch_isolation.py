@@ -104,6 +104,44 @@ class TestDevices:
             _device.resolve_device("meta")
 
 
+def _tiny_lm():
+    from repro_torch.launch import lm_serve
+
+    return lm_serve.make_config("gemma2_2b", reduced=True)
+
+
+def _zeros_tree(cfg):
+    import numpy as np
+
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import model_spec
+
+    return tree_map(lambda s: np.zeros(s.shape, np.float32), model_spec(cfg))
+
+
+@pytest.mark.parametrize("call", [
+    lambda cfg, **kw: repro_torch.models.init_params(cfg, **kw),
+    lambda cfg, **kw: repro_torch.models.init_caches(cfg, 2, 8, torch.float32,
+                                                     **kw),
+    lambda cfg, **kw: repro_torch.convert.lm_params_from_arrays(
+        cfg, _zeros_tree(cfg), **kw),
+], ids=["init_params", "init_caches", "lm_params_from_arrays"])
+def test_lm_entry_points_default_to_the_card(monkeypatch, call):
+    """Without ``device=`` the LM entry points target the card (and raise
+    without one); the CPU is taken only on request."""
+    import repro_torch.convert  # noqa: F401
+    import repro_torch.models  # noqa: F401
+
+    cfg = _tiny_lm()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(cfg)
+    out = call(cfg, device="cpu")
+    tensors = (list(out.parameters()) if isinstance(out, torch.nn.Module)
+               else [c.k for c in out])
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
 class _CudaStub:
     """Stands in for a CUDA tensor (this host has none): only the device
     and shape, which is all a wrapper reads before it launches."""
@@ -112,6 +150,10 @@ class _CudaStub:
         self.shape = torch.Size(shape)
         self.ndim = len(shape)
         self.device = torch.device("cuda", 0)
+        self.dtype = torch.float32
+
+    def stride(self, dim):
+        return 1
 
 
 @pytest.fixture
@@ -131,8 +173,10 @@ def no_plain(monkeypatch):
     lambda S: ops.bellman_block(S(3, 2, 2), S(3, 2, 2), S(3, 2), S(7), S(3),
                                 gamma=0.9),
     lambda S: ops.anderson_mix(S(3, 8), S(3, 8), S(3), beta=0.5),
+    lambda S: ops.flash_attention(S(1, 8, 4, 16), S(1, 8, 2, 16),
+                                  S(1, 8, 2, 16), window=4, softcap=50.0),
 ], ids=["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
-        "anderson_mix"])
+        "anderson_mix", "flash_attention"])
 def test_cuda_inputs_never_take_the_plain_version(no_plain, call):
     before = ops.launch_counts()
     with pytest.raises(RuntimeError, match="CUDA"):
