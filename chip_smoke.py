@@ -33,8 +33,9 @@ and no result line is printed):
 
 The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
 on the main paths (counts are reset right before each path and read right
-after), the largest deviation from the plain version, the median times of
-20 CUDA-event-timed calls and the least time the card could take (bytes
+after), the largest deviation from the plain version, the mean time of
+20 back-to-back calls between two CUDA events and the least time the card
+could take (bytes
 over memory bandwidth or operations over the peak rate of their type,
 whichever is larger; NVIDIA H100 data-sheet figures).  The last line is
 the device summary.
@@ -45,19 +46,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-#: (bytes/s, float64 FLOP/s, float32 FLOP/s outside the tensor cores,
-#: bfloat16 dense tensor FLOP/s) by part, from NVIDIA's H100 data sheet
-_PEAKS = {"PCIe": (2.0e12, 26e12, 51e12, 756e12),
-          "NVL": (3.9e12, 30e12, 60e12, 835e12),
-          "SXM": (3.35e12, 34e12, 67e12, 989e12)}
 
 #: main-path sizes: the Jacobi grid side and the Garnet state count
 JACOBI_GRID = 2048
@@ -74,30 +68,6 @@ _JACOBI_GOLDEN = (600, 0.4318607003352541,
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def peaks(name: str):
-    for part, vals in _PEAKS.items():
-        if part in name:
-            return vals
-    return _PEAKS["SXM"]
-
-
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of one call, CUDA-event timed after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def phase_device(torch):
@@ -129,6 +99,7 @@ def phase_build():
 def phase_kernels(torch, dev, name):
     """Each kernel against its plain version at the main-path shapes."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_bench import bound_ms, peaks, time_ms
 
     bw, fp64, fp32, bf16 = peaks(name)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -138,8 +109,7 @@ def phase_kernels(torch, dev, name):
         return torch.randn(*shape, generator=gen, **f64)
 
     def bound(nbytes, flops, peak=fp64):
-        tb, tf = nbytes / bw * 1e3, flops / peak * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
+        return bound_ms(nbytes, flops, bw, peak)
 
     rows_out = {}
 
@@ -178,15 +148,21 @@ def phase_kernels(torch, dev, name):
            replaces="src/repro/kernels/jacobi_stencil.py:78",
            extra=dict(norm_rel_err=norm_rel))
 
-    # jacobi_sweep: the full map of the g=2048 grid.
+    # jacobi_sweep: the full map of the g=2048 grid, in both add orders;
+    # timed in _full_sweep's ("jnp"), the problem's default.
     n = g * g
     x, b = randn(n), randn(n)
-    record("jacobi_sweep", [n], err_of(ops.jacobi_sweep(x, b, g),
-                                       ref.jacobi_sweep(x, b, g)), 0.0,
-           lambda: ops.jacobi_sweep(x, b, g),
-           lambda: ref.jacobi_sweep(x, b, g), 3 * n * 8, 5 * n,
+    pallas_err = err_of(ops.jacobi_sweep(x, b, g, "pallas"),
+                        ref.jacobi_sweep(x, b, g, "pallas"))
+    check(pallas_err == 0.0, f"jacobi_sweep (Pallas order) err {pallas_err}")
+    record("jacobi_sweep", [n, "jnp order"],
+           err_of(ops.jacobi_sweep(x, b, g, "jnp"),
+                  ref.jacobi_sweep(x, b, g, "jnp")), 0.0,
+           lambda: ops.jacobi_sweep(x, b, g, "jnp"),
+           lambda: ref.jacobi_sweep(x, b, g, "jnp"), 3 * n * 8, 5 * n,
            source="src/repro_torch/csrc/jacobi_stencil.cu",
-           replaces="src/repro/kernels/jacobi_stencil.py:109")
+           replaces="src/repro/kernels/jacobi_stencil.py:109",
+           extra=dict(pallas_order_max_abs_err=pallas_err))
 
     # bellman / bellman_block: the S=10^6 Garnet MDP and one worker block.
     S, A, B, gamma = VI_STATES, 4, 5, 0.95
@@ -256,7 +232,7 @@ def phase_kernels(torch, dev, name):
 
 
 #: flash-attention checks at small shapes (TestFlashAttention's sweep, a
-#: q_offset case, a ragged one): B, Sq, Skv, nq, nkv, hd, causal, window,
+#: q_offset case, ragged ones): B, Sq, Skv, nq, nkv, hd, causal, window,
 #: softcap, q_offset
 FLASH_SWEEP = [
     (1, 128, 128, 4, 4, 64, True, None, None, 0),
@@ -268,28 +244,20 @@ FLASH_SWEEP = [
     (1, 256, 256, 8, 2, 64, True, 32, 50.0, 0),
     (2, 64, 256, 4, 4, 64, True, None, None, 192),
     (2, 1000, 1000, 8, 4, 256, True, 300, 50.0, 0),
+    (1, 131, 299, 4, 2, 16, True, 70, 50.0, 168),
 ]
-
-
-def attention_pairs(Sq, Skv, causal, window, q_offset=0):
-    """Unmasked (query, key) pairs of one head: what the work needs."""
-    import numpy as np
-
-    qpos = np.arange(Sq, dtype=np.int64) + q_offset
-    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
-    lo = (np.maximum(qpos - window + 1, 0) if window is not None
-          else np.zeros(Sq, np.int64))
-    return int(np.clip(hi - lo, 0, None).sum())
 
 
 def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     """flash_attention at the Gemma-2-2B serve shape (a local layer of the
     LM main path) in float32 and bfloat16, plus the small sweep; timed
     against its plain version and, with the softcap off (SDPA has none),
-    against ``scaled_dot_product_attention`` with an explicit mask."""
+    against ``scaled_dot_product_attention`` with an explicit mask.  The
+    global layer's shape (no window) is checked and timed beside it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_bench import attention_pairs, time_ms
 
     fp32, bf16 = peaks_fp
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -369,6 +337,31 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
           f"{out['bf16_bound_ms']:.4f} ms ({out['bf16_bound_by']}); f32 with "
           f"softcap off {out['ms_softcap_off']:.3f} ms (SDPA agrees to "
           f"{lib_err:.2e})")
+    # The global layers (no window) of the same prefill.
+    gkw = dict(causal=True, softcap=cap)
+    gflops = 4 * B * nq * hd * attention_pairs(S, S, True, None)
+    got = ops.flash_attention(qf, kf, vf, **gkw)
+    want = ref.flash_attention(qf, kf, vf, **gkw)
+    g_err = err_of(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    check(g_err <= tols[torch.float32],
+          f"flash_attention global layer: err {g_err:.3e}")
+    g_bound, g_by = bound(elems * 4, gflops, fp32)
+    out.update(global_max_abs_err=g_err, global_flops=gflops,
+               global_ms=time_ms(torch, lambda: ops.flash_attention(
+                   qf, kf, vf, **gkw)),
+               global_plain_ms=time_ms(torch, lambda: ref.flash_attention(
+                   qf, kf, vf, **gkw), reps=5, warmup=1),
+               global_library_ms=time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True)),
+               global_bound_ms=g_bound, global_bound_by=g_by)
+    print(f"[kernels] flash_attention global layer {[B, S, nq, nkv, hd]}: "
+          f"err {g_err:.2e}, kernel {out['global_ms']:.3f} ms, plain "
+          f"{out['global_plain_ms']:.3f} ms, SDPA (causal, softcap off) "
+          f"{out['global_library_ms']:.3f} ms, bound {g_bound:.4f} ms "
+          f"({g_by})")
     q, k, v = qf, kf, vf
     record("flash_attention", [B, S, S, nq, nkv, hd, "causal", window, cap],
            err_of(ops.flash_attention(q, k, v, **kw),

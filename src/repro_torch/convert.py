@@ -23,14 +23,17 @@ __all__ = ["jacobi_from_arrays", "garnet_from_arrays",
            "anderson_from_snapshot", "lm_params_from_arrays"]
 
 
-def jacobi_from_arrays(b, grid: int, sweeps: int, device=None) -> JacobiProblem:
+def jacobi_from_arrays(b, grid: int, sweeps: int, backend: str = "jnp",
+                       device=None) -> JacobiProblem:
     """A port :class:`JacobiProblem` whose right-hand side is exactly ``b``
-    (flat ``(grid*grid,)``, e.g. a reference problem's ``_b``)."""
+    (flat ``(grid*grid,)``, e.g. a reference problem's ``_b``) and whose
+    full map sums in ``backend``'s order (the reference's argument)."""
     b = np.array(b, dtype=np.float64).reshape(-1)
     if b.shape != (grid * grid,):
         raise ValueError(f"expected b of shape ({grid * grid},), got "
                          f"{b.shape}")
-    prob = JacobiProblem(grid=grid, sweeps=sweeps, seed=0, device=device)
+    prob = JacobiProblem(grid=grid, sweeps=sweeps, seed=0, backend=backend,
+                         device=device)
     prob._b = b
     prob._b_t = prob._b_t.new_tensor(b)
     return prob

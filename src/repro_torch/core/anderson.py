@@ -337,11 +337,18 @@ class AndersonState:
 
         Above the size threshold the fused kernel wrapper; otherwise one
         GEMV on the window views (with beta = 0/1 fast paths) — no (h, n)
-        temporaries beyond the preallocated scratch rows.
+        temporaries beyond the preallocated scratch rows.  On the CPU that
+        GEMV is numpy's on the zero-copy ``.numpy()`` views, the
+        reference's float operations (a torch GEMV differs in the last
+        place, as :func:`_gram` says).
         """
-        a = to_device(alpha, self.device)
         if X.shape[1] >= self._mix_threshold():
-            return ops.anderson_mix(X, G, a, beta=float(beta))
+            return ops.anderson_mix(X, G, to_device(alpha, self.device),
+                                    beta=float(beta))
+        if self.device.type == "cpu":
+            return torch.from_numpy(self._combine_numpy(
+                X.numpy(), G.numpy(), alpha, beta))
+        a = to_device(alpha, self.device)
         if beta == 1.0:
             return a @ G
         if beta == 0.0:
@@ -353,6 +360,22 @@ class AndersonState:
         torch.mul(G, beta, out=s2)
         torch.add(s1, s2, out=s1)
         return a @ s1
+
+    def _combine_numpy(self, X: np.ndarray, G: np.ndarray, alpha: np.ndarray,
+                       beta: float) -> np.ndarray:
+        """The reference's ``_combine`` below its threshold, on views of the
+        CPU window and scratch rows."""
+        if beta == 1.0:
+            return alpha @ G
+        if beta == 0.0:
+            return alpha @ X
+        h = X.shape[0]
+        s1 = self._scr1[:h].numpy()
+        s2 = self._scr2[:h].numpy()
+        np.multiply(X, 1.0 - beta, out=s1)
+        np.multiply(G, beta, out=s2)
+        np.add(s1, s2, out=s1)
+        return alpha @ s1
 
     # ----------------------------------------------------------------- #
     def record_accept(self) -> None:

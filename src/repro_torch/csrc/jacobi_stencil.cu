@@ -22,9 +22,12 @@
 //   times with shifted BlockSpecs; here each CTA stages a 32 x 8 tile plus
 //   its one-deep halo in shared memory (zero outside the grid), so each
 //   value is read from device memory about once.  Bound: x, b and the
-//   output, 3 x 8 B x g^2 (100.7 MB at g = 2048, ~30 us at 3.35 TB/s).  It
-//   keeps the Pallas kernel's own order, ((((b + up) + down) + left) +
-//   right) * 0.25.
+//   output, 3 x 8 B x g^2 (100.7 MB at g = 2048, ~30 us at 3.35 TB/s).  A
+//   template flag picks the add order: the Pallas kernel's own,
+//   ((((b + up) + down) + left) + right) * 0.25, or that of the reference
+//   problem's default jnp sweep (_full_sweep), (b + (((up + down) + left)
+//   + right)) / 4.  Both are adds and an exact scaling, so each equals its
+//   plain version bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -94,6 +97,7 @@ __device__ __forceinline__ double grid_value(const double* __restrict__ x,
   return (r >= 0 && r < g && c >= 0 && c < g) ? x[r * g + c] : 0.0;
 }
 
+template <bool kJnpOrder>
 __global__ void jacobi_sweep_kernel(const double* __restrict__ x,
                                     const double* __restrict__ b,
                                     double* __restrict__ out, int64_t g) {
@@ -113,7 +117,9 @@ __global__ void jacobi_sweep_kernel(const double* __restrict__ x,
     const double down = tile[ty + 2][tx + 1];
     const double left = tile[ty + 1][tx];
     const double right = tile[ty + 1][tx + 2];
-    out[r * g + c] = ((((b[r * g + c] + up) + down) + left) + right) * 0.25;
+    out[r * g + c] =
+        kJnpOrder ? (b[r * g + c] + (((up + down) + left) + right)) / 4.0
+                  : ((((b[r * g + c] + up) + down) + left) + right) * 0.25;
   }
 }
 
@@ -152,7 +158,8 @@ extern "C" int rt_jacobi_halo_sweeps(const double* xb, const double* top,
 }
 
 extern "C" int rt_jacobi_sweep(const double* x, const double* b, double* out,
-                               int64_t g, void* stream_ptr) {
+                               int64_t g, int64_t jnp_order,
+                               void* stream_ptr) {
   const int64_t gx = (g + kTileX - 1) / kTileX;
   const int64_t gy = (g + kTileY - 1) / kTileY;
   if (g < 1 || gy > 65535 || gx > 0x7fffffff)
@@ -160,6 +167,9 @@ extern "C" int rt_jacobi_sweep(const double* x, const double* b, double* out,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const dim3 block(kTileX, kTileY);
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  jacobi_sweep_kernel<<<grid, block, 0, stream>>>(x, b, out, g);
+  if (jnp_order)
+    jacobi_sweep_kernel<true><<<grid, block, 0, stream>>>(x, b, out, g);
+  else
+    jacobi_sweep_kernel<false><<<grid, block, 0, stream>>>(x, b, out, g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,19 +13,10 @@ import torch
 from . import _build
 from ._build import F64, I64, PTR
 
-__all__ = ["bellman", "bellman_block", "MAX_ROW"]
-
-#: partial-norm slots the C side needs (``rt::kMaxPartials``)
-_PARTIALS = 1024
-#: longest A * b row a CTA can stage in shared memory (``kMaxStageBytes``
-#: over 128 states of 12 bytes per successor)
-MAX_ROW = 200 * 1024 // (128 * 12)
+__all__ = ["bellman", "bellman_block"]
 
 
 def _check(idx, probs, rewards, v, extra=None):
-    if idx.shape[1] * idx.shape[2] > MAX_ROW:
-        raise ValueError(f"A * b = {idx.shape[1] * idx.shape[2]} exceeds the "
-                         f"kernel's {MAX_ROW} successors per state")
     _build.require(dict(idx=idx), torch.int32, v.device)
     fl = dict(probs=probs, rewards=rewards, v=v)
     fl.update(extra or {})
@@ -56,12 +47,13 @@ def bellman_block(idx: torch.Tensor, probs: torch.Tensor,
     _check(idx, probs, rewards, v, dict(v_old=v_old))
     rows, A, B = idx.shape
     tv = torch.empty(rows, dtype=torch.float64, device=v.device)
-    partials = torch.empty(_PARTIALS, dtype=torch.float64, device=v.device)
+    # one partial norm per CTA; a CTA owns at least one state
+    partials = torch.empty(rows, dtype=torch.float64, device=v.device)
     norm = torch.empty((), dtype=torch.float64, device=v.device)
     with torch.cuda.device(v.device):
         err = fn(idx.data_ptr(), probs.data_ptr(), rewards.data_ptr(),
                  v.data_ptr(), v_old.data_ptr(), tv.data_ptr(),
-                 partials.data_ptr(), _PARTIALS, norm.data_ptr(), rows, A, B,
+                 partials.data_ptr(), rows, norm.data_ptr(), rows, A, B,
                  float(gamma), _build.stream_of(v))
     _build.check(err, "bellman_block")
     return tv, norm

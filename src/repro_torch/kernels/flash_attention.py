@@ -5,6 +5,9 @@ Counterpart of ``repro.kernels.flash_attention``.  CUDA tensors only; see
 inputs are read in place through their strides (the head dim must be
 unit-stride), so the GQA layout ``(B, S, heads, hd)`` needs no transpose;
 the output is a new contiguous ``(B, Sq, nq, hd)`` tensor in q's dtype.
+The kernel copies rows in 16-byte pieces, so an input whose start or
+strides are not a multiple of four elements is first copied to a fresh
+contiguous tensor (views of projections never are).
 """
 
 from __future__ import annotations
@@ -21,6 +24,12 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _ENTRY = {torch.float32: "rt_flash_attention_f32",
           torch.bfloat16: "rt_flash_attention_bf16"}
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Row starts on 16-byte boundaries: what the kernel's copies need."""
+    return (t.data_ptr() % 16 == 0
+            and all(s % 4 == 0 for s in t.stride()[:3]))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,6 +57,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("the head dim of q, k and v must be unit-stride")
     fn = _build.function(_ENTRY[q.dtype],
                          [PTR] * 4 + [I64] * 18 + [F64, I64, PTR])
+    q, k, v = (t if _aligned(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty((B, Sq, nq, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -43,13 +43,15 @@ def jacobi_halo_sweeps(xb: torch.Tensor, top: torch.Tensor,
     return out, norm
 
 
-def jacobi_sweep(x: torch.Tensor, b: torch.Tensor, g: int) -> torch.Tensor:
-    """One global Dirichlet sweep of a flat ``(g*g,)`` grid on the card."""
-    fn = _build.function("rt_jacobi_sweep", [PTR, PTR, PTR, I64, PTR])
+def jacobi_sweep(x: torch.Tensor, b: torch.Tensor, g: int,
+                 order: str = "pallas") -> torch.Tensor:
+    """One global Dirichlet sweep of a flat ``(g*g,)`` grid on the card, in
+    the Pallas kernel's add order or (``order="jnp"``) ``_full_sweep``'s."""
+    fn = _build.function("rt_jacobi_sweep", [PTR, PTR, PTR, I64, I64, PTR])
     _build.require(dict(x=x, b=b), torch.float64, x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), b.data_ptr(), out.data_ptr(), g,
-                 _build.stream_of(x))
+                 int(order == "jnp"), _build.stream_of(x))
     _build.check(err, "jacobi_sweep")
     return out

@@ -82,12 +82,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out
 
 
-def jacobi_sweep(x, b, g: int):
+def jacobi_sweep(x, b, g: int, order: str = "pallas"):
+    """One global Dirichlet sweep; ``order`` picks the add order
+    (``ref.JACOBI_ORDERS``: the Pallas kernel's or ``_full_sweep``'s)."""
     if x.shape != (g * g,) or b.shape != (g * g,):
         raise ValueError(f"expected flat ({g*g},) arrays")
+    if order not in ref.JACOBI_ORDERS:
+        raise ValueError(f"order must be one of {ref.JACOBI_ORDERS}, got "
+                         f"{order!r}")
     if _on_cpu(x, b):
-        return ref.jacobi_sweep(x, b, g)
-    out = _jacobi.jacobi_sweep(x, b, g)
+        return ref.jacobi_sweep(x, b, g, order)
+    out = _jacobi.jacobi_sweep(x, b, g, order)
     _counted("jacobi_sweep")
     return out
 

@@ -8,8 +8,11 @@ against them.  The arithmetic order is part of the contract:
 
 * ``jacobi_halo_sweeps`` sums ``(b + (((up + down) + left) + right)) / 4``
   like ``_halo_kernel`` and the host path's ``_block_sweeps``;
-* ``jacobi_sweep`` sums ``((((b + up) + down) + left) + right) * 0.25``
-  like ``_jacobi_kernel`` (not ``ref_jacobi_sweep``'s order).
+* ``jacobi_sweep`` takes the add order as an argument: ``"pallas"`` (the
+  default) sums ``((((b + up) + down) + left) + right) * 0.25`` like
+  ``_jacobi_kernel``; ``"jnp"`` sums ``(b + (((up + down) + left) +
+  right)) / 4`` like the reference problem's ``_full_sweep`` and
+  ``ref_jacobi_sweep``.
 
 ``flash_attention`` is ``ref_attention`` (materialised float32 scores)
 with its conventions: ``-2e38`` for masked scores, zeros for fully-masked
@@ -26,18 +29,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
-           "anderson_mix", "flash_attention", "oracle_jacobi_halo_sweeps",
-           "oracle_bellman_block"]
+__all__ = ["JACOBI_ORDERS", "jacobi_sweep", "jacobi_halo_sweeps", "bellman",
+           "bellman_block", "anderson_mix", "flash_attention",
+           "oracle_jacobi_halo_sweeps", "oracle_bellman_block"]
 
 
-def jacobi_sweep(x: torch.Tensor, b: torch.Tensor, g: int) -> torch.Tensor:
-    """One global five-point Dirichlet sweep of a flat ``(g*g,)`` grid."""
+#: add orders of :func:`jacobi_sweep`
+JACOBI_ORDERS = ("pallas", "jnp")
+
+
+def jacobi_sweep(x: torch.Tensor, b: torch.Tensor, g: int,
+                 order: str = "pallas") -> torch.Tensor:
+    """One global five-point Dirichlet sweep of a flat ``(g*g,)`` grid,
+    summed in the Pallas kernel's or ``_full_sweep``'s order."""
     p = F.pad(x.reshape(g, g), (1, 1, 1, 1))
     up, down = p[:-2, 1:-1], p[2:, 1:-1]
     left, right = p[1:-1, :-2], p[1:-1, 2:]
-    return (((((b.reshape(g, g) + up) + down) + left) + right) * 0.25
-            ).reshape(-1)
+    bg = b.reshape(g, g)
+    if order == "jnp":
+        return ((bg + (((up + down) + left) + right)) / 4.0).reshape(-1)
+    return (((((bg + up) + down) + left) + right) * 0.25).reshape(-1)
 
 
 def jacobi_halo_sweeps(xb: torch.Tensor, top: torch.Tensor,

@@ -14,8 +14,9 @@ through :func:`repro_torch.kernels.ops.jacobi_sweep` and the whole-rows
 ``block_update`` through :func:`~repro_torch.kernels.ops.jacobi_halo_sweeps`:
 the hand-written CUDA kernels on the card, their plain versions on the CPU.
 The block update keeps the reference's neighbour order
-``((up + down) + left) + right``, so its values equal the JAX package's
-bit for bit.
+``((up + down) + left) + right``, and ``backend`` picks the full map's
+order as the reference's argument of that name does, so both maps equal
+the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from .._device import resolve_device, to_device, to_host
 from ..core.fixedpoint import DeviceBlockPlan, FixedPointProblem, restrict
 from ..kernels import ops
-from ..kernels.ref import oracle_jacobi_halo_sweeps
+from ..kernels.ref import JACOBI_ORDERS, oracle_jacobi_halo_sweeps
 
 __all__ = ["JacobiProblem"]
 
@@ -92,8 +93,19 @@ class JacobiProblem(FixedPointProblem):
     """2-D Laplacian block Jacobi with multi-sweep local solves."""
 
     def __init__(self, grid: int = 100, sweeps: int = 10, seed: int = 0,
-                 device=None):
+                 backend: str = "jnp", device=None):
+        """``backend`` mirrors the reference's argument and picks the full
+        map's add order, not a framework: ``"jnp"`` (the default) sums
+        ``(b + (((up + down) + left) + right)) / 4`` like the reference's
+        ``_full_sweep``, ``"pallas"`` ``((((b + up) + down) + left) +
+        right) * 0.25`` like its Pallas kernel.  Both run the CUDA
+        ``jacobi_sweep`` kernel on the card and its plain version on the
+        CPU."""
+        if backend not in JACOBI_ORDERS:
+            raise ValueError(f"backend must be one of {JACOBI_ORDERS}, got "
+                             f"{backend!r}")
         self.device = resolve_device(device)
+        self.backend = backend
         self.g = grid
         self.n = grid * grid
         self.sweeps = sweeps
@@ -115,7 +127,7 @@ class JacobiProblem(FixedPointProblem):
 
     def full_map(self, x: np.ndarray) -> np.ndarray:
         return to_host(ops.jacobi_sweep(to_device(x, self.device), self._b_t,
-                                        self.g))
+                                        self.g, self.backend))
 
     def block_update(self, x: np.ndarray, indices: np.ndarray) -> np.ndarray:
         r0, r1 = self._rows_of(indices)

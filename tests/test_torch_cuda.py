@@ -9,9 +9,9 @@ runs on the machine with the card:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the Jacobi kernels are exact (adds and an exact scaling, in
-the plain version's order); Bellman 1e-13 (the CUDA kernel may contract
-``R + gamma * ev`` to an FMA); ``anderson_mix`` 1e-12 (FMAs over the
-window); norms 1e-12 relative (per-CTA partial sums); ``flash_attention``
+the plain version's order, for both add orders of ``jacobi_sweep``);
+Bellman 1e-13 (the CUDA kernel may contract ``R + gamma * ev`` to an
+FMA); ``anderson_mix`` 1e-12 (FMAs over the window); norms 1e-12 relative (per-CTA partial sums); ``flash_attention``
 2e-5 in float32 and 2e-2 in bfloat16 (an online softmax against the plain
 version's one-shot softmax, as ``tests/test_kernels.py`` holds the Pallas
 kernel); the LM serving path on the card against the same weights on the
@@ -72,10 +72,26 @@ class TestKernelsMatchPlain:
         torch.testing.assert_close(ops.jacobi_sweep(x, b, g),
                                    ref.jacobi_sweep(x, b, g), rtol=0, atol=0)
 
+    @pytest.mark.parametrize("order", ["pallas", "jnp"])
+    @pytest.mark.parametrize("g", [1, 33, 100])
+    def test_jacobi_sweep_orders(self, dev, order, g):
+        """Both add orders run through the kernel and are exact."""
+        r = np.random.default_rng(g + 7)
+        x, b = (torch.as_tensor(r.standard_normal(g * g), device=dev)
+                for _ in range(2))
+        ops.reset_launch_counts()
+        got = ops.jacobi_sweep(x, b, g, order)
+        assert ops.launch_counts()["jacobi_sweep"] == 1
+        assert torch.equal(got, ref.jacobi_sweep(x, b, g, order))
+
     @pytest.mark.parametrize("S,A,b,D", [
         (300, 4, 5, 300),        # a ragged last tile of states
         (140_000, 4, 5, 1000),   # more tiles than CTAs: grid-stride
-        (50, 19, 7, 80),         # the longest row a CTA can stage
+        (50, 19, 7, 80),         # a row of 133 successors
+        (301, 3, 1, 301),        # A not a power of two, b = 1
+        (77, 20, 7, 90),         # 140 successors (the old staging's limit
+        (64, 5, 40, 64),         # was 133), and b > 8: the generic loop
+        (1000, 300, 2, 1000),    # A above the CTA's 256 threads
     ])
     def test_bellman_and_block(self, dev, S, A, b, D):
         idx, probs, R, v, v_old = (torch.as_tensor(a, device=dev)
@@ -90,11 +106,31 @@ class TestKernelsMatchPlain:
         torch.testing.assert_close(tv, wtv, rtol=1e-13, atol=1e-13)
         torch.testing.assert_close(norm, wnorm, rtol=1e-13, atol=1e-13)
 
-    def test_bellman_rejects_rows_too_long_to_stage(self, dev):
-        idx, probs, R, v, _ = (torch.as_tensor(a, device=dev)
-                               for a in _mdp(8, 20, 7, 8, 2))
-        with pytest.raises(ValueError, match="successors per state"):
-            ops.bellman(idx, probs, R, v, gamma=0.9)
+    def test_bellman_nan_propagates(self, dev):
+        """A NaN in v reaches every state that gathers it, through the max
+        over actions and the block norm, as in the plain version."""
+        idx, probs, R, v, v_old = (torch.as_tensor(a, device=dev)
+                                   for a in _mdp(500, 3, 4, 500, 5))
+        v[17] = float("nan")
+        got = ops.bellman(idx, probs, R, v, gamma=0.9)
+        want = ref.bellman(idx, probs, R, v, gamma=0.9)
+        assert torch.equal(got.isnan(), want.isnan()) and bool(
+            want.isnan().any())
+        torch.testing.assert_close(got, want, rtol=1e-13, atol=1e-13,
+                                   equal_nan=True)
+        _, norm = ops.bellman_block(idx, probs, R, v, v_old, gamma=0.9)
+        assert bool(norm.isnan())
+
+    @pytest.mark.parametrize("rows", [1, 255, 70_001])
+    def test_bellman_block_norm(self, dev, rows):
+        """The block norm over one CTA, a ragged tile and the grid-stride
+        loop, against the plain max."""
+        idx, probs, R, v, v_old = (torch.as_tensor(a, device=dev)
+                                   for a in _mdp(rows, 4, 5, 5000, rows))
+        tv, norm = ops.bellman_block(idx, probs, R, v, v_old, gamma=0.95)
+        wtv, wnorm = ref.bellman_block(idx, probs, R, v, v_old, gamma=0.95)
+        torch.testing.assert_close(tv, wtv, rtol=1e-13, atol=1e-13)
+        assert float(norm) == pytest.approx(float(wnorm), rel=1e-13)
 
     @pytest.mark.parametrize("beta", [0.0, 0.5, 1.0])
     @pytest.mark.parametrize("h,N", [(1, 7), (6, 1001), (16, 4096)])
@@ -201,6 +237,39 @@ class TestFlashAttentionKernel:
         assert got.dtype == dtype and got.shape == (B, Sq, nq, hd)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("window,softcap", [(None, None), (70, 50.0)])
+    @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+    def test_ragged_tiles_every_head_dim(self, dev, dtype, tol, window,
+                                         softcap, hd):
+        """Sq and Skv that are not multiples of the 64-row q tile or the
+        256-key tile, Sq != Skv with q_offset, every head dim."""
+        r = np.random.default_rng(hd)
+        B, Sq, Skv, nq, nkv, off = 2, 131, 299, 4, 2, 168
+        q = torch.as_tensor(r.standard_normal((B, Sq, nq, hd)), dtype=dtype,
+                            device=dev)
+        k, v = (torch.as_tensor(r.standard_normal((B, Skv, nkv, hd)),
+                                dtype=dtype, device=dev) for _ in range(2))
+        for causal in (True, False):
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=off)
+            torch.testing.assert_close(
+                ops.flash_attention(q, k, v, **kw).float(),
+                ref.flash_attention(q, k, v, **kw).float(), rtol=tol,
+                atol=tol)
+
+    def test_misaligned_views_are_copied(self, dev):
+        """A q whose rows do not start on 16 bytes is copied, not refused."""
+        r = np.random.default_rng(6)
+        base = torch.as_tensor(r.standard_normal(2 * 40 * 2 * 32 + 1),
+                               dtype=torch.float32, device=dev)
+        q = base[1:].view(2, 40, 2, 32)
+        assert q.data_ptr() % 16
+        torch.testing.assert_close(ops.flash_attention(q, q, q),
+                                   ref.flash_attention(q, q, q),
+                                   rtol=2e-5, atol=2e-5)
 
     def test_strided_views_read_in_place(self, dev):
         """k and v as head slices of one fused (B, S, 2*nkv, hd) tensor."""

@@ -7,20 +7,18 @@ problems on the port's side:
 * ``jacobi_async_plain`` is held to the bytes: identical worker updates,
   virtual wall time and sha256 of the iterate (the block updates are adds
   and an exact division in the same order on both sides).
-* The accelerated runs and the value-iteration runs are held to identical
-  update, fire and accept counts, with iterates within 1e-12 relative.
-  The Anderson combine is a torch GEMV in the port and a numpy product in
-  the reference, and the VI expectation is reduced in another order, so
-  the bytes may differ in the last place.
-* ``jacobi_async_accel`` is the one exception: 1e-8 relative.  Async
-  Jacobi with Anderson is the paper's iterate-level-corruption case; its
-  trajectory amplifies a last-ulp difference to ~1e-9 relative in the
-  final iterate, while every count still matches.  The CPU Gram is
-  numpy's product, as the reference's (``TestCpuGram``); what still
-  differs is the full map's add order (the port's ``jacobi_sweep``
-  follows the Pallas kernel, the reference problem's default path
-  ``_full_sweep``) and the combine (a torch GEMV).  ROADMAP.md queue 3
-  records this.
+* ``jacobi_async_accel`` is held to the bytes too (tolerance 0.0), with
+  identical update, fire and accept counts.  Async Jacobi with Anderson
+  is the paper's iterate-level-corruption case and amplifies any
+  last-ulp difference, so the port computes the reference's float
+  operations in the reference's order: the full map in ``_full_sweep``'s
+  add order (``backend="jnp"``, the default of both problems), and on
+  the CPU the Anderson Gram and combine as numpy products of the window's
+  zero-copy views (``TestCpuGram``, ``TestCpuCombine``).
+* The other accelerated runs and the value-iteration runs are held to
+  identical update, fire and accept counts, with iterates within 1e-12
+  relative: the VI expectation is reduced in another order by torch and
+  XLA, so those bytes may differ in the last place.
 
 Also here: the thread executor with the device plane against the JAX
 thread run, the device-plane resolver matrix, and the guard that refuses
@@ -79,7 +77,7 @@ GOLDEN = {
         None, None),
     "jacobi_async_accel": (
         _jac, dict(mode="async", tol=1e-10, max_updates=600, seed=7,
-                   fire_every=4), {}, 1e-8),
+                   fire_every=4), {}, 0.0),
     "jacobi_sync_accel": (
         _jac, dict(mode="sync", tol=1e-10, max_updates=400, seed=7,
                    fire_every=1), {}, 1e-12),
@@ -183,6 +181,35 @@ class TestCpuGram:
             want, got = F @ F.T, _gram(tst._window(tst._F))
         assert got.shape == want.shape == (4, 4)
         assert got.tobytes() == want.tobytes()
+
+
+class TestCpuCombine:
+    """On the CPU the Anderson combine is numpy's ``alpha @ G`` (``@ X``,
+    ``@`` the damped scratch rows) on the window's views: the reference's
+    ``_combine``, bit for bit."""
+
+    @pytest.mark.parametrize("beta", [1.0, 0.0, 0.5])
+    def test_combine_equals_numpy_bytes(self, beta):
+        from repro.core.anderson import AndersonState as JState
+        from repro_torch.core.anderson import AndersonState
+
+        r = np.random.default_rng(5)
+        jst = JState(JAnderson(m=4, beta=beta))
+        tst = AndersonState(AndersonConfig(m=4, beta=beta), device="cpu")
+        for _ in range(7):  # wraps and compacts the window once
+            x, g = r.standard_normal(2003), r.standard_normal(2003)
+            jst.push(x, g)
+            tst.push(x, g)
+        alpha = r.standard_normal(tst.depth)
+        alpha /= alpha.sum()
+        X, G = tst._window(tst._X), tst._window(tst._G)
+        got = tst._combine(X, G, alpha, beta).numpy()
+        want = jst._combine(jst._window(jst._X), jst._window(jst._G), alpha,
+                            beta)
+        assert got.tobytes() == want.tobytes()
+        if beta == 1.0:
+            assert got.tobytes() == (alpha @ G.numpy()).tobytes()
+        np.testing.assert_array_equal(tst.propose(), jst.propose())
 
 
 class TestThreadExecutor:

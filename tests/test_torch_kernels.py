@@ -8,9 +8,11 @@ where the wrapper takes its plain PyTorch version.  Tolerances and why:
 * Jacobi halo sweeps: values exact — adds and an exact division by 4 in the
   same order on both sides; the norm 1e-12 relative, because the two sum
   the squares in different orders.
-* ``jacobi_sweep``: exact against the Pallas interpret output (same
-  ``((((b+up)+down)+left)+right)*0.25`` order); 1e-14 against
-  ``ref_jacobi_sweep``, which sums in another order.
+* ``jacobi_sweep``: exact in both add orders — the default against the
+  Pallas interpret output (same ``((((b+up)+down)+left)+right)*0.25``
+  order), ``order="jnp"`` against the reference problem's ``_full_sweep``
+  and ``ref_jacobi_sweep`` (same ``(b+(((up+down)+left)+right))/4``);
+  1e-14 between the two orders.
 * Bellman: 1e-13 — the expectation over successors is a reduction whose
   order differs between XLA's einsum and torch's sum (and the CUDA kernel
   may contract ``R + gamma * ev`` to an FMA).
@@ -126,6 +128,26 @@ class TestJacobiStencil:
         want = np.asarray(jref.ref_jacobi_sweep(jnp.asarray(x),
                                                 jnp.asarray(b), g))
         np.testing.assert_allclose(out, want, rtol=1e-14, atol=1e-14)
+
+    @pytest.mark.parametrize("g", [1, 8, 17, 32, 100])
+    def test_jnp_order_matches_full_sweep(self, g):
+        """``order="jnp"`` equals the reference problem's default full map,
+        ``repro.problems.jacobi._full_sweep``, byte for byte."""
+        from repro.problems.jacobi import _full_sweep
+
+        r = np.random.default_rng(100 + g)
+        x, b = r.standard_normal(g * g), r.standard_normal(g * g)
+        out = _np(ops.jacobi_sweep(_t(x), _t(b), g, order="jnp"))
+        want = np.asarray(_full_sweep(jnp.asarray(x), jnp.asarray(b), g))
+        assert out.tobytes() == want.tobytes()
+        np.testing.assert_array_equal(
+            out, np.asarray(jref.ref_jacobi_sweep(jnp.asarray(x),
+                                                  jnp.asarray(b), g)))
+
+    def test_rejects_unknown_order(self):
+        x = torch.zeros(16, dtype=torch.float64)
+        with pytest.raises(ValueError, match="order"):
+            ops.jacobi_sweep(x, x, 4, order="xla")
 
     def test_fixed_point_of_solution(self):
         """At A x = b the sweep is a no-op (the boundary is respected)."""

@@ -4,10 +4,11 @@ Both sides build their data from the same numpy draws, so the arrays must
 be equal bit for bit; the maps are then held to the JAX functions:
 
 * Jacobi block updates (adds and an exact division in the reference's
-  order): exact.  ``full_map`` goes through the ``jacobi_sweep`` wrapper,
-  whose order ``((((b+up)+down)+left)+right)*0.25`` differs from the
-  reference's jnp sweep: 1e-14.  ``exact_solution`` is a sine-transform
-  solve in the port and a sparse LU in the reference: 1e-10 relative.
+  order): exact.  ``full_map`` goes through the ``jacobi_sweep`` wrapper
+  in the add order the ``backend`` argument picks, the reference problem's
+  for the same ``backend``: exact for both.  ``exact_solution`` is a
+  sine-transform solve in the port and a sparse LU in the reference:
+  1e-10 relative.
 * Value iteration: the successor expectation is a reduction ordered
   differently by XLA and torch: 1e-13.
 """
@@ -28,10 +29,10 @@ from repro_torch.core.anderson import AndersonConfig, AndersonState  # noqa: E40
 RNG = np.random.default_rng(42)
 
 
-def _jac_pair(grid=16, sweeps=5, seed=0):
-    return (jp.JacobiProblem(grid=grid, sweeps=sweeps, seed=seed),
+def _jac_pair(grid=16, sweeps=5, seed=0, **kw):
+    return (jp.JacobiProblem(grid=grid, sweeps=sweeps, seed=seed, **kw),
             tp.JacobiProblem(grid=grid, sweeps=sweeps, seed=seed,
-                             device="cpu"))
+                             device="cpu", **kw))
 
 
 def _vi_pair(S=60, sample="exact", seed=0):
@@ -75,20 +76,49 @@ class TestJacobiAgrees:
                 np.testing.assert_array_equal(tj.block_update(x, blk),
                                               jj.block_update(x, blk))
         scattered = np.array([3, 50, 77, 100])  # non-row path
-        np.testing.assert_allclose(tj.block_update(x, scattered),
-                                   jj.block_update(x, scattered),
-                                   rtol=1e-14, atol=1e-14)
+        np.testing.assert_array_equal(tj.block_update(x, scattered),
+                                      jj.block_update(x, scattered))
 
     def test_full_map_residual_solution(self):
         jj, tj = _jac_pair(grid=16)
+        assert tj.backend == jj.backend == "jnp"
         x = RNG.standard_normal(jj.n)
-        np.testing.assert_allclose(tj.full_map(x), jj.full_map(x),
-                                   rtol=1e-14, atol=1e-14)
+        np.testing.assert_array_equal(tj.full_map(x), jj.full_map(x))
         np.testing.assert_array_equal(tj.residual(x), jj.residual(x))
         assert tj.residual_norm(x) == jj.residual_norm(x)
         np.testing.assert_allclose(tj.exact_solution(), jj.exact_solution(),
                                    rtol=1e-10, atol=1e-12)
         assert tj.residual_norm(tj.exact_solution()) < 1e-10
+
+    @pytest.mark.parametrize("grid", [8, 16, 24])
+    def test_full_map_pallas_backend(self, grid):
+        """``backend="pallas"``: the Pallas kernel's add order, held to the
+        reference problem's Pallas full map (interpret mode)."""
+        jj, tj = _jac_pair(grid=grid, backend="pallas")
+        x = np.random.default_rng(grid).standard_normal(jj.n)
+        np.testing.assert_array_equal(tj.full_map(x), jj.full_map(x))
+        scattered = np.array([1, grid + 2, 3 * grid])
+        np.testing.assert_array_equal(tj.block_update(x, scattered),
+                                      jj.block_update(x, scattered))
+
+    def test_backend_picks_the_add_order(self):
+        """The two orders differ in the last place on random data, so each
+        backend is held to its own reference, not to the other."""
+        jj, tj = _jac_pair(grid=16)
+        jp_, tp_ = _jac_pair(grid=16, backend="pallas")
+        x = np.random.default_rng(1).standard_normal(jj.n)
+        assert not np.array_equal(tj.full_map(x), tp_.full_map(x))
+        np.testing.assert_array_equal(tp_.full_map(x), jp_.full_map(x))
+        with pytest.raises(ValueError, match="backend"):
+            tp.JacobiProblem(grid=4, backend="cuda", device="cpu")
+
+    def test_convert_passes_the_backend(self):
+        jj = jp.JacobiProblem(grid=12, sweeps=3, seed=4, backend="pallas")
+        tj = convert.jacobi_from_arrays(jj._b, 12, 3, backend="pallas",
+                                        device="cpu")
+        assert tj.backend == "pallas"
+        x = np.random.default_rng(2).standard_normal(jj.n)
+        np.testing.assert_array_equal(tj.full_map(x), jj.full_map(x))
 
     def test_structure(self):
         jj, tj = _jac_pair(grid=8)
