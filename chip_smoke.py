@@ -99,7 +99,8 @@ def phase_build():
 def phase_kernels(torch, dev, name):
     """Each kernel against its plain version at the main-path shapes."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.kernel_bench import bound_ms, peaks, time_ms
+    from repro_torch.launch.kernel_bench import (bellman_work, bound_ms, peaks,
+                                                 time_ms)
 
     bw, fp64, fp32, bf16 = peaks(name)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -172,21 +173,18 @@ def phase_kernels(torch, dev, name):
     probs /= probs.sum(-1, keepdim=True)
     R = torch.rand(S, A, generator=gen, **f64)
     v = randn(S)
-    touched = int(torch.unique(idx).numel())
     tv = ops.bellman(idx, probs, R, v, gamma=gamma)
     want = ref.bellman(idx, probs, R, v, gamma=gamma)
     record("bellman", [S, A, B], err_of(tv, want),
            1e-13 * float(want.abs().max()),
            lambda: ops.bellman(idx, probs, R, v, gamma=gamma),
            lambda: ref.bellman(idx, probs, R, v, gamma=gamma),
-           idx.numel() * 4 + (probs.numel() + R.numel() + touched + S) * 8,
-           S * A * (2 * B + 2) + S * A,
+           *bellman_work(idx),
            source="src/repro_torch/csrc/bellman.cu",
            replaces="src/repro/kernels/bellman.py:80")
     rows_b = S // 4
     bi, bp, bR = idx[:rows_b], probs[:rows_b], R[:rows_b]
     v_old = randn(rows_b)
-    touched_b = int(torch.unique(bi).numel())
     tvb, nb = ops.bellman_block(bi, bp, bR, v, v_old, gamma=gamma)
     wtv, wnb = ref.bellman_block(bi, bp, bR, v, v_old, gamma=gamma)
     check(float((nb - wnb).abs()) <= 1e-13 * float(wnb.abs()),
@@ -195,9 +193,7 @@ def phase_kernels(torch, dev, name):
            1e-13 * float(wtv.abs().max()),
            lambda: ops.bellman_block(bi, bp, bR, v, v_old, gamma=gamma),
            lambda: ref.bellman_block(bi, bp, bR, v, v_old, gamma=gamma),
-           bi.numel() * 4
-           + (bp.numel() + bR.numel() + touched_b + 2 * rows_b) * 8,
-           rows_b * A * (2 * B + 2) + rows_b * A + 3 * rows_b,
+           *bellman_work(bi, block=True),
            source="src/repro_torch/csrc/bellman.cu",
            replaces="src/repro/kernels/bellman.py:62")
 
@@ -257,7 +253,8 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.kernel_bench import attention_pairs, time_ms
+    from repro_torch.launch.kernel_bench import (attention_pairs, flash_work,
+                                                 time_ms)
 
     fp32, bf16 = peaks_fp
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -285,8 +282,7 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
 
     B, S, nq, nkv, hd, window, cap = LM_BATCH, LM_PROMPT, 8, 4, 256, 4096, 50.0
     pairs = attention_pairs(S, S, True, window)
-    flops = 4 * B * nq * hd * pairs
-    elems = 2 * B * S * nq * hd + 2 * B * S * nkv * hd  # q, o, k, v
+    nbytes, flops = flash_work(B, S, nq, nkv, hd, window, 4)
     kw = dict(causal=True, window=window, softcap=cap)
     qf = torch.randn(B, S, nq, hd, generator=gen, device=dev)
     kf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
@@ -304,7 +300,7 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
               f"flash_attention serve shape {dt}: |err| - {rtol:g}|ref| "
               f"reaches {excess:.3e} > {tols[torch.float32]:.0e}")
         if dt == torch.bfloat16:
-            b_ms, b_by = bound(elems * 2, flops, bf16)
+            b_ms, b_by = bound(nbytes // 2, flops, bf16)
             out.update(bf16_max_abs_err=err,
                        bf16_tol=f"{tols[torch.float32]:g} + {rtol:g}|ref|",
                        bf16_ms=time_ms(torch, lambda: ops.flash_attention(
@@ -339,7 +335,7 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
           f"{lib_err:.2e})")
     # The global layers (no window) of the same prefill.
     gkw = dict(causal=True, softcap=cap)
-    gflops = 4 * B * nq * hd * attention_pairs(S, S, True, None)
+    _, gflops = flash_work(B, S, nq, nkv, hd, None, 4)
     got = ops.flash_attention(qf, kf, vf, **gkw)
     want = ref.flash_attention(qf, kf, vf, **gkw)
     g_err = err_of(got, want)
@@ -347,7 +343,7 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     torch.cuda.empty_cache()
     check(g_err <= tols[torch.float32],
           f"flash_attention global layer: err {g_err:.3e}")
-    g_bound, g_by = bound(elems * 4, gflops, fp32)
+    g_bound, g_by = bound(nbytes, gflops, fp32)
     out.update(global_max_abs_err=g_err, global_flops=gflops,
                global_ms=time_ms(torch, lambda: ops.flash_attention(
                    qf, kf, vf, **gkw)),
@@ -367,7 +363,7 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
            err_of(ops.flash_attention(q, k, v, **kw),
                   ref.flash_attention(q, k, v, **kw)), tols[torch.float32],
            lambda: ops.flash_attention(q, k, v, **kw),
-           lambda: ref.flash_attention(q, k, v, **kw), elems * 4, flops,
+           lambda: ref.flash_attention(q, k, v, **kw), nbytes, flops,
            lfn=sdpa, source="src/repro_torch/csrc/flash_attention.cu",
            replaces="src/repro/kernels/flash_attention.py:132", extra=out,
            peak=fp32)
@@ -414,12 +410,27 @@ def main_cfg(**kw):
     return RunConfig(**base)
 
 
+def jacobi_problem(dev):
+    from repro_torch import JacobiProblem
+
+    return JacobiProblem(grid=JACOBI_GRID, sweeps=10, seed=0, device=dev)
+
+
+def vi_problem(dev):
+    from repro_torch import GarnetMDP, ValueIterationProblem
+
+    t0 = time.perf_counter()
+    mdp = GarnetMDP(S=VI_STATES, A=4, b=5, gamma=0.95, seed=0,
+                    sample="fast", device=dev)
+    print(f"[vi] Garnet S={VI_STATES} built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return ValueIterationProblem(mdp)
+
+
 def phase_jacobi(dev):
     import numpy as np
 
-    from repro_torch import JacobiProblem
-
-    prob = JacobiProblem(grid=JACOBI_GRID, sweeps=10, seed=0, device=dev)
+    prob = jacobi_problem(dev)
     res, launches, _ = run_path("jacobi", prob, main_cfg())
     for k in ("jacobi_halo_sweeps", "jacobi_sweep", "anderson_mix"):
         check(launches[k] > 0, f"jacobi: {k} was never launched")
@@ -439,14 +450,7 @@ def phase_jacobi(dev):
 
 
 def phase_vi(dev):
-    from repro_torch import GarnetMDP, ValueIterationProblem
-
-    t0 = time.perf_counter()
-    mdp = GarnetMDP(S=VI_STATES, A=4, b=5, gamma=0.95, seed=0,
-                    sample="fast", device=dev)
-    print(f"[vi] Garnet S={VI_STATES} built in "
-          f"{time.perf_counter() - t0:.2f} s")
-    res, launches, _ = run_path("vi", ValueIterationProblem(mdp), main_cfg())
+    res, launches, _ = run_path("vi", vi_problem(dev), main_cfg())
     for k in ("bellman_block", "bellman", "anderson_mix"):
         check(launches[k] > 0, f"vi: {k} was never launched")
     check(res.device_dispatches > 0, "vi: the device plane never ran")

@@ -4,7 +4,7 @@ To compare two versions of the kernels, run it once per source tree, in
 turns (parent, change, change, parent), on one card.  It imports
 ``repro_torch`` from ``--src`` (default: the tree it lives in), builds
 that tree's kernels there and times each kernel with CUDA events around
-``--reps`` back-to-back calls after warm-up:
+20 back-to-back calls after warm-up:
 
 * ``flash_attention`` at the Gemma-2-2B serve shape, q (2, 8192, 8, 256),
   k/v (2, 8192, 4, 256), causal, softcap 50: a local layer (window 4096)
@@ -16,7 +16,8 @@ Each row carries its bound (the larger of bytes over the memory rate and
 operations over the float32 rate outside the tensor cores, or the float64
 rate; NVIDIA's H100 data sheet for the part ``nvidia-smi`` names) and the
 largest deviation from the tree's plain version.  ``chip_smoke.py`` uses
-the same timing and bounds.  Run it by path so that
+the same timing and the same work counts (:func:`flash_work`,
+:func:`bellman_work`).  Run it by path so that
 ``--src`` decides which ``repro_torch`` is imported:
 
     python3 src/repro_torch/launch/kernel_bench.py [--src DIR/src] \\
@@ -74,6 +75,28 @@ def attention_pairs(Sq, Skv, causal, window, q_offset=0) -> int:
     return int(np.clip(hi - lo, 0, None).sum())
 
 
+def flash_work(B, S, nq, nkv, hd, window, itemsize):
+    """Bytes and operations of one causal self-attention over ``S`` tokens:
+    q, k and v read and o written once; 4 operations per head dim for each
+    visible (query, key) pair (the multiply-adds of both products)."""
+    nbytes = (2 * B * S * nq * hd + 2 * B * S * nkv * hd) * itemsize
+    return nbytes, 4 * B * nq * hd * attention_pairs(S, S, True, window)
+
+
+def bellman_work(idx, block=False):
+    """Bytes and operations of one ``bellman`` call over ``idx`` (rows, A,
+    b): the index, probability and reward rows, the distinct ``v`` entries
+    gathered and the output, each once; a multiply-add per successor, the
+    discount, reward and max per action.  ``block`` counts
+    ``bellman_block``, which also reads ``v_old`` and reduces the norm."""
+    rows, A, b = idx.shape
+    touched = int(idx.unique().numel())
+    nbytes = idx.numel() * 4 + (idx.numel() + rows * A + touched
+                                + rows * (2 if block else 1)) * 8
+    flops = rows * A * (2 * b + 2) + rows * A + (3 * rows if block else 0)
+    return nbytes, flops
+
+
 def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
     """The least time for the work: bytes over ``bw`` or operations over
     ``peak``, whichever is longer, and which one it is."""
@@ -81,7 +104,7 @@ def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def bench(torch, reps: int, card: str):
+def bench(torch, card: str):
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda", 0)
@@ -90,7 +113,7 @@ def bench(torch, reps: int, card: str):
 
     def row(name, shape, err, fn, nbytes, flops, peak):
         b, by = bound_ms(nbytes, flops, bw, peak)
-        ms = time_ms(torch, fn, reps)
+        ms = time_ms(torch, fn)
         rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
                          bound_ms=b, bound_by=by, bound_share=b / ms))
         print(f"[bench] {name} {shape}: {ms:.4f} ms, bound {b:.4f} ms ({by},"
@@ -101,7 +124,6 @@ def bench(torch, reps: int, card: str):
     qf = torch.randn(B, S, nq, hd, generator=gen, device=dev)
     kf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
     vf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
-    elems = 2 * B * S * nq * hd + 2 * B * S * nkv * hd
     for label, window, dt in (("local", 4096, torch.float32),
                               ("global", None, torch.float32),
                               ("local", 4096, torch.bfloat16)):
@@ -110,11 +132,10 @@ def bench(torch, reps: int, card: str):
         err = float((ops.flash_attention(q, k, v, **kw).float()
                      - ref.flash_attention(q, k, v, **kw).float()).abs().max())
         torch.cuda.empty_cache()
-        flops = 4 * B * nq * hd * attention_pairs(S, S, True, window)
-        size = 4 if dt == torch.float32 else 2
         row(f"flash_attention_{label}_{str(dt).split('.')[-1]}",
             [B, S, nq, nkv, hd, window], err,
-            lambda: ops.flash_attention(q, k, v, **kw), elems * size, flops,
+            lambda: ops.flash_attention(q, k, v, **kw),
+            *flash_work(B, S, nq, nkv, hd, window, q.element_size()),
             fp32 if dt == torch.float32 else bf16)
     del q, k, v, qf, kf, vf
     torch.cuda.empty_cache()
@@ -128,24 +149,20 @@ def bench(torch, reps: int, card: str):
     probs /= probs.sum(-1, keepdim=True)
     R = torch.rand(S, A, generator=gen, **f64)
     v = torch.randn(S, generator=gen, **f64)
-    touched = int(torch.unique(idx).numel())
     err = float((ops.bellman(idx, probs, R, v, gamma=gamma)
                  - ref.bellman(idx, probs, R, v, gamma=gamma)).abs().max())
     row("bellman", [S, A, b], err,
         lambda: ops.bellman(idx, probs, R, v, gamma=gamma),
-        idx.numel() * 4 + (probs.numel() + R.numel() + touched + S) * 8,
-        S * A * (2 * b + 2) + S * A, fp64)
+        *bellman_work(idx), fp64)
     n = S // 4
     bi, bp, bR = idx[:n], probs[:n], R[:n]
     v_old = torch.randn(n, generator=gen, **f64)
-    touched = int(torch.unique(bi).numel())
     err = float((ops.bellman_block(bi, bp, bR, v, v_old, gamma=gamma)[0]
                  - ref.bellman_block(bi, bp, bR, v, v_old, gamma=gamma)[0]
                  ).abs().max())
     row("bellman_block", [n, A, b, S], err,
         lambda: ops.bellman_block(bi, bp, bR, v, v_old, gamma=gamma),
-        bi.numel() * 4 + (bp.numel() + bR.numel() + touched + 2 * n) * 8,
-        n * A * (2 * b + 2) + n * A + 3 * n, fp64)
+        *bellman_work(bi, block=True), fp64)
     return rows
 
 
@@ -155,7 +172,6 @@ def main() -> int:
     ap.add_argument("--src", type=Path, default=here,
                     help="the src/ directory whose repro_torch is timed")
     ap.add_argument("--label", default=None)
-    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
@@ -169,7 +185,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(f"[bench] {args.label or args.src}: {card}", flush=True)
     result = dict(label=args.label or str(args.src), card=card,
-                  rows=bench(torch, args.reps, card))
+                  rows=bench(torch, card))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

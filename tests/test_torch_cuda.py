@@ -86,7 +86,7 @@ class TestKernelsMatchPlain:
 
     @pytest.mark.parametrize("S,A,b,D", [
         (300, 4, 5, 300),        # a ragged last tile of states
-        (140_000, 4, 5, 1000),   # more tiles than CTAs: grid-stride
+        (140_000, 4, 5, 1000),   # 2188 CTAs, one partial each, combined
         (50, 19, 7, 80),         # a row of 133 successors
         (301, 3, 1, 301),        # A not a power of two, b = 1
         (77, 20, 7, 90),         # 140 successors (the old staging's limit
@@ -123,8 +123,9 @@ class TestKernelsMatchPlain:
 
     @pytest.mark.parametrize("rows", [1, 255, 70_001])
     def test_bellman_block_norm(self, dev, rows):
-        """The block norm over one CTA, a ragged tile and the grid-stride
-        loop, against the plain max."""
+        """The block norm of one CTA, of four with a ragged last tile, and
+        of 1094 partials (one per CTA) in the one-CTA combine pass,
+        against the plain max."""
         idx, probs, R, v, v_old = (torch.as_tensor(a, device=dev)
                                    for a in _mdp(rows, 4, 5, 5000, rows))
         tv, norm = ops.bellman_block(idx, probs, R, v, v_old, gamma=0.95)
