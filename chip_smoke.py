@@ -13,7 +13,11 @@ and no result line is printed):
    ``nvcc`` per source, all at once) and load the library;
 3. kernels — each hand-written kernel against its plain PyTorch version at
    the shapes the main paths give it, with kernel, plain and (where one
-   PyTorch call computes the same function) library times;
+   PyTorch call computes the same function) library times; the Jacobi
+   halo kernel also at the paper's four-worker block (25 x 100) and the
+   one-worker block (the whole grid), with its device time and CUDA
+   launches per call as ``torch.profiler`` records them (at most 2 at 10
+   sweeps: one pass and the norm's combine);
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -99,7 +103,10 @@ def phase_build():
 def phase_kernels(torch, dev, name):
     """Each kernel against its plain version at the main-path shapes."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.kernel_bench import (bellman_work, bound_ms, peaks,
+    from repro_torch.kernels.jacobi_stencil import halo_plan
+    from repro_torch.launch.kernel_bench import (bellman_work, bound_ms,
+                                                 device_profile,
+                                                 jacobi_halo_work, peaks,
                                                  time_ms)
 
     bw, fp64, fp32, bf16 = peaks(name)
@@ -115,7 +122,7 @@ def phase_kernels(torch, dev, name):
     rows_out = {}
 
     def record(key, shape, err, tol, kfn, pfn, nbytes, flops, lfn=None,
-               source="", replaces="", extra=None, peak=fp64):
+               source="", replaces="", extra=None, peak=fp64, note=""):
         check(err <= tol, f"{key}: max_abs_err {err:.3e} > tol {tol:.3e}")
         b_ms, b_by = bound(nbytes, flops, peak)
         row = dict(name=key, route="cuda", source=source, replaces=replaces,
@@ -128,26 +135,55 @@ def phase_kernels(torch, dev, name):
         rows_out[key] = row
         print(f"[kernels] {key} {shape}: err {err:.2e} (tol {tol:.0e}) "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"bound {b_ms:.4f} ms ({b_by}){note}")
 
     def err_of(a, b):
         return float((a - b).abs().max())
 
-    # jacobi_halo_sweeps: one device-plane block of the g=2048 grid.
+    # jacobi_halo_sweeps: one device-plane block of the g=2048 grid (timed),
+    # then the paper's 100 x 100 grid's block with four workers and the
+    # whole grid (the one-worker block); all exact.  Launches per call are
+    # what CUPTI records.
     g, sweeps = JACOBI_GRID, 10
     rows = g // 4
+    main = (rows, g, sweeps)
     xb, bb, top, bot = randn(rows, g), randn(rows, g), randn(g), randn(g)
-    out, norm = ops.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps)
-    want, wnorm = ref.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps)
-    norm_rel = float((norm - wnorm).abs() / wnorm.abs())
-    check(norm_rel <= 1e-12, f"halo norm rel err {norm_rel:.3e}")
-    record("jacobi_halo_sweeps", [rows, g, sweeps], err_of(out, want), 0.0,
-           lambda: ops.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps),
+    extra_gen = torch.Generator(device=dev).manual_seed(3)
+    halo_err = {}
+    for shape in (main, (25, 100, sweeps), (g, g, sweeps)):
+        r, gg, sw = shape
+        args = ((xb, top, bot, bb) if shape == main else
+                tuple(torch.randn(*dims, generator=extra_gen, **f64)
+                      for dims in ((r, gg), (gg,), (gg,), (r, gg))))
+        out, norm = ops.jacobi_halo_sweeps(*args, sweeps=sw)
+        want, wnorm = ref.jacobi_halo_sweeps(*args, sweeps=sw)
+        err, rel = err_of(out, want), float((norm - wnorm).abs() / wnorm.abs())
+        if shape == main:
+            norm_rel = rel
+        halo_err[str(list(shape))] = err
+        check(err == 0.0 and rel <= 1e-12, f"jacobi_halo_sweeps {shape}: "
+              f"err {err:.3e}, norm rel err {rel:.3e}")
+    del args, out, want
+
+    def halo():
+        return ops.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps)
+
+    passes = halo_plan(rows, g, sweeps)[0]
+    dev_ms, per_call = device_profile(torch, halo)
+    check(per_call == passes + 1 <= 2,
+          f"jacobi_halo_sweeps: {per_call} CUDA launches per call at "
+          f"{sweeps} sweeps, expected {passes} pass(es) + 1 combine <= 2")
+    record("jacobi_halo_sweeps", list(main), halo_err[str(list(main))], 0.0,
+           halo,
            lambda: ref.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps),
-           (3 * rows * g + 2 * g) * 8, sweeps * rows * g * 5 + 3 * rows * g,
+           *jacobi_halo_work(rows, g, sweeps),
            source="src/repro_torch/csrc/jacobi_stencil.cu",
            replaces="src/repro/kernels/jacobi_stencil.py:78",
-           extra=dict(norm_rel_err=norm_rel))
+           extra=dict(norm_rel_err=norm_rel, device_ms=dev_ms,
+                      launches_per_call=per_call,
+                      exact_at_shapes=halo_err),
+           note=f", device {dev_ms:.4f} ms, {per_call:g} CUDA launches per "
+                f"call; exact at {sorted(halo_err)}")
 
     # jacobi_sweep: the full map of the g=2048 grid, in both add orders;
     # timed in _full_sweep's ("jnp"), the problem's default.

@@ -11,8 +11,7 @@
 
 namespace rt {
 
-constexpr int kThreads = 256;       // threads per CTA for every 1-D kernel
-constexpr int kMaxPartials = 1024;  // CTAs of a kernel that writes partials
+constexpr int kThreads = 256;  // threads per CTA for every 1-D kernel
 
 struct SumOp {
   __device__ __forceinline__ static double identity() { return 0.0; }
@@ -59,13 +58,6 @@ __global__ void reduce_partials_kernel(const double* __restrict__ partials,
     v = Op::apply(v, partials[i]);
   v = block_reduce<Op>(v);
   if (threadIdx.x == 0) out[0] = v;
-}
-
-// CTAs for a grid-stride kernel over n items that writes one partial each.
-inline int partial_grid(int64_t n) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < kMaxPartials ? (blocks > 0 ? blocks : 1)
-                                                : kMaxPartials);
 }
 
 // CTAs for a grid-stride kernel over n items, one item per thread.

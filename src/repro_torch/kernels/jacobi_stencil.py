@@ -2,23 +2,35 @@
 
 Counterpart of ``repro.kernels.jacobi_stencil``.  These functions take
 CUDA tensors only: they check device, dtype and contiguity, allocate the
-outputs and scratch with ``torch.empty``, launch on PyTorch's current
-stream and never synchronise.  Callers go through
+outputs (and scratch, where a call needs it) with ``torch.empty``, launch
+on PyTorch's current stream and never synchronise.  Callers go through
 :mod:`repro_torch.kernels.ops`, which also accepts CPU tensors (the plain
 version) and counts launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from . import _build
 from ._build import I64, PTR
 
-__all__ = ["jacobi_halo_sweeps", "jacobi_sweep"]
+__all__ = ["halo_plan", "jacobi_halo_sweeps", "jacobi_sweep"]
 
-#: partial-norm slots the C side needs (``rt::kMaxPartials``)
-_PARTIALS = 1024
+
+@functools.lru_cache(maxsize=64)
+def halo_plan(rows: int, g: int, sweeps: int):
+    """``(passes, partials)`` of one ``jacobi_halo_sweeps`` call: the
+    kernel launches before the norm's combine pass, and the partial norms
+    (CTAs) of the last one."""
+    fn = _build.function("rt_jacobi_halo_plan", [I64, I64, I64, PTR])
+    out = (ctypes.c_int64 * 2)()
+    _build.check(fn(rows, g, sweeps, ctypes.addressof(out)),
+                 "jacobi_halo_sweeps (plan)")
+    return int(out[0]), int(out[1])
 
 
 def jacobi_halo_sweeps(xb: torch.Tensor, top: torch.Tensor,
@@ -30,17 +42,19 @@ def jacobi_halo_sweeps(xb: torch.Tensor, top: torch.Tensor,
     _build.require(dict(xb=xb, top=top, bot=bot, b=b), torch.float64,
                    xb.device)
     rows, g = xb.shape
+    passes, partials = halo_plan(rows, g, sweeps)
     out = torch.empty_like(xb)
-    scratch = torch.empty_like(xb) if sweeps > 1 else out
-    partials = torch.empty(_PARTIALS, dtype=torch.float64, device=xb.device)
-    norm = torch.empty((), dtype=torch.float64, device=xb.device)
+    scratch = torch.empty_like(xb) if passes > 1 else None
+    # the norm, then one partial per CTA of the last pass
+    red = torch.empty(1 + partials, dtype=torch.float64, device=xb.device)
     with torch.cuda.device(xb.device):
         err = fn(xb.data_ptr(), top.data_ptr(), bot.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
-                 _PARTIALS, norm.data_ptr(), rows, g, sweeps,
-                 _build.stream_of(xb))
+                 out.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None,
+                 red.data_ptr() + red.element_size(), partials,
+                 red.data_ptr(), rows, g, sweeps, _build.stream_of(xb))
     _build.check(err, "jacobi_halo_sweeps")
-    return out, norm
+    return out, red[0]
 
 
 def jacobi_sweep(x: torch.Tensor, b: torch.Tensor, g: int,

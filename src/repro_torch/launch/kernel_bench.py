@@ -1,4 +1,5 @@
-"""Time the flash-attention and Bellman kernels of one source tree on the card.
+"""Time the Jacobi halo, flash-attention and Bellman kernels of one source
+tree on the card.
 
 To compare two versions of the kernels, run it once per source tree, in
 turns (parent, change, change, parent), on one card.  It imports
@@ -6,6 +7,11 @@ turns (parent, change, change, parent), on one card.  It imports
 that tree's kernels there and times each kernel with CUDA events around
 20 back-to-back calls after warm-up:
 
+* ``jacobi_halo_sweeps`` at (512, 2048), (25, 100) and (2048, 2048), 10
+  sweeps (a device-plane block of the g = 2048 smoke grid with four
+  workers, the paper's 100 x 100 grid with four, and the whole smoke grid
+  with one), each also traced with ``torch.profiler`` for its device time
+  and CUDA launches per call (:func:`device_profile`);
 * ``flash_attention`` at the Gemma-2-2B serve shape, q (2, 8192, 8, 256),
   k/v (2, 8192, 4, 256), causal, softcap 50: a local layer (window 4096)
   and a global one (no window) in float32, the local one in bfloat16;
@@ -16,8 +22,8 @@ Each row carries its bound (the larger of bytes over the memory rate and
 operations over the float32 rate outside the tensor cores, or the float64
 rate; NVIDIA's H100 data sheet for the part ``nvidia-smi`` names) and the
 largest deviation from the tree's plain version.  ``chip_smoke.py`` uses
-the same timing and the same work counts (:func:`flash_work`,
-:func:`bellman_work`).  Run it by path so that
+the same timing and the same work counts (:func:`jacobi_halo_work`,
+:func:`flash_work`, :func:`bellman_work`).  Run it by path so that
 ``--src`` decides which ``repro_torch`` is imported:
 
     python3 src/repro_torch/launch/kernel_bench.py [--src DIR/src] \\
@@ -62,6 +68,40 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_profile(torch, fn, reps: int = 20, warmup: int = 3):
+    """Device milliseconds and CUDA launches per call: the kernels that
+    CUPTI records through ``torch.profiler`` over ``reps`` calls, their
+    times summed, each divided by ``reps``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device kernels")
+    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps,
+            len(kernels) / reps)
+
+
+def jacobi_halo_work(rows: int, g: int, sweeps: int):
+    """Bytes and operations of one ``jacobi_halo_sweeps`` call on a (rows,
+    g) block: the block, ``b`` and the output once each and the two halo
+    rows; four adds and a scaling per cell and sweep, and a subtract,
+    multiply and add per cell for the norm."""
+    return (3 * rows * g + 2 * g) * 8, sweeps * rows * g * 5 + 3 * rows * g
+
+
+#: (rows, g, sweeps) of the ``jacobi_halo_sweeps`` timings
+HALO_SHAPES = ((512, 2048, 10), (25, 100, 10), (2048, 2048, 10))
 
 
 def attention_pairs(Sq, Skv, causal, window, q_offset=0) -> int:
@@ -111,13 +151,35 @@ def bench(torch, card: str):
     bw, fp64, fp32, bf16 = peaks(card)
     rows = []
 
-    def row(name, shape, err, fn, nbytes, flops, peak):
+    def row(name, shape, err, fn, nbytes, flops, peak, **extra):
         b, by = bound_ms(nbytes, flops, bw, peak)
         ms = time_ms(torch, fn)
         rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
-                         bound_ms=b, bound_by=by, bound_share=b / ms))
+                         bound_ms=b, bound_by=by, bound_share=b / ms,
+                         **extra))
+        more = "".join(f", {k} {v:.4g}" for k, v in extra.items())
         print(f"[bench] {name} {shape}: {ms:.4f} ms, bound {b:.4f} ms ({by},"
-              f" {100 * b / ms:.1f}%), err {err:.2e}", flush=True)
+              f" {100 * b / ms:.1f}%), err {err:.2e}{more}", flush=True)
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for shape in HALO_SHAPES:
+        r, g, sweeps = shape
+        xb, bb = (torch.randn(r, g, generator=gen, **f64) for _ in range(2))
+        top, bot = (torch.randn(g, generator=gen, **f64) for _ in range(2))
+
+        def halo():
+            return ops.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps)
+
+        out, norm = halo()
+        want, wnorm = ref.jacobi_halo_sweeps(xb, top, bot, bb, sweeps=sweeps)
+        dev_ms, launches = device_profile(torch, halo)
+        row("jacobi_halo_sweeps", list(shape),
+            float((out - want).abs().max()), halo,
+            *jacobi_halo_work(*shape), fp64,
+            norm_rel_err=float((norm - wnorm).abs() / wnorm.abs()),
+            device_ms=dev_ms, launches_per_call=launches)
+    del xb, bb, out, want
 
     gen = torch.Generator(device=dev).manual_seed(1)
     B, S, nq, nkv, hd = 2, 8192, 8, 4, 256
@@ -140,7 +202,6 @@ def bench(torch, card: str):
     del q, k, v, qf, kf, vf
     torch.cuda.empty_cache()
 
-    f64 = dict(dtype=torch.float64, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     S, A, b, gamma = 10 ** 6, 4, 5, 0.95
     idx = torch.randint(0, S, (S, A, b), generator=gen, device=dev,

@@ -52,17 +52,90 @@ def _mdp(S, A, b, D, seed):
 
 
 class TestKernelsMatchPlain:
-    @pytest.mark.parametrize("rows,g", [(1, 8), (37, 45), (512, 256)])
+    @pytest.mark.parametrize("rows,g", [
+        (1, 8),        # one row, g under the 108-column tile of 10 sweeps
+        (3, 40),       # fewer rows than sweeps
+        (37, 45),      # odd g: the 8-byte copy path
+        (512, 256),    # the 64 x 128 region's rows not a multiple of a tile
+        (100, 250),    # g not a multiple of the tile's columns
+        (2048, 2048),  # the one-worker block: the whole smoke grid
+    ])
     def test_jacobi_halo_sweeps(self, dev, rows, g):
         r = np.random.default_rng(rows)
         args = [torch.as_tensor(a, device=dev) for a in (
             r.standard_normal((rows, g)), r.standard_normal(g),
             r.standard_normal(g), r.standard_normal((rows, g)))]
-        for sweeps in (1, 2, 5):
+        # 16 sweeps is one pass's most; 17 takes two passes, 37 three
+        for sweeps in (1, 2, 5, 10, 16, 17, 37):
             out, norm = ops.jacobi_halo_sweeps(*args, sweeps=sweeps)
             want, wnorm = ref.jacobi_halo_sweeps(*args, sweeps=sweeps)
             torch.testing.assert_close(out, want, rtol=0, atol=0)
             torch.testing.assert_close(norm, wnorm, rtol=1e-12, atol=0)
+
+    def test_jacobi_halo_many_tiles(self, dev):
+        """More output tiles (one partial norm each) than the 1024 partial
+        slots of the kernel this one replaced, all summed by one CTA."""
+        from repro_torch.kernels.jacobi_stencil import halo_plan
+
+        rows, g, sweeps = 4096, 2048, 10
+        assert halo_plan(rows, g, sweeps) == (1, 1786)
+        r = np.random.default_rng(7)
+        args = [torch.as_tensor(a, device=dev) for a in (
+            r.standard_normal((rows, g)), r.standard_normal(g),
+            r.standard_normal(g), r.standard_normal((rows, g)))]
+        out, norm = ops.jacobi_halo_sweeps(*args, sweeps=sweeps)
+        want, wnorm = ref.jacobi_halo_sweeps(*args, sweeps=sweeps)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+        torch.testing.assert_close(norm, wnorm, rtol=1e-12, atol=0)
+
+    def test_jacobi_halo_misaligned_views(self, dev):
+        """A block of even width that starts 8 bytes past a 16-byte
+        boundary takes the 8-byte copies and stays exact."""
+        r = np.random.default_rng(11)
+        rows, g = 25, 34
+        flat = torch.as_tensor(r.standard_normal(1 + rows * g), device=dev)
+        xb = flat[1:].view(rows, g)
+        assert xb.data_ptr() % 16 == 8
+        top, bot = (torch.as_tensor(r.standard_normal(g), device=dev)
+                    for _ in range(2))
+        b = torch.as_tensor(r.standard_normal((rows, g)), device=dev)
+        for sweeps in (1, 10, 17):
+            out, norm = ops.jacobi_halo_sweeps(xb, top, bot, b, sweeps=sweeps)
+            want, wnorm = ref.jacobi_halo_sweeps(xb, top, bot, b,
+                                                 sweeps=sweeps)
+            torch.testing.assert_close(out, want, rtol=0, atol=0)
+            torch.testing.assert_close(norm, wnorm, rtol=1e-12, atol=0)
+
+    @pytest.mark.parametrize("rows,g,sweeps", [(512, 2048, 10),
+                                               (25, 100, 10), (45, 131, 17)])
+    def test_jacobi_halo_deterministic(self, dev, rows, g, sweeps):
+        """Two calls give the same bytes, the norm included (partials in
+        a fixed order, no atomics)."""
+        r = np.random.default_rng(rows + g)
+        args = [torch.as_tensor(a, device=dev) for a in (
+            r.standard_normal((rows, g)), r.standard_normal(g),
+            r.standard_normal(g), r.standard_normal((rows, g)))]
+        out1, norm1 = ops.jacobi_halo_sweeps(*args, sweeps=sweeps)
+        out2, norm2 = ops.jacobi_halo_sweeps(*args, sweeps=sweeps)
+        assert torch.equal(out1, out2)
+        assert norm1.cpu().numpy().tobytes() == norm2.cpu().numpy().tobytes()
+
+    @pytest.mark.parametrize("sweeps,launches", [(1, 2), (10, 2), (16, 2),
+                                                 (17, 3), (37, 4)])
+    def test_jacobi_halo_launches_per_call(self, dev, sweeps, launches):
+        """One launch per pass of up to 16 sweeps plus the norm's combine,
+        as CUPTI records them."""
+        from repro_torch.kernels.jacobi_stencil import halo_plan
+        from repro_torch.launch.kernel_bench import device_profile
+
+        rows, g = 512, 2048
+        assert halo_plan(rows, g, sweeps)[0] + 1 == launches
+        xb, b = (torch.randn(rows, g, dtype=torch.float64, device=dev)
+                 for _ in range(2))
+        halo = torch.zeros(g, dtype=torch.float64, device=dev)
+        _, per_call = device_profile(torch, lambda: ops.jacobi_halo_sweeps(
+            xb, halo, halo, b, sweeps=sweeps), reps=5, warmup=1)
+        assert per_call == launches
 
     @pytest.mark.parametrize("g", [1, 31, 64, 100])
     def test_jacobi_sweep(self, dev, g):

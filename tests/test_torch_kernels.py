@@ -56,6 +56,9 @@ class TestJacobiHaloKernel:
         (7, 16, 4),    # rows not a divisor of g
         (1, 64, 2),    # single-row block
         (16, 128, 10), # paper-scale sweeps
+        (3, 40, 10),   # fewer rows than sweeps
+        (25, 100, 10), # the paper's 100 x 100 grid, one of four blocks
+        (6, 24, 37),   # more sweeps than one CUDA pass runs (16)
     ])
     def test_matches_pallas(self, rows, g, sweeps):
         r = np.random.default_rng(rows * 1000 + g)
