@@ -22,18 +22,31 @@ and no result line is printed):
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
 5. value-iteration main path — Garnet S = 10^6, A = 4, b = 5, same config;
-6. small-input parity — the ``jacobi_async_plain`` golden trajectory
-   reproduced byte for byte on the card, and an accelerated VI run on the
-   card against the same run on the CPU (plain versions);
-7. LM serving main path — Gemma-2-2B at its published widths (26 layers,
+6. SCF main path — the PPP chain of 1024 sites at U/|t| = 2 (the state is
+   the 1024 x 1024 float64 density, n = 2^20), same config but DIIS(8) on
+   every arrival; each worker update is one 1024 x 1024 ``eigh`` on the
+   card, each fire combines a (9, 2^20) window through ``anderson_mix``;
+   prints ms per ``full_map``, the energy and the final HOMO–LUMO gap;
+7. small-input parity — the ``jacobi_async_plain`` golden trajectory
+   reproduced byte for byte on the card, an accelerated VI run, the
+   ``scf_async_plain``/``scf_async_diis`` golden configurations and a UHF
+   reference energy on the card against the same runs on the CPU;
+8. LM serving main path — Gemma-2-2B at its published widths (26 layers,
    float32, weights from a seeded generator) through
    ``repro_torch.launch.lm_serve``: batched prefill of 2 x 8192 tokens
    (past the 4096 window, so the local layers' window mask and ring caches
    bind) and 32 greedy tokens; prefill attention must launch the flash
    kernel once per layer;
-8. LM parity — Gemma-2-2B widths at depth 2 with window 128, prompt 512:
+9. LM parity — Gemma-2-2B widths at depth 2 with window 128, prompt 512:
    prefill logits and 8 greedy decode steps on the card (kernel) against
-   the same weights on the CPU (plain version).
+   the same weights on the CPU (plain version);
+10. process backend — the Jacobi g = 2048 and SCF main paths on
+   ``executor="process"`` (4 spawned workers, each with its own CUDA
+   context on the card; without MPS their kernels time-slice): the Jacobi
+   halo kernel must launch in the workers; then one worker's Jacobi run
+   equal byte for byte to one thread worker's, on a cold pool and again
+   on the warm pool, which must spawn no interpreter; the pools' cold
+   start is printed and every pool is shut down.
 
 The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
 on the main paths (counts are reset right before each path and read right
@@ -57,9 +70,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: main-path sizes: the Jacobi grid side and the Garnet state count
+#: main-path sizes: the Jacobi grid side, the Garnet state count and the
+#: PPP chain's sites (its state is the SCF_ATOMS^2 density matrix), with
+#: the SCF path's DIIS window
 JACOBI_GRID = 2048
 VI_STATES = 10 ** 6
+SCF_ATOMS, SCF_DIIS_M = 1024, 8
 
 #: LM serving main path: Gemma-2-2B, batch x prompt tokens, tokens generated
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma2_2b", 2, 8192, 32
@@ -233,18 +249,20 @@ def phase_kernels(torch, dev, name):
            source="src/repro_torch/csrc/bellman.cu",
            replaces="src/repro/kernels/bellman.py:62")
 
-    # anderson_mix: the Jacobi fire's (6, n) window (and VI's (6, S)),
-    # every beta path checked, beta = 1 (the main path's) timed.
+    # anderson_mix: the Jacobi fire's (6, n) window (and VI's (6, S) and
+    # SCF's (9, 2^20)), every beta path checked, beta = 1 (the main path's)
+    # timed at Jacobi's.
     h = 6
     errs = {}
-    for N in (n, S):
-        X, G = randn(h, N), randn(h, N)
-        a = randn(h)
+    for hh, N in ((h, n), (h, S), (SCF_DIIS_M + 1, SCF_ATOMS ** 2)):
+        X, G = randn(hh, N), randn(hh, N)
+        a = randn(hh)
         a = a / a.sum()
         for beta in (1.0, 0.5, 0.0):
             got = ops.anderson_mix(X, G, a, beta=beta)
             want = ref.anderson_mix(X, G, a, beta=beta)
-            errs[f"{N}/{beta}"] = err_of(got, want) / float(want.abs().max())
+            errs[f"{hh}x{N}/{beta}"] = (err_of(got, want)
+                                        / float(want.abs().max()))
     X, G = randn(h, n), randn(h, n)
     a = randn(h)
     a = a / a.sum()
@@ -493,6 +511,132 @@ def phase_vi(dev):
     return launches
 
 
+def scf_problem(dev):
+    from repro_torch import PPPChain, SCFProblem
+
+    return SCFProblem(PPPChain(n_atoms=SCF_ATOMS, U=2.0, t=1.0, device=dev))
+
+
+def scf_cfg(**kw):
+    """``main_cfg`` with DIIS(8) on every arrival.  At 1024 sites the
+    chain's HOMO–LUMO gap is small and the plain map sloshes: with a fire
+    every 4 arrivals the residual does not fall in 200 updates, and with a
+    window of 5 a run can stall in the sloshing mode; 8 is the window of
+    the reference's SCF solver (``SCFProblem.reference_solution``)."""
+    from repro_torch import AndersonConfig
+
+    kw.setdefault("fire_every", 1)
+    kw.setdefault("accel", AndersonConfig(m=SCF_DIIS_M))
+    return main_cfg(**kw)
+
+
+def phase_scf(torch, dev):
+    from repro_torch.launch.kernel_bench import time_ms
+
+    prob = scf_problem(dev)
+    x0 = prob.initial()
+    map_ms = time_ms(torch, lambda: prob.full_map(x0))
+    res, launches, _ = run_path("scf", prob, scf_cfg())
+    check(launches["anderson_mix"] > 0, "scf: anderson_mix was never launched")
+    gap = prob.chain.homo_lumo_gap(res.x)
+    print(f"[scf] n_atoms {SCF_ATOMS}: full_map {map_ms:.3f} ms (20 calls "
+          f"between CUDA events, host copies included), energy "
+          f"{prob.energy(res.x):.10f} (core guess {prob.energy(x0):.10f}), "
+          f"HOMO-LUMO gap of the final Fock matrix {gap:.6e} (core guess "
+          f"{prob.chain.homo_lumo_gap(x0):.6e})")
+    check(gap > 1e-6, f"scf: HOMO-LUMO gap {gap:.3e} near rounding: the "
+                      f"density is not well defined")
+    return launches
+
+
+def phase_scf_parity(dev):
+    """The SCF golden configurations of tests/test_hotpath_goldens.py
+    (n = 8) and a multistable UHF chain's reference energy on the card
+    against the CPU."""
+    import numpy as np
+
+    from repro_torch import (AndersonConfig, FaultProfile, PPPChain,
+                             RunConfig, SCFProblem, UHFSCFProblem,
+                             run_fixed_point)
+
+    base = dict(mode="async", tol=1e-12, max_updates=400, compute_time=1e-3,
+                faults=FaultProfile(delay_mean=0.002, delay_std=0.001),
+                seed=5)
+    for name, kw in (("scf_async_plain", dict(block_damping=0.7)),
+                     ("scf_async_diis", dict(accel=AndersonConfig(m=5,
+                                                                  beta=1.0),
+                                             fire_every=4))):
+        rc, rh = (run_fixed_point(SCFProblem(PPPChain(8, 2.0, 1.0, device=d)),
+                                  RunConfig(**base, **kw))
+                  for d in (dev, "cpu"))
+        rel = float(np.max(np.abs(rc.x - rh.x)) / np.max(np.abs(rh.x)))
+        got = (rc.worker_updates, rc.accel_fires, rc.accel_accepts)
+        want = (rh.worker_updates, rh.accel_fires, rh.accel_accepts)
+        print(f"[scf-parity] {name} card vs CPU: (updates, fires, accepts) "
+              f"{got} / {want}, wall {rc.wall_time} / {rh.wall_time}, "
+              f"iterate rel diff {rel:.3e} (tol 1e-10)")
+        check(got == want and rc.wall_time == rh.wall_time,
+              f"scf parity {name}: counts differ")
+        check(rel <= 1e-10, f"scf parity {name}: iterates differ by {rel:.3e}")
+    ec, eh = (UHFSCFProblem(PPPChain(32, 3.0, device=d)).reference_energy()
+              for d in (dev, "cpu"))
+    rel = abs(ec - eh) / abs(eh)
+    print(f"[scf-parity] UHF n=32 U=3 reference_energy card {ec!r}, CPU "
+          f"{eh!r}: abs diff {abs(ec - eh):.3e}, rel {rel:.3e} (tol 1e-10)")
+    check(rel <= 1e-10, f"scf parity UHF: energies differ by {rel:.3e}")
+
+
+def phase_process(dev):
+    """The Jacobi and SCF main paths on the process backend, then one
+    worker's Jacobi run against one thread worker's, cold and warm."""
+    import numpy as np
+
+    from repro_torch import run_fixed_point
+    from repro_torch.core import pool_stats, shutdown_pools
+
+    launches = {}
+    try:
+        for label, make, cfg in (("jacobi", jacobi_problem, main_cfg),
+                                 ("scf", scf_problem, scf_cfg)):
+            res, got, _ = run_path(f"process-{label}", make(dev),
+                                   cfg(executor="process"))
+            for k, c in got.items():
+                launches[k] = launches.get(k, 0) + c
+            boot = [s["boot_s"] for s in pool_stats().values()]
+            print(f"[process-{label}] cold pool starts so far (4 workers: "
+                  f"spawn, torch import, CUDA context, problem on the card, "
+                  f"kernel library): {[round(b, 3) for b in boot]} s")
+        check(launches["jacobi_halo_sweeps"] > 0,
+              "process: jacobi_halo_sweeps never launched in the workers")
+        check(launches["anderson_mix"] > 0,
+              "process: anderson_mix never launched")
+        prob = jacobi_problem(dev)
+        one = dict(n_workers=1, faults=None, max_updates=20)
+        rt = run_path("jacobi-1w-thread", prob, main_cfg(**one))[0]
+        for turn in ("cold", "warm"):
+            before = {p for s in pool_stats().values() for p in s["pids"]}
+            rp = run_path(f"jacobi-1w-process-{turn}", prob,
+                          main_cfg(executor="process", **one))[0]
+            after = {p for s in pool_stats().values() for p in s["pids"]}
+            spawned = len(after - before)
+            same = rp.x.tobytes() == rt.x.tobytes()
+            print(f"[process] one-worker Jacobi, {turn} pool: {spawned} "
+                  f"interpreters spawned, device_dispatches "
+                  f"{rp.device_dispatches}, iterate equal to the thread "
+                  f"run's bytes: {same}")
+            check(same and rp.worker_updates == rt.worker_updates,
+                  f"process: one-worker {turn} run differs from the thread "
+                  f"run")
+            check(rp.device_dispatches > 0,
+                  "process: the one-worker run missed the device plane")
+            if turn == "warm":
+                check(spawned == 0, f"process: a warm run spawned {spawned}")
+    finally:
+        shutdown_pools()
+    check(pool_stats() == {}, "process: pools left after shutdown_pools()")
+    return launches
+
+
 def phase_small_parity(dev):
     """Small inputs with a known answer: the committed Jacobi golden, and
     the card against the CPU's plain versions for accelerated VI."""
@@ -632,11 +776,15 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch, dev, name)
     launches = {k: 0 for k in kernels}
-    for path in (phase_jacobi, phase_vi, lambda d: phase_lm(torch, d)):
+    for path in (phase_jacobi, phase_vi, lambda d: phase_scf(torch, d),
+                 lambda d: phase_lm(torch, d)):
         for k, c in path(dev).items():
             launches[k] += c
     phase_small_parity(dev)
+    phase_scf_parity(dev)
     phase_lm_parity(torch, dev)
+    for k, c in phase_process(dev).items():
+        launches[k] += c
     for k, row in kernels.items():
         row["launches"] = launches[k]
     line = {"kernels": list(kernels.values())}

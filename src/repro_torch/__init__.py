@@ -2,8 +2,8 @@
 
 A second package beside the JAX reference (``repro``), mirroring its
 layout: ``core`` (fixed-point interface, Anderson, engine), ``problems``
-(Jacobi, value iteration), ``configs``/``models``/``launch`` (the dense LM
-decoders and their serving path) and ``kernels`` (hand-written CUDA
+(Jacobi, value iteration, Hartree–Fock SCF), ``configs``/``models``/
+``launch`` (the dense LM decoders and their serving path) and ``kernels`` (hand-written CUDA
 kernels for Hopper, ``csrc/``, with their plain PyTorch versions).  It
 imports neither JAX nor the reference package.
 
@@ -26,6 +26,10 @@ from .problems import (
     GridWorldMDP,
     JacobiProblem,
     PolicyEvaluationProblem,
+    PPPChain,
+    SCFProblem,
+    UHFPPP,
+    UHFSCFProblem,
     ValueIterationProblem,
 )
 
@@ -42,4 +46,8 @@ __all__ = [
     "GridWorldMDP",
     "PolicyEvaluationProblem",
     "ValueIterationProblem",
+    "PPPChain",
+    "UHFPPP",
+    "SCFProblem",
+    "UHFSCFProblem",
 ]

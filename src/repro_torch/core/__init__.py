@@ -4,14 +4,15 @@
   interface (numpy-only, the coordinator contract)
 - :mod:`repro_torch.core.anderson`   — Anderson/DIIS with the Eq. 5
   safeguard, window on the device
-- :mod:`repro_torch.core.engine`     — coordinator, virtual-time and
-  thread backends, device plane
+- :mod:`repro_torch.core.engine`     — coordinator, virtual-time, thread
+  and process backends, device plane
 """
 
 from .anderson import AndersonConfig, AndersonState, diis_solve
 from .engine import (
     Executor,
     FaultProfile,
+    ProcessPoolExecutor,
     RunConfig,
     RunResult,
     SolveSession,
@@ -20,8 +21,11 @@ from .engine import (
     available_executors,
     get_executor,
     measure_compute,
+    pool_stats,
+    process_pools,
     register_executor,
     run_fixed_point,
+    shutdown_pools,
     submit_fixed_point,
 )
 from .fixedpoint import FixedPointProblem, contiguous_blocks
@@ -39,6 +43,10 @@ __all__ = [
     "Executor",
     "VirtualTimeExecutor",
     "ThreadPoolExecutor",
+    "ProcessPoolExecutor",
+    "shutdown_pools",
+    "process_pools",
+    "pool_stats",
     "register_executor",
     "get_executor",
     "available_executors",

@@ -9,10 +9,13 @@
   discrete-event backend
 - :mod:`repro_torch.core.engine.threadpool`   — real-concurrency thread
   backend, with the device-resident data plane
+- :mod:`repro_torch.core.engine.process`      — persistent process pools
+  (spawned interpreters, CUDA workers), with the same data plane
+- :mod:`repro_torch.core.engine.poolreg`      — the pools' LRU registry
 - :mod:`repro_torch.core.engine.device_plane` — the data-plane resolver
 
 :func:`run_fixed_point` is the one-call API; the backend is selected with
-``RunConfig.executor`` (``"virtual"`` | ``"thread"``).
+``RunConfig.executor`` (``"virtual"`` | ``"thread"`` | ``"process"``).
 :func:`submit_fixed_point` returns a started :class:`SolveSession`.
 """
 
@@ -33,6 +36,13 @@ from .coordinator import (
     measure_compute,
     worker_eval,
 )
+from .poolreg import PoolLease, PoolRegistry, payload_key
+from .process import (
+    ProcessPoolExecutor,
+    pool_stats,
+    process_pools,
+    shutdown_pools,
+)
 from .session import SessionState, SolveSession
 from .threadpool import ThreadPoolExecutor
 from .types import FaultProfile, RunConfig, RunResult
@@ -49,6 +59,13 @@ __all__ = [
     "Executor",
     "VirtualTimeExecutor",
     "ThreadPoolExecutor",
+    "ProcessPoolExecutor",
+    "shutdown_pools",
+    "process_pools",
+    "pool_stats",
+    "PoolRegistry",
+    "PoolLease",
+    "payload_key",
     "Coordinator",
     "EvalItem",
     "AccelPlan",

@@ -10,10 +10,12 @@ submit + execute inline).  Backends registered here are addressed by
 ``RunConfig.executor``:
 
 - ``"virtual"`` — deterministic discrete-event simulator (virtual seconds);
-- ``"thread"``  — real concurrent workers in a thread pool (wall seconds).
+- ``"thread"``  — real concurrent workers in a thread pool (wall seconds);
+- ``"process"`` — persistent pools of spawned worker interpreters, each
+  with its own CUDA context when the problem is on the card (wall
+  seconds).
 
-The reference's process and Ray backends are not ported yet
-(``RunConfig`` refuses them).
+The reference's Ray backend is not ported yet (``RunConfig`` refuses it).
 """
 
 from __future__ import annotations

@@ -52,6 +52,8 @@ __all__ = [
     "worker_eval",
     "measure_compute",
     "warm_problem",
+    "problem_payload",
+    "rebuild_problem",
 ]
 
 
@@ -101,6 +103,38 @@ def warm_problem(problem: FixedPointProblem, cfg: RunConfig,
         for sz in sizes:
             if sz:
                 worker_eval(problem, cfg, x0, np.arange(sz))
+
+
+def problem_payload(problem: FixedPointProblem):
+    """Picklable recipe for rebuilding ``problem`` in another interpreter.
+
+    Prefers ``factory_spec()``; falls back to pickling the instance itself
+    (fine for plain-numpy problems).  Raises with a pointer to
+    ``factory_spec`` if neither works.
+    """
+    spec = problem.factory_spec()
+    if spec is not None:
+        return ("factory", spec)
+    import pickle
+
+    try:
+        pickle.dumps(problem)
+    except Exception as e:
+        raise ValueError(
+            f"{type(problem).__name__} cannot cross process boundaries: it "
+            f"does not pickle ({e!r}) and defines no factory_spec(). "
+            "Implement FixedPointProblem.factory_spec() returning "
+            "(factory, args, kwargs)."
+        ) from e
+    return ("pickle", problem)
+
+
+def rebuild_problem(payload) -> FixedPointProblem:
+    kind, data = payload
+    if kind == "factory":
+        factory, args, kwargs = data
+        return factory(*args, **kwargs)
+    return data
 
 
 class _BusyTimer:

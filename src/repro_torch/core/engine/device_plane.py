@@ -16,8 +16,8 @@ resident block, for differential tests.
 
 Structural requirements (anything else returns None — host path):
 
-* the thread backend; the virtual backend always ignores the knob so
-  fixed-seed virtual runs stay bit-identical to the goldens,
+* the thread or process backend; the virtual backend always ignores the
+  knob so fixed-seed virtual runs stay bit-identical to the goldens,
 * async mode with fixed selection and block returns (the resident block
   IS the worker's fixed block),
 * identity projection, no offloaded eval service in the loop
@@ -54,7 +54,7 @@ def resolve_device_plane(problem: FixedPointProblem, cfg: RunConfig,
             f"unknown device_plane {mode!r} (expected one of {_MODES})")
     if mode == "off":
         return None
-    if backend != "thread":
+    if backend not in ("thread", "process"):
         return None
     if cfg.mode != "async":
         return None

@@ -1,16 +1,16 @@
 """Shared engine datatypes: fault profiles, run configuration, run results.
 
 These are backend-agnostic: the same :class:`RunConfig` drives the
-deterministic virtual-time simulator and the real-concurrency thread
-backend (``cfg.executor`` selects which — see
+deterministic virtual-time simulator and the real-concurrency thread and
+process backends (``cfg.executor`` selects which — see
 :mod:`repro_torch.core.engine.base`).
 
 The port's engine carries the reference engine's fields so a config reads
 the same in both packages, but the layers that hook into the reference
 coordinator (chaos scenarios, autoscale controllers, trace capture,
-checkpoints, telemetry) and the process and Ray backends are not ported
-yet: setting any of them raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+checkpoints, telemetry) and the Ray backend are not ported yet: setting
+any of them raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations
@@ -27,8 +27,6 @@ __all__ = ["FaultProfile", "RunConfig", "RunResult"]
 _LAYERS_ITEM = ("ROADMAP.md queue 1, item 4 (recover/, telemetry/, chaos/, "
                 "autoscale/, serve/)")
 _UNPORTED_EXECUTORS = {
-    "process": "ROADMAP.md queue 1, item 2 (the process backend with CUDA "
-               "workers)",
     "ray": "ROADMAP.md queue 1, item 5 (the Ray backend)",
 }
 
@@ -105,13 +103,13 @@ class RunConfig:
     Field meanings follow the reference engine's ``RunConfig``.  The
     knobs of layers the port does not carry yet (``scenario``,
     ``controller``, ``capture_trace``, ``checkpoint_every``,
-    ``checkpoint_dir``, ``resume_from``, ``telemetry`` and the
-    ``"process"``/``"ray"`` executors) raise ``NotImplementedError``.
+    ``checkpoint_dir``, ``resume_from``, ``telemetry`` and the ``"ray"``
+    executor) raise ``NotImplementedError``.
     """
 
     n_workers: int = 4
     mode: str = "async"  # "sync" | "async"
-    executor: str = "virtual"  # "virtual" | "thread"
+    executor: str = "virtual"  # "virtual" | "thread" | "process"
     # --- acceleration -------------------------------------------------- #
     accel: Optional[AndersonConfig] = None
     accel_mode: str = "coordinator"  # "monitor" | "coordinator" | "periodic"
@@ -125,8 +123,9 @@ class RunConfig:
     return_mode: str = "block"  # "block" | "full_map"
     # --- evaluation pipeline placement (paper §6 redesign) ---------------- #
     # "coordinator" evaluates accel/record full maps and safeguard norms
-    # inline; "worker" offloads them to an eval thread (thread backend) or
-    # a modeled eval server (virtual backend) so fires overlap arrivals.
+    # inline; "worker" offloads them to an eval thread (thread backend), an
+    # idle pool worker (process backend) or a modeled eval server (virtual
+    # backend) so fires overlap arrivals.
     accel_eval: str = "coordinator"  # "coordinator" | "worker"
     # Offloaded fires applied after more than this many worker updates since
     # accel_begin are discarded.  None => 4 * n_workers.
@@ -165,7 +164,7 @@ class RunConfig:
     sdc_window: int = 32  # baseline window (accepted update norms)
     sdc_threshold: float = 25.0  # reject when norm > threshold * median
     sdc_strikes: int = 3  # rejections before quarantine (0 => never)
-    # --- device-resident data plane (thread backend) ----------------------- #
+    # --- device-resident data plane (thread and process backends) --------- #
     # Keep each worker's block resident on the problem's device across the
     # dispatch loop, shipping only halo/dependency slices per dispatch and
     # running the fused block-update(+local-residual) kernels:

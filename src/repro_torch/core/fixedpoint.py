@@ -181,6 +181,22 @@ class FixedPointProblem(abc.ABC):
     def default_blocks(self, p: int) -> List[np.ndarray]:
         return contiguous_blocks(self.n, p)
 
+    def factory_spec(self):
+        """Picklable recipe ``(factory, args, kwargs)`` to rebuild this problem.
+
+        The process executor ships this recipe, not the instance, and each
+        worker calls ``factory(*args, **kwargs)`` in its own interpreter.
+        The factory must be importable by reference (a top-level class or
+        function) and args/kwargs plain Python and numpy, so that the
+        pickled payload (and the pool key hashed from it) is the same on
+        every run; the device goes as a string (``"cuda:0"``, ``"cpu"``),
+        so the worker rebuilds the problem on the device it came from.
+        ``None`` (the default) means "no recipe": the executor then pickles
+        the instance itself and fails with a clear error if that is
+        impossible.
+        """
+        return None
+
     def exact_solution(self) -> Optional[np.ndarray]:
         """Known solution for validation, if available."""
         return None

@@ -22,7 +22,7 @@ from . import ref
 
 __all__ = ["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
            "anderson_mix", "flash_attention", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "reset_launch_counts", "add_launch_counts", "KERNELS"]
 
 #: the wrappers that count launches, in the order of the kernel table
 KERNELS = ("jacobi_halo_sweeps", "jacobi_sweep", "bellman_block", "bellman",
@@ -42,6 +42,14 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for k in _counts:
             _counts[k] = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add launches counted elsewhere (a process-backend worker's, sent
+    back at the end of its run) to this process's counters."""
+    with _count_lock:
+        for k, c in counts.items():
+            _counts[k] += c
 
 
 def _counted(name: str) -> None:

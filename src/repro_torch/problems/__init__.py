@@ -5,13 +5,15 @@ device).
   (§3.3.1)
 - :mod:`repro_torch.problems.value_iteration` — Garnet MDP Bellman / policy
   evaluation (§3.3.2)
+- :mod:`repro_torch.problems.scf`             — PPP Hartree–Fock SCF, RHF and
+  UHF (§3.3.3)
 
-Hartree–Fock SCF (§3.3.3) is not ported yet (ROADMAP.md, queue 1).  Every
-tensor is created with an explicit ``dtype``; torch's global default dtype
-is left alone.
+Every tensor is created with an explicit ``dtype``; torch's global default
+dtype is left alone.
 """
 
 from .jacobi import JacobiProblem
+from .scf import PPPChain, SCFProblem, UHFPPP, UHFSCFProblem
 from .value_iteration import (
     GarnetMDP,
     GridWorldMDP,
@@ -25,4 +27,8 @@ __all__ = [
     "GridWorldMDP",
     "PolicyEvaluationProblem",
     "ValueIterationProblem",
+    "PPPChain",
+    "UHFPPP",
+    "SCFProblem",
+    "UHFSCFProblem",
 ]

@@ -153,6 +153,11 @@ class JacobiProblem(FixedPointProblem):
             return None, None
         return i0 // self.g, i1 // self.g
 
+    def factory_spec(self):
+        return (JacobiProblem, (), dict(grid=self.g, sweeps=self.sweeps,
+                                        seed=self.seed, backend=self.backend,
+                                        device=str(self.device)))
+
     def device_block_plan(self, indices, mode: str):
         r0, r1 = self._rows_of(np.asarray(indices))
         if r0 is None:

@@ -61,6 +61,8 @@ class GarnetMDP:
                  gamma: float = 0.95, seed: int = 0, sample: str = "exact",
                  device=None):
         self.device = resolve_device(device)
+        self._ctor = dict(S=S, A=A, b=b, gamma=gamma, seed=seed,
+                          sample=sample, device=str(self.device))
         self.S, self.A, self.b, self.gamma = S, A, b, gamma
         rng = np.random.default_rng(seed)
         if sample == "fast":
@@ -122,6 +124,7 @@ class GridWorldMDP(GarnetMDP):
 
     def __init__(self, g: int = 10, gamma: float = 0.95, device=None):
         self.device = resolve_device(device)
+        self._ctor = dict(g=g, gamma=gamma, device=str(self.device))
         self.S, self.A, self.b, self.gamma = g * g, 4, 1, gamma
         self.g = g
         S = self.S
@@ -200,6 +203,15 @@ class _VIDevicePlan(DeviceBlockPlan):
         return to_host(tv), float(norm)
 
 
+def _rebuild_vi(mdp_cls, mdp_kwargs):
+    """Factory for multi-interpreter executors (see ``factory_spec``)."""
+    return ValueIterationProblem(mdp_cls(**mdp_kwargs))
+
+
+def _rebuild_policy_eval(mdp_cls, mdp_kwargs, policy):
+    return PolicyEvaluationProblem(mdp_cls(**mdp_kwargs), policy=policy)
+
+
 class ValueIterationProblem(FixedPointProblem):
     """V <- T V as a partitioned fixed-point problem."""
 
@@ -237,6 +249,12 @@ class ValueIterationProblem(FixedPointProblem):
             self._sol = V
         return self._sol
 
+    def factory_spec(self):
+        ctor = getattr(self.mdp, "_ctor", None)
+        if ctor is None:
+            return None  # from_arrays: no recipe, the instance is pickled
+        return (_rebuild_vi, (type(self.mdp), ctor), {})
+
     def device_block_plan(self, indices, mode: str):
         sl = as_block_slice(indices)
         if sl is None:
@@ -271,6 +289,13 @@ class PolicyEvaluationProblem(ValueIterationProblem):
             policy = mdp.greedy_policy(V_star)
         self.policy = torch.as_tensor(np.asarray(policy, dtype=np.int64),
                                       device=mdp.device)
+
+    def factory_spec(self):
+        ctor = getattr(self.mdp, "_ctor", None)
+        if ctor is None:
+            return None
+        return (_rebuild_policy_eval,
+                (type(self.mdp), ctor, to_host(self.policy)), {})
 
     def full_map(self, x: np.ndarray) -> np.ndarray:
         mdp = self.mdp

@@ -30,6 +30,8 @@ from repro_torch.launch import lm_serve  # noqa: E402
 from repro_torch.problems import (  # noqa: E402
     GarnetMDP,
     JacobiProblem,
+    PPPChain,
+    SCFProblem,
     ValueIterationProblem,
 )
 
@@ -259,6 +261,46 @@ class TestProblemsOnTheCard:
             vals, _ = plan.step(*[np.copy(x[s]) for s in plan.needs])
             np.testing.assert_allclose(vals, cpu.block_update(x, blk),
                                        rtol=1e-13, atol=1e-13)
+
+    def test_scf_matches_cpu(self, dev):
+        """n = 256: cuSOLVER's eigh against LAPACK's, through the density
+        (free of eigenvector signs while the HOMO-LUMO gap is far above
+        rounding)."""
+        gpu = SCFProblem(PPPChain(256, 2.0, device=dev))
+        cpu = SCFProblem(PPPChain(256, 2.0, device="cpu"))
+        x = cpu.initial()
+        np.testing.assert_allclose(gpu.initial(), x, rtol=0, atol=1e-12)
+        assert cpu.chain.homo_lumo_gap(x) > 1e-3
+        for _ in range(3):
+            g = cpu.full_map(x)
+            np.testing.assert_allclose(gpu.full_map(x), g, rtol=0, atol=1e-10)
+            np.testing.assert_allclose(gpu.residual(x), cpu.residual(x),
+                                       rtol=0, atol=1e-10)
+            x = cpu.project(0.5 * (x + g))
+        assert gpu.energy(x) == pytest.approx(cpu.energy(x), rel=1e-12)
+
+    def test_one_process_worker_equals_one_thread_worker(self, dev):
+        """Jacobi with the device plane on: the worker process's halo
+        kernel launches are merged into the parent's counts, and its run
+        equals the thread run byte for byte."""
+        from repro_torch.core import (FaultProfile, RunConfig,
+                                      run_fixed_point, shutdown_pools)
+
+        prob = JacobiProblem(grid=128, sweeps=5, seed=2, device=dev)
+        kw = dict(mode="async", n_workers=1, device_plane="on",
+                  max_updates=20, tol=1e-12, accel=AndersonConfig(m=3),
+                  fire_every=4, faults=FaultProfile())
+        try:
+            rt = run_fixed_point(prob, RunConfig(executor="thread", **kw))
+            ops.reset_launch_counts()
+            rp = run_fixed_point(prob, RunConfig(executor="process", **kw))
+            launches = ops.launch_counts()
+        finally:
+            shutdown_pools()
+        assert rp.worker_updates == rt.worker_updates == 20
+        assert rp.device_dispatches > 0
+        assert launches["jacobi_halo_sweeps"] >= 20
+        assert rp.x.tobytes() == rt.x.tobytes()
 
     @pytest.mark.parametrize("beta", [0.5, 1.0])
     def test_anderson_window_matches_cpu(self, dev, beta):
