@@ -46,7 +46,26 @@ and no result line is printed):
    halo kernel must launch in the workers; then one worker's Jacobi run
    equal byte for byte to one thread worker's, on a cold pool and again
    on the warm pool, which must spawn no interpreter; the pools' cold
-   start is printed and every pool is shut down.
+   start is printed;
+11. chaos — ``[chaos]``: the Jacobi main path (thread backend,
+   ``main_cfg()``) under ``get_scenario("spot_wave", 4)`` and the VI one
+   under ``rolling_restart``, at the library's defaults, beside the same
+   runs without the scenario (device plane on, and on the host path a
+   scenario forces); prints walls, preemptions, joins, reassigned blocks,
+   partial commits, discards and the residual, and checks the kernels of
+   those host paths launched;
+12. recover — ``[recover]``: the Jacobi main path with
+   ``checkpoint_every=50`` into a temporary directory (removed after),
+   once through, then with a scripted ``coordinator_crash`` half-way
+   through that run's wall, and ``resume_fixed_point`` to the end; prints
+   bytes and seconds per checkpoint write, load and restore seconds and
+   the resumed wall, and checks ``wu`` continuity and that no fire
+   replays; on the thread backend and then on the process backend, whose
+   runs reuse phase 10's warm pool (0 spawns), after which every pool is
+   shut down;
+13. recover parity — ``[recover-parity]``: a scripted virtual Jacobi run
+   with Anderson (through ``anderson_mix``) on the card against the CPU,
+   and on each its resume at a mid ``wu`` against the uninterrupted run.
 
 The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
 on the main paths (counts are reset right before each path and read right
@@ -120,7 +139,8 @@ def phase_kernels(torch, dev, name):
     """Each kernel against its plain version at the main-path shapes."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.jacobi_stencil import halo_plan
-    from repro_torch.launch.kernel_bench import (bellman_work, bound_ms,
+    from repro_torch.launch.kernel_bench import (anderson_work,
+                                                 bellman_work, bound_ms,
                                                  device_profile,
                                                  jacobi_halo_work, peaks,
                                                  time_ms)
@@ -263,6 +283,24 @@ def phase_kernels(torch, dev, name):
             want = ref.anderson_mix(X, G, a, beta=beta)
             errs[f"{hh}x{N}/{beta}"] = (err_of(got, want)
                                         / float(want.abs().max()))
+    # SCF's window (9, 2^20), the shape of most of the kernel's launches,
+    # is timed beside the row's Jacobi shape, with its own bound.
+    hs, Ns = SCF_DIIS_M + 1, SCF_ATOMS ** 2
+    Xs, Gs, a_s = randn(hs, Ns), randn(hs, Ns), randn(hs)
+    a_s = a_s / a_s.sum()
+    scf_bound, scf_by = bound(*anderson_work(hs, Ns))
+    scf = dict(scf_shape=[hs, Ns],
+               scf_ms=time_ms(torch, lambda: ops.anderson_mix(Xs, Gs, a_s,
+                                                              beta=1.0)),
+               scf_plain_ms=time_ms(torch, lambda: ref.anderson_mix(
+                   Xs, Gs, a_s, beta=1.0)),
+               scf_library_ms=time_ms(torch, lambda: a_s @ Gs),
+               scf_bound_ms=scf_bound, scf_bound_by=scf_by)
+    print(f"[kernels] anderson_mix {[hs, Ns]}: kernel {scf['scf_ms']:.4f} "
+          f"ms, plain {scf['scf_plain_ms']:.4f} ms, a @ G "
+          f"{scf['scf_library_ms']:.4f} ms, bound {scf_bound:.4f} ms "
+          f"({scf_by}, {100 * scf_bound / scf['scf_ms']:.1f}%)")
+    del Xs, Gs
     X, G = randn(h, n), randn(h, n)
     a = randn(h)
     a = a / a.sum()
@@ -270,10 +308,10 @@ def phase_kernels(torch, dev, name):
     record("anderson_mix", [h, n], worst, 1e-12,
            lambda: ops.anderson_mix(X, G, a, beta=1.0),
            lambda: ref.anderson_mix(X, G, a, beta=1.0),
-           (h * n + h + n) * 8, 2 * h * n, lfn=lambda: a @ G,
+           *anderson_work(h, n), lfn=lambda: a @ G,
            source="src/repro_torch/csrc/anderson_mix.cu",
            replaces="src/repro/kernels/anderson_mix.py:46",
-           extra=dict(rel_err_by_n_beta=errs))
+           extra=dict(rel_err_by_n_beta=errs, **scf))
     del X, G, idx, probs, R
     torch.cuda.empty_cache()
 
@@ -425,8 +463,9 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     torch.cuda.empty_cache()
 
 
-def run_path(label, problem, cfg):
-    """One main-path run with the launch counters reset around it."""
+def run_path(label, problem, cfg, run=None):
+    """One main-path run (``run(problem, cfg)``, default
+    ``run_fixed_point``) with the launch counters reset around it."""
     import numpy as np
 
     from repro_torch import run_fixed_point
@@ -435,7 +474,7 @@ def run_path(label, problem, cfg):
     r0 = problem.residual_norm(problem.initial())
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_fixed_point(problem, cfg)
+    res = (run or run_fixed_point)(problem, cfg)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     check(res.x.shape == (problem.n,), f"{label}: iterate shape {res.x.shape}")
@@ -592,49 +631,317 @@ def phase_process(dev):
     import numpy as np
 
     from repro_torch import run_fixed_point
-    from repro_torch.core import pool_stats, shutdown_pools
+    from repro_torch.core import pool_stats
 
     launches = {}
-    try:
-        for label, make, cfg in (("jacobi", jacobi_problem, main_cfg),
-                                 ("scf", scf_problem, scf_cfg)):
-            res, got, _ = run_path(f"process-{label}", make(dev),
-                                   cfg(executor="process"))
-            for k, c in got.items():
-                launches[k] = launches.get(k, 0) + c
-            boot = [s["boot_s"] for s in pool_stats().values()]
-            print(f"[process-{label}] cold pool starts so far (4 workers: "
-                  f"spawn, torch import, CUDA context, problem on the card, "
-                  f"kernel library): {[round(b, 3) for b in boot]} s")
-        check(launches["jacobi_halo_sweeps"] > 0,
-              "process: jacobi_halo_sweeps never launched in the workers")
-        check(launches["anderson_mix"] > 0,
-              "process: anderson_mix never launched")
-        prob = jacobi_problem(dev)
-        one = dict(n_workers=1, faults=None, max_updates=20)
-        rt = run_path("jacobi-1w-thread", prob, main_cfg(**one))[0]
-        for turn in ("cold", "warm"):
-            before = {p for s in pool_stats().values() for p in s["pids"]}
-            rp = run_path(f"jacobi-1w-process-{turn}", prob,
-                          main_cfg(executor="process", **one))[0]
-            after = {p for s in pool_stats().values() for p in s["pids"]}
-            spawned = len(after - before)
-            same = rp.x.tobytes() == rt.x.tobytes()
-            print(f"[process] one-worker Jacobi, {turn} pool: {spawned} "
-                  f"interpreters spawned, device_dispatches "
-                  f"{rp.device_dispatches}, iterate equal to the thread "
-                  f"run's bytes: {same}")
-            check(same and rp.worker_updates == rt.worker_updates,
-                  f"process: one-worker {turn} run differs from the thread "
-                  f"run")
-            check(rp.device_dispatches > 0,
-                  "process: the one-worker run missed the device plane")
-            if turn == "warm":
-                check(spawned == 0, f"process: a warm run spawned {spawned}")
-    finally:
-        shutdown_pools()
-    check(pool_stats() == {}, "process: pools left after shutdown_pools()")
+    for label, make, cfg in (("jacobi", jacobi_problem, main_cfg),
+                             ("scf", scf_problem, scf_cfg)):
+        res, got, _ = run_path(f"process-{label}", make(dev),
+                               cfg(executor="process"))
+        for k, c in got.items():
+            launches[k] = launches.get(k, 0) + c
+        boot = [s["boot_s"] for s in pool_stats().values()]
+        print(f"[process-{label}] cold pool starts so far (4 workers: "
+              f"spawn, torch import, CUDA context, problem on the card, "
+              f"kernel library): {[round(b, 3) for b in boot]} s")
+    check(launches["jacobi_halo_sweeps"] > 0,
+          "process: jacobi_halo_sweeps never launched in the workers")
+    check(launches["anderson_mix"] > 0,
+          "process: anderson_mix never launched")
+    prob = jacobi_problem(dev)
+    one = dict(n_workers=1, faults=None, max_updates=20)
+    rt = run_path("jacobi-1w-thread", prob, main_cfg(**one))[0]
+    for turn in ("cold", "warm"):
+        before = pool_pids()
+        rp = run_path(f"jacobi-1w-process-{turn}", prob,
+                      main_cfg(executor="process", **one))[0]
+        spawned = len(pool_pids() - before)
+        same = rp.x.tobytes() == rt.x.tobytes()
+        print(f"[process] one-worker Jacobi, {turn} pool: {spawned} "
+              f"interpreters spawned, device_dispatches "
+              f"{rp.device_dispatches}, iterate equal to the thread "
+              f"run's bytes: {same}")
+        check(same and rp.worker_updates == rt.worker_updates,
+              f"process: one-worker {turn} run differs from the thread run")
+        check(rp.device_dispatches > 0,
+              "process: the one-worker run missed the device plane")
+        if turn == "warm":
+            check(spawned == 0, f"process: a warm run spawned {spawned}")
     return launches
+
+
+def pool_pids():
+    from repro_torch.core import pool_stats
+
+    return {p for s in pool_stats().values() for p in s["pids"]}
+
+
+def phase_chaos(dev):
+    """[chaos]: the Jacobi main path under the library's ``spot_wave`` and
+    the VI one under ``rolling_restart`` (thread backend, ``main_cfg()``,
+    the scripts at their defaults), beside the same runs without them.  A
+    scenario keeps the workers on the host path (a resident block cannot
+    follow a reassigned block), so the scenario-free run is timed both
+    with the device plane and on the host path."""
+    from repro_torch.chaos import get_scenario
+
+    launches = {}
+    for label, make, name, kernels in (
+            ("jacobi", jacobi_problem, "spot_wave",
+             ("jacobi_halo_sweeps", "jacobi_sweep", "anderson_mix")),
+            ("vi", vi_problem, "rolling_restart", ("bellman",
+                                                  "anderson_mix"))):
+        prob = make(dev)
+        plane = run_path(f"chaos-{label}-none", prob, main_cfg())[0]
+        host = run_path(f"chaos-{label}-none-host", prob,
+                        main_cfg(device_plane="off"))[0]
+        scn = get_scenario(name, 4)
+        res, got, r0 = run_path(f"chaos-{label}", prob,
+                                main_cfg(scenario=scn))
+        for k, c in got.items():
+            launches[k] = launches.get(k, 0) + c
+        print(f"[chaos] {label} under {name} (last event at "
+              f"{max(ev.t for ev in scn.events):.2f} s): run wall "
+              f"{res.wall_time:.3f} s; without the scenario "
+              f"{plane.wall_time:.3f} s (device plane) and "
+              f"{host.wall_time:.3f} s (host path); preemptions "
+              f"{res.preemptions}, joins {res.joins}, reassigned_blocks "
+              f"{res.reassigned_blocks}, accel_partial_commits "
+              f"{res.accel_partial_commits}, preempt_discards "
+              f"{res.preempt_discards}, accel_discards {res.accel_discards}, "
+              f"residual {r0:.6e} -> {res.residual_norm:.6e}, "
+              f"service_fractions {json.dumps(res.service_fractions)}")
+        check(res.preemptions >= 1 and res.reassigned_blocks >= 1,
+              f"chaos {label}: the scenario moved no block")
+        check(res.device_dispatches == 0,
+              f"chaos {label}: a scenario run took the device plane")
+        for k in kernels:
+            check(got[k] > 0, f"chaos {label}: {k} was never launched")
+        if label == "vi":
+            # The host path's VI block update is the full Bellman map
+            # restricted to the block, as in the reference
+            # (repro/problems/value_iteration.py:238-242).
+            print(f"[chaos] vi host path: bellman_block launches "
+                  f"{got['bellman_block']} (the block update is the "
+                  f"restricted full map), bellman {got['bellman']}")
+        else:
+            check(res.preemptions == 2 and res.joins == 2,
+                  "chaos jacobi: spot_wave did not preempt and rejoin "
+                  "workers 1 and 2")
+    return launches
+
+
+def phase_recover(dev, executor):
+    """[recover]: the Jacobi main path with checkpoints every 50 updates,
+    once through, then killed by a scripted ``coordinator_crash`` half-way
+    through that run's wall and resumed from the latest checkpoint.  The
+    checkpoint writes and the restore are timed by wrapping
+    ``repro_torch.recover.checkpoint``'s two functions for the phase."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import CoordinatorCrash, run_fixed_point
+    from repro_torch.chaos import FaultScenario
+    from repro_torch.kernels import ops
+    from repro_torch.recover import (SolveCheckpoint, checkpoint,
+                                     list_checkpoints, resume_fixed_point)
+
+    prob = jacobi_problem(dev)
+    tag = f"recover-{executor}"
+    writes, restores = [], []
+    write0 = checkpoint.write_checkpoint
+    restore0 = checkpoint.restore_coordinator
+
+    def timed_write(coord, t, loop_state=None):
+        t0 = time.perf_counter()
+        path = write0(coord, t, loop_state)
+        writes.append(time.perf_counter() - t0)
+        return path
+
+    def timed_restore(coord, ckpt):
+        t0 = time.perf_counter()
+        restore0(coord, ckpt)
+        restores.append(time.perf_counter() - t0)
+
+    def ckpt_bytes(path):
+        return sum(os.path.getsize(path[:-5] + e) for e in (".json", ".npz"))
+
+    launches = {}
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_ckpt_") for _ in range(2)]
+    checkpoint.write_checkpoint = timed_write
+    checkpoint.restore_coordinator = timed_restore
+    try:
+        pids0 = pool_pids()
+        cfg = main_cfg(executor=executor, checkpoint_every=50,
+                       checkpoint_dir=dirs[0])
+        full, got, r0 = run_path(f"{tag}-through", prob, cfg)
+        for k, c in got.items():
+            launches[k] = launches.get(k, 0) + c
+        sizes = [ckpt_bytes(p) for p in list_checkpoints(dirs[0])]
+        print(f"[recover] {executor}: uninterrupted run with checkpoints "
+              f"every 50 updates: wall {full.wall_time:.3f} s, "
+              f"{full.checkpoints_written} checkpoints of {sizes} bytes, "
+              f"write seconds {[round(w, 4) for w in writes]}")
+        check(full.checkpoints_written == 4 and len(sizes) == 4,
+              f"recover {executor}: {full.checkpoints_written} checkpoints")
+        n_writes = len(writes)
+        shutil.rmtree(dirs[0])
+        crash_at = full.wall_time / 2
+        cfg = main_cfg(executor=executor, checkpoint_every=50,
+                       checkpoint_dir=dirs[1],
+                       scenario=FaultScenario("crash").coordinator_crash(
+                           crash_at))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            run_fixed_point(prob, cfg)
+        except CoordinatorCrash as e:
+            print(f"[recover] {executor}: {e} after "
+                  f"{time.perf_counter() - t0:.3f} s of call")
+        else:
+            raise RuntimeError(f"chip_smoke: recover {executor}: the "
+                               f"scripted crash at {crash_at:.3f} s never "
+                               f"fired")
+        for k, c in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + c
+        paths = list_checkpoints(dirs[1])
+        check(bool(paths),
+              f"recover {executor}: no checkpoint before the crash")
+        t0 = time.perf_counter()
+        ck = SolveCheckpoint.load(paths[-1])
+        load_s = time.perf_counter() - t0
+        pids1 = pool_pids()
+        res, got, _ = run_path(f"{tag}-resumed", prob, cfg,
+                               run=lambda p, c: resume_fixed_point(p, c, ck))
+        for k, c in got.items():
+            launches[k] = launches.get(k, 0) + c
+        spawned = len(pool_pids() - pids1)
+        since_fire = ck.loop["since_fire"]
+        want_fires = (ck.meta["accel"]["n_fire"]
+                      + (since_fire + 200 - ck.wu) // 4)
+        hist = [tuple(h) for h in ck.meta["history"]]
+        print(f"[recover] {executor}: crash at {crash_at:.3f} s, resumed "
+              f"from {ck.tag} (wu {ck.wu}, t {ck.t:.3f} s, "
+              f"{ckpt_bytes(paths[-1])} bytes): load {load_s:.3f} s, "
+              f"restore {restores[-1]:.3f} s, resumed wall "
+              f"{res.wall_time:.3f} s cumulative "
+              f"({res.wall_time - ck.t:.3f} s after the checkpoint's time), "
+              f"write seconds after the first run "
+              f"{[round(w, 4) for w in writes[n_writes:]]}, fires "
+              f"{res.accel_fires} (expected {want_fires}), updates "
+              f"{res.worker_updates}, interpreters spawned on resume "
+              f"{spawned}")
+        check(res.resumed_from == ck.tag and res.worker_updates == 200,
+              f"recover {executor}: resumed run ended at wu "
+              f"{res.worker_updates}")
+        check(res.history[:len(hist)] == hist,
+              f"recover {executor}: the resumed history does not continue "
+              f"the checkpoint's")
+        check(all(a[1] <= b[1] for a, b in zip(res.history,
+                                                res.history[1:])),
+              f"recover {executor}: wu went backwards")
+        check(res.accel_fires == want_fires,
+              f"recover {executor}: {res.accel_fires} fires, expected "
+              f"{want_fires}: a fire replayed or went missing")
+        if executor == "process":
+            check(spawned == 0 and bool(pids0) and pool_pids() == pids0,
+                  "recover process: the crash or resume spawned "
+                  "interpreters (phase 10's pool not reused)")
+    finally:
+        checkpoint.write_checkpoint = write0
+        checkpoint.restore_coordinator = restore0
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def phase_recover_parity(dev):
+    """[recover-parity]: a scripted virtual Jacobi run with Anderson (the
+    combine through ``anderson_mix``) on the card against the CPU, and on
+    each device its resume from a checkpoint taken after the script is
+    over against the uninterrupted run.
+
+    The card's Anderson Gram is a cuBLAS product and the CPU's numpy's, so
+    the two differ in the last place at every fire, and accelerated async
+    Jacobi (the paper's iterate-corruption case) amplifies that over the
+    run's 150 fires: the card is held to the CPU's decisions (updates,
+    fires, accepts, membership, virtual wall) with iterates within 1e-4
+    relative (measured on the H100: 5.0e-7 scripted, 7.0e-6 for the same
+    run without the script, which is checked beside it as the baseline of
+    that amplification).  A resume on one device is held to that device's
+    uninterrupted run byte for byte."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import (AndersonConfig, FaultProfile, JacobiProblem,
+                             RunConfig, run_fixed_point)
+    from repro_torch.chaos import get_scenario
+    from repro_torch.kernels import ops
+    from repro_torch.recover import SolveCheckpoint, list_checkpoints
+
+    scn = get_scenario("rolling_restart", 4).scaled(0.05)
+    last = max(ev.t for ev in scn.events)
+    runs = {}
+    for d in (dev, "cpu"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+        try:
+            cfg = RunConfig(mode="async", tol=1e-300, max_updates=600,
+                            compute_time=1e-3, seed=7, fire_every=4,
+                            faults=FaultProfile(delay_mean=0.002,
+                                                delay_std=0.001),
+                            accel=AndersonConfig(m=5, mix_kernel_n=1),
+                            scenario=scn, checkpoint_every=150,
+                            checkpoint_dir=tmp)
+            prob = JacobiProblem(grid=32, sweeps=5, seed=0, device=d)
+            ops.reset_launch_counts()
+            full = run_fixed_point(prob, cfg)
+            ck = next(c for c in map(SolveCheckpoint.load,
+                                     list_checkpoints(tmp))
+                      if c.t > last and c.wu < 600)
+            res = run_fixed_point(prob, dataclasses.replace(
+                cfg, scenario=None, resume_from=ck))
+            launches = ops.launch_counts()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        same = res.x.tobytes() == full.x.tobytes()
+        rel = float(np.max(np.abs(res.x - full.x)) / np.max(np.abs(full.x)))
+        counts = (full.worker_updates, full.accel_fires, full.accel_accepts,
+                  full.preemptions, full.joins)
+        print(f"[recover-parity] {d}: scripted run (updates, fires, "
+              f"accepts, preemptions, joins) {counts}, resumed from "
+              f"{ck.tag}: bytes equal to the uninterrupted run {same} (rel "
+              f"diff {rel:.3e}), launches {json.dumps(launches)}")
+        check(res.worker_updates == full.worker_updates
+              and res.accel_fires == full.accel_fires,
+              f"recover parity {d}: the resume's counts differ")
+        check(same, f"recover parity {d}: the resume is not bit-identical "
+                    f"to the uninterrupted run (rel {rel:.3e})")
+        if d != "cpu":
+            check(launches["anderson_mix"] > 0,
+                  "recover parity: anderson_mix never launched")
+        runs[str(d)] = full
+    for d in (dev, "cpu"):  # the same run without the script
+        runs[f"{d}/plain"] = run_fixed_point(
+            JacobiProblem(grid=32, sweeps=5, seed=0, device=d),
+            dataclasses.replace(cfg, scenario=None, checkpoint_every=None,
+                                checkpoint_dir=None))
+    for label, rc, rh in (
+            ("scripted", runs[str(dev)], runs["cpu"]),
+            ("without the script", runs[f"{dev}/plain"], runs["cpu/plain"])):
+        rel = float(np.max(np.abs(rc.x - rh.x)) / np.max(np.abs(rh.x)))
+        counts = [(r.worker_updates, r.accel_fires, r.accel_accepts,
+                   r.preemptions, r.joins, r.wall_time) for r in (rc, rh)]
+        print(f"[recover-parity] {label}, card vs CPU: {counts[0]} / "
+              f"{counts[1]}, iterate bytes equal "
+              f"{rc.x.tobytes() == rh.x.tobytes()}, rel diff {rel:.3e} "
+              f"(tol 1e-4)")
+        check(counts[0] == counts[1],
+              f"recover parity {label}: card and CPU counts differ")
+        check(rel <= 1e-4,
+              f"recover parity {label}: card and CPU differ by {rel:.3e}")
 
 
 def phase_small_parity(dev):
@@ -780,11 +1087,22 @@ def main() -> int:
                  lambda d: phase_lm(torch, d)):
         for k, c in path(dev).items():
             launches[k] += c
+    for path in (phase_chaos, lambda d: phase_recover(d, "thread")):
+        for k, c in path(dev).items():
+            launches[k] += c
     phase_small_parity(dev)
     phase_scf_parity(dev)
+    phase_recover_parity(dev)
     phase_lm_parity(torch, dev)
-    for k, c in phase_process(dev).items():
-        launches[k] += c
+    from repro_torch.core import pool_stats, shutdown_pools
+
+    try:
+        for path in (phase_process, lambda d: phase_recover(d, "process")):
+            for k, c in path(dev).items():
+                launches[k] += c
+    finally:
+        shutdown_pools()
+    check(pool_stats() == {}, "process: pools left after shutdown_pools()")
     for k, row in kernels.items():
         row["launches"] = launches[k]
     line = {"kernels": list(kernels.values())}

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the asynchronous fixed-point engine.
 
 A second package beside the JAX reference (``repro``), mirroring its
-layout: ``core`` (fixed-point interface, Anderson, engine), ``problems``
+layout: ``core`` (fixed-point interface, Anderson, engine), ``chaos``
+(fault scenarios, trace replay), ``recover`` (checkpoints), ``problems``
 (Jacobi, value iteration, Hartree–Fock SCF), ``configs``/``models``/
 ``launch`` (the dense LM decoders and their serving path) and ``kernels`` (hand-written CUDA
 kernels for Hopper, ``csrc/``, with their plain PyTorch versions).  It
@@ -16,6 +17,7 @@ float64; the LM stack is float32 (bfloat16 in the attention kernel too).
 from ._device import default_device, has_cuda
 from .core import (
     AndersonConfig,
+    CoordinatorCrash,
     FaultProfile,
     RunConfig,
     RunResult,
@@ -41,6 +43,7 @@ __all__ = [
     "RunResult",
     "FaultProfile",
     "AndersonConfig",
+    "CoordinatorCrash",
     "JacobiProblem",
     "GarnetMDP",
     "GridWorldMDP",

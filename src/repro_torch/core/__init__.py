@@ -5,11 +5,13 @@
 - :mod:`repro_torch.core.anderson`   — Anderson/DIIS with the Eq. 5
   safeguard, window on the device
 - :mod:`repro_torch.core.engine`     — coordinator, virtual-time, thread
-  and process backends, device plane
+  and process backends, device plane, elastic membership and checkpoint
+  hooks
 """
 
 from .anderson import AndersonConfig, AndersonState, diis_solve
 from .engine import (
+    CoordinatorCrash,
     Executor,
     FaultProfile,
     ProcessPoolExecutor,
@@ -20,6 +22,7 @@ from .engine import (
     VirtualTimeExecutor,
     available_executors,
     get_executor,
+    known_executors,
     measure_compute,
     pool_stats,
     process_pools,
@@ -37,6 +40,7 @@ __all__ = [
     "FaultProfile",
     "RunConfig",
     "RunResult",
+    "CoordinatorCrash",
     "run_fixed_point",
     "submit_fixed_point",
     "SolveSession",
@@ -50,6 +54,7 @@ __all__ = [
     "register_executor",
     "get_executor",
     "available_executors",
+    "known_executors",
     "measure_compute",
     "FixedPointProblem",
     "contiguous_blocks",

@@ -275,7 +275,19 @@ class AndersonState:
     def restore(self, snap: dict) -> None:
         """Inverse of :meth:`snapshot`: the window lands compacted at the
         front of fresh device buffers; the incremental Gram is rebuilt by
-        replaying the per-row rank-1 updates."""
+        replaying the per-row rank-1 updates.
+
+        A Gram row came out of one GEMV over the window the row was pushed
+        into, with the new row last, and a GEMV's row results depend on
+        their position in it (the BLAS kernels block rows).  So each row is
+        replayed at its push-time position, behind zero rows that stand in
+        for the rows evicted since: the same bytes as the live run's (the
+        reference replays every row from position 0, which differs in the
+        last place once the window has evicted).  The push-time window
+        sizes follow from ``n_fire`` (one push per fire); with
+        ``restart_on_reject`` resets they may not, and a full window then
+        replays as if no reset had happened.
+        """
         self.n_accept = int(snap["n_accept"])
         self.n_reject = int(snap["n_reject"])
         self.n_fire = int(snap["n_fire"])
@@ -293,8 +305,14 @@ class AndersonState:
         self._F[:h] = to_device(snap["F"], self.device)
         self._start, self._len = 0, h
         if self._B is not None:
+            m1 = self.config.m + 1
+            pushes = self.n_fire if h == m1 else h
+            pad = self._scr1  # (m + 1, n) scratch
             for k in range(h):
-                r = _gram_row(self._F[:k + 1], self._F[k])
+                H = max(min(pushes - h + 1 + k, m1), k + 1)
+                pad[:H - k - 1].zero_()
+                pad[H - k - 1:H].copy_(self._F[:k + 1])
+                r = _gram_row(pad[:H], self._F[k])[H - k - 1:]
                 self._B[k, :k + 1] = r
                 self._B[:k + 1, k] = r
 

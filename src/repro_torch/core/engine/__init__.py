@@ -14,6 +14,10 @@
 - :mod:`repro_torch.core.engine.poolreg`      — the pools' LRU registry
 - :mod:`repro_torch.core.engine.device_plane` — the data-plane resolver
 
+Chaos scenarios and trace capture (:mod:`repro_torch.chaos`) and
+checkpoints (:mod:`repro_torch.recover`) hook into the coordinator and
+every backend.
+
 :func:`run_fixed_point` is the one-call API; the backend is selected with
 ``RunConfig.executor`` (``"virtual"`` | ``"thread"`` | ``"process"``).
 :func:`submit_fixed_point` returns a started :class:`SolveSession`.
@@ -26,6 +30,7 @@ from .base import (
     Executor,
     available_executors,
     get_executor,
+    known_executors,
     register_executor,
 )
 from .coordinator import (
@@ -45,13 +50,14 @@ from .process import (
 )
 from .session import SessionState, SolveSession
 from .threadpool import ThreadPoolExecutor
-from .types import FaultProfile, RunConfig, RunResult
+from .types import CoordinatorCrash, FaultProfile, RunConfig, RunResult
 from .virtual_time import VirtualTimeExecutor
 
 __all__ = [
     "FaultProfile",
     "RunConfig",
     "RunResult",
+    "CoordinatorCrash",
     "run_fixed_point",
     "submit_fixed_point",
     "SolveSession",
@@ -73,6 +79,7 @@ __all__ = [
     "register_executor",
     "get_executor",
     "available_executors",
+    "known_executors",
     "measure_compute",
     "worker_eval",
 ]

@@ -33,6 +33,7 @@ __all__ = [
     "register_executor",
     "get_executor",
     "available_executors",
+    "known_executors",
 ]
 
 
@@ -99,3 +100,14 @@ def get_executor(name: str) -> Executor:
 def available_executors() -> List[str]:
     """Names that :func:`get_executor` will actually instantiate here."""
     return sorted(_REGISTRY)
+
+
+def known_executors() -> Dict[str, str]:
+    """All known backends: name -> "available" or why it is not (the
+    reference's backends this port has not ported yet)."""
+    from .types import _UNPORTED_EXECUTORS
+
+    out = {n: "available" for n in _REGISTRY}
+    for name, item in _UNPORTED_EXECUTORS.items():
+        out.setdefault(name, f"not ported to repro_torch yet: {item}")
+    return dict(sorted(out.items()))

@@ -6,10 +6,10 @@ fires Anderson/DIIS with the Eq. 5 safeguard, records the residual
 history, and assembles the :class:`~repro_torch.core.engine.types.RunResult`.
 Backends differ only in *how* worker evaluations are scheduled (virtual
 event queue vs real threads).  This is the reference coordinator's apply,
-accel (begin/feed/commit), record and result logic; the hooks of the
-layers not ported yet (chaos scenarios, autoscale controllers, trace
-capture, checkpoints, telemetry) are left out, and ``RunConfig`` refuses
-their knobs.
+accel (begin/feed/commit), record and result logic, with its elastic
+membership, trace and checkpoint hooks; the hooks of the layers not
+ported yet (autoscale controllers, telemetry) are left out, and
+``RunConfig`` refuses their knobs.
 
 Evaluation pipeline
 -------------------
@@ -29,6 +29,18 @@ safeguard residual norms, the residual-history records) can run anywhere:
 async mode use) drives exactly this state machine with immediate
 evaluations.
 
+Elastic membership (repro_torch.chaos)
+--------------------------------------
+The coordinator also owns the worker -> blocks assignment.  Statically it
+is the identity (block ``w`` served by worker ``w``); chaos scenarios and
+the SDC quarantine move it: ``preempt_worker`` rebalances a leaver's
+blocks onto the least-loaded survivors (or orphans them when nobody is
+left), ``join_worker`` hands the home block back, ``next_dispatch`` walks
+a worker's assignment round-robin, and ``preempt_gen`` lets backends
+recognize (and discard) results computed by a preempted incarnation.
+A fire whose begin -> commit window crossed a membership change commits
+only to the blocks whose ownership did not move.
+
 The Anderson window lives on the problem's device (``problem.device``);
 everything else here is host numpy.
 """
@@ -42,7 +54,14 @@ import numpy as np
 
 from ..anderson import AndersonState
 from ..fixedpoint import FixedPointProblem, as_block_slice, restrict
-from .types import FaultProfile, RunConfig, RunResult, _fault_for, _writable
+from .types import (
+    CoordinatorCrash,
+    FaultProfile,
+    RunConfig,
+    RunResult,
+    _fault_for,
+    _writable,
+)
 
 __all__ = [
     "Coordinator",
@@ -135,6 +154,64 @@ def rebuild_problem(payload) -> FixedPointProblem:
         factory, args, kwargs = data
         return factory(*args, **kwargs)
     return data
+
+
+def _validate_layers(cfg: RunConfig) -> None:
+    """The reference coordinator's checks on the chaos, trace and
+    checkpoint knobs (same conditions, same messages)."""
+    if cfg.scenario is not None or cfg.capture_trace:
+        # Scenarios and trace replay pin the dispatch schedule to the
+        # memoized block partition.
+        if cfg.selection != "fixed":
+            raise ValueError(
+                "chaos scenarios, trace capture and controllers require "
+                f"selection='fixed' (got {cfg.selection!r})")
+        if cfg.eval_time is not None:
+            raise ValueError(
+                "chaos scenarios / trace capture / controllers do not "
+                "compose with the virtual eval-cost model (cfg.eval_time)")
+    if cfg.capture_trace and cfg.mode == "sync":
+        raise ValueError(
+            "capture_trace records async schedules only (a sync run is "
+            "already reproducible from its round plan)")
+    if cfg.checkpoint_every is not None:
+        if cfg.checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1 (got {cfg.checkpoint_every})")
+        if not cfg.checkpoint_dir:
+            raise ValueError(
+                "checkpoint_every requires checkpoint_dir (where the "
+                "SolveCheckpoint JSON + npz files land)")
+        if cfg.mode != "async":
+            raise ValueError(
+                "checkpointing covers async solves only (a sync run is "
+                "already reproducible from its round plan)")
+        if cfg.accel_eval == "worker" or cfg.eval_time is not None:
+            # Arrival boundaries are the consistency points; offloaded
+            # fires keep evaluation plans in flight across them.
+            raise ValueError(
+                "checkpointing requires accel_eval='coordinator' and no "
+                "eval_time (in-flight offloaded evaluations cannot be "
+                "checkpointed)")
+    if cfg.resume_from is not None:
+        if cfg.scenario is not None or cfg.capture_trace:
+            raise ValueError(
+                "a resumed run cannot re-attach a scenario, controller or "
+                "trace capture (their state died with the control plane); "
+                "use repro_torch.recover.resume_fixed_point, which strips "
+                "them")
+        if cfg.mode != "async":
+            raise ValueError("resume_from covers async solves only")
+    if cfg.scenario is not None:
+        if cfg.accel_eval == "worker" and cfg.executor == "virtual":
+            # The virtual chaos event loop evaluates fires inline only.
+            raise ValueError(
+                "chaos scenarios with accel_eval='worker' need a real "
+                "backend (thread/process); the virtual chaos loop "
+                "evaluates fires coordinator-side")
+        validate = getattr(cfg.scenario, "validate", None)
+        if validate is not None:
+            validate(cfg.n_workers)
 
 
 class _BusyTimer:
@@ -239,6 +316,7 @@ class Coordinator:
             raise ValueError(
                 f"unknown accel_eval {cfg.accel_eval!r}; "
                 "expected 'coordinator' or 'worker'")
+        _validate_layers(cfg)
         self.problem = problem
         self.cfg = cfg
         self.x = _writable(problem.initial())
@@ -306,26 +384,54 @@ class Coordinator:
         # self.res_norm iff nothing moved since it was evaluated.
         self._x_version = 0
         self._res_version = 0
-        # --- membership (SDC quarantine) -------------------------------- #
-        # Block w is served by worker w until the k-strikes SDC policy
-        # quarantines a worker and rebalances its blocks.
+        # --- elastic membership (chaos scenarios, SDC quarantine) ------- #
+        # The block partition is fixed; the worker -> blocks assignment is
+        # not.  Initially block w is served by worker w; a preemption
+        # reassigns the leaver's blocks to the least-loaded survivors and
+        # a join hands the home block back.
         p = cfg.n_workers
-        self.active: set = set(range(p))
+        self.active: set = set(range(p))  # workers currently in membership
+        self.paused: set = set()  # in membership but not taking new work
         self.worker_blocks: dict = {w: [w] for w in range(p)}
+        self.block_owner: dict = {b: b for b in range(len(self.blocks))}
+        self._orphan_blocks: list = []  # blocks with no live server
         self._rr: dict = {w: 0 for w in range(p)}  # multi-block round-robin
+        self.preempt_gen: dict = {w: 0 for w in range(p)}
         self.preemptions = 0
+        self.joins = 0
         self.reassigned_blocks = 0
         self.preempt_discards = 0
         self.applied_by_worker: dict = {}
         self._membership_version = 0
+        # block -> membership version at which its ownership last changed:
+        # lets accel_commit restrict a fire that crossed a preempt/join to
+        # the blocks that did not move.
         self._block_moved_at: dict = {}
         self.accel_partial_commits = 0
+        # Scenario set_profile overrides (worker -> live FaultProfile).
+        self.live_profiles: dict = {}
+        # Workers removed by scripted preemptions until the script joins
+        # them back (checkpointed with the membership).
+        self.scenario_down: set = set()
+        # Always 0: controllers are not ported; kept so the checkpoint
+        # counters match the reference's format.
+        self.controller_actions = 0
+        # Trace recorder (repro_torch.chaos.TraceRecorder), set by backends
+        # when cfg.capture_trace; fire/record/offload/scenario events are
+        # emitted from here so every loop captures them in arrival order.
+        self.tracer = None
         # --- SDC guard state -------------------------------------------- #
         self.sdc_rejects = 0
         self.quarantined = 0
         self._sdc_norms: List[float] = []
         self._sdc_strikes: dict = {}
         self._sdc_block_rejects: dict = {}  # block key -> consecutive rejects
+        # --- checkpoints (repro_torch.recover) --------------------------- #
+        # _last_ckpt_wu stops a wu that stalls on drops from re-writing
+        # the same checkpoint.
+        self.checkpoints_written = 0
+        self.resumed_from: Optional[str] = None
+        self._last_ckpt_wu = -1
 
     # ----------------------------------------------------------------- #
     def busy(self):
@@ -333,31 +439,125 @@ class Coordinator:
         return _BusyTimer(self)
 
     # ----------------------------------------------------------------- #
-    # Membership (SDC quarantine)
+    # Elastic membership (chaos scenarios, SDC quarantine)
     # ----------------------------------------------------------------- #
+    def fault_for(self, worker: int) -> FaultProfile:
+        """The worker's *live* fault profile: a scenario ``set_profile``
+        override when one is in effect, else the static ``cfg.faults``."""
+        prof = self.live_profiles.get(worker)
+        return prof if prof is not None else _fault_for(self.cfg, worker)
+
     def preempt_worker(self, worker: int) -> int:
         """Remove a worker from the membership; rebalance its blocks onto
-        the least-loaded survivors (the quarantine never removes the last
-        worker).  Returns the number of blocks moved."""
+        the least-loaded survivors, or orphan them when none is left.
+        Returns the number of blocks moved.  In-flight results from the
+        old incarnation are recognized (and discarded) through
+        ``preempt_gen``."""
         if worker not in self.active:
             return 0
         self.active.discard(worker)
+        self.paused.discard(worker)
         self.preemptions += 1
+        self.preempt_gen[worker] += 1
         moved = self.worker_blocks.get(worker, [])
         self.worker_blocks[worker] = []
         survivors = sorted(self.active)
-        for b in moved:
-            tgt = min(survivors, key=lambda s: (len(self.worker_blocks[s]), s))
-            self.worker_blocks[tgt].append(b)
-        self.reassigned_blocks += len(moved)
+        if not survivors:
+            self._orphan_blocks.extend(moved)
+        else:
+            for b in moved:
+                tgt = min(survivors,
+                          key=lambda s: (len(self.worker_blocks[s]), s))
+                self.worker_blocks[tgt].append(b)
+                self.block_owner[b] = tgt
+            self.reassigned_blocks += len(moved)
         self._membership_version += 1
         for b in moved:
             self._block_moved_at[b] = self._membership_version
         return len(moved)
 
+    def join_worker(self, worker: int) -> int:
+        """(Re)admit a worker: it takes back its home block (plus any
+        orphaned blocks).  Returns the number of blocks it received."""
+        if worker in self.active:
+            return 0
+        self.active.add(worker)
+        self.joins += 1
+        self.worker_blocks.setdefault(worker, [])
+        back = list(self._orphan_blocks)
+        self._orphan_blocks = []
+        home = worker if worker in self.block_owner else None
+        if (home is not None and home not in back
+                and self.block_owner[home] != worker):
+            holder = self.block_owner[home]
+            if home in self.worker_blocks.get(holder, []):
+                self.worker_blocks[holder].remove(home)
+            back.append(home)
+        for b in back:
+            self.block_owner[b] = worker
+            self.worker_blocks[worker].append(b)
+        self.reassigned_blocks += len(back)
+        self._membership_version += 1
+        for b in back:
+            self._block_moved_at[b] = self._membership_version
+        return len(back)
+
     def dispatchable(self, worker: int) -> bool:
         """True when the worker may be handed new work right now."""
-        return worker in self.active and bool(self.worker_blocks.get(worker))
+        return (worker in self.active and worker not in self.paused
+                and bool(self.worker_blocks.get(worker)))
+
+    def apply_scenario_event(self, ev, t: float = 0.0) -> None:
+        """Apply one :class:`repro_torch.chaos.ScenarioEvent` to the
+        membership / live-profile state.  Backend-specific plumbing
+        (waking parked threads, re-dispatching joined workers, pushing
+        profiles into worker processes) stays in the backends.  A
+        ``coordinator_crash`` raises :class:`CoordinatorCrash`."""
+        if ev.kind == "preempt":
+            self.scenario_down.add(ev.worker)
+        elif ev.kind == "join":
+            self.scenario_down.discard(ev.worker)
+        if ev.kind == "set_profile":
+            targets = ([ev.worker] if ev.worker is not None
+                       else range(self.cfg.n_workers))
+            for w in targets:
+                self.live_profiles[w] = ev.profile
+        elif ev.kind == "preempt":
+            self.preempt_worker(ev.worker)
+        elif ev.kind == "join":
+            self.join_worker(ev.worker)
+        elif ev.kind == "pause":
+            targets = ([ev.worker] if ev.worker is not None
+                       else list(self.active))
+            self.paused.update(w for w in targets if w in self.active)
+        elif ev.kind == "resume":
+            if ev.worker is None:
+                self.paused.clear()
+            else:
+                self.paused.discard(ev.worker)
+        elif ev.kind == "coordinator_crash":
+            # The one event that targets the control plane itself: raising
+            # here unwinds whatever backend loop applied the event.
+            raise CoordinatorCrash(
+                f"scenario killed the coordinator at t={t:.6g} "
+                f"(wu={self.wu})")
+        else:
+            raise ValueError(f"unknown scenario event kind {ev.kind!r}")
+        if self.tracer is not None:
+            self.tracer.scenario_event(t, ev)
+
+    def round_participants(self) -> List[int]:
+        """Sync mode: the workers that take part in the next round."""
+        return sorted(self.active - self.paused)
+
+    def round_assignment(self, worker: int) -> np.ndarray:
+        """Sync mode: all indices the worker serves this round (its
+        assigned blocks concatenated; a single block is returned as the
+        memoized block object itself)."""
+        bs = self.worker_blocks.get(worker) or []
+        if len(bs) == 1:
+            return self.blocks[bs[0]]
+        return np.concatenate([self.blocks[b] for b in bs])
 
     # ----------------------------------------------------------------- #
     # Index selection
@@ -434,9 +634,9 @@ class Coordinator:
                     s = self._sdc_strikes.get(worker, 0) + 1
                     self._sdc_strikes[worker] = s
                     if (s >= cfg.sdc_strikes and worker in self.active
-                            and len(self.active) > 1):
+                            and len(self.active - self.paused) > 1):
                         # k consecutive strikes: quarantine the repeat
-                        # offender (never the last worker).
+                        # offender (never the last dispatchable worker).
                         self.preempt_worker(worker)
                         self.quarantined += 1
                 return False
@@ -503,6 +703,32 @@ class Coordinator:
         base.append(upd)
         if len(base) > self.cfg.sdc_window:
             del base[0]
+        return True
+
+    # ----------------------------------------------------------------- #
+    # Durable solves (repro_torch.recover)
+    # ----------------------------------------------------------------- #
+    def checkpoint_due(self) -> bool:
+        ce = self.cfg.checkpoint_every
+        return (ce is not None and self.wu > 0 and self.wu % ce == 0
+                and self.wu != self._last_ckpt_wu)
+
+    def maybe_checkpoint(self, t: float, loop_state=None) -> bool:
+        """Write a SolveCheckpoint if the cadence says one is due.
+
+        Backends call this at arrival boundaries — a consistent point: no
+        apply, fire or record is mid-flight.  ``loop_state`` is the
+        backend's own resumable loop state, a ``(meta, arrays)`` pair or a
+        zero-arg callable evaluated only when a checkpoint is due.
+        """
+        if not self.checkpoint_due():
+            return False
+        from ...recover.checkpoint import write_checkpoint  # lazy: no cycle
+
+        write_checkpoint(self, t,
+                         loop_state() if callable(loop_state) else loop_state)
+        self._last_ckpt_wu = self.wu
+        self.checkpoints_written += 1
         return True
 
     # ----------------------------------------------------------------- #
@@ -577,6 +803,8 @@ class Coordinator:
         plan._item = None
         if offloaded:
             self.offloaded_evals += 1
+            if self.tracer is not None and item is not None:
+                self.tracer.offload(item.kind)
         elif item is not None and item.kind == EvalItem.FULL_MAP:
             self.coordinator_evals += 1
         if plan.stage == "map":
@@ -614,7 +842,8 @@ class Coordinator:
 
         A fire with more than ``cfg.accel_stale_limit`` worker updates
         applied since ``accel_begin`` is discarded; one whose window
-        crossed a quarantine commits only to the blocks that did not move.
+        crossed a membership change commits only to the blocks whose
+        ownership did not move (every block moved: discarded).
         Returns the applied verdict: "accept" | "fallback" | "discard".
         """
         self._fires_inflight -= 1
@@ -636,6 +865,8 @@ class Coordinator:
                 self.pin_copies_avoided += 1
             self.accel_discards += 1
             self.accel.record_reject()
+            if self.tracer is not None:
+                self.tracer.fire("discard", t)
             return "discard"
         for p in [p for p in self._pin_watch if p is not plan]:
             self.materialize_pin(p)
@@ -665,6 +896,8 @@ class Coordinator:
                 self._x_spare = spare
         self._x_version += 1
         self.commit_version += 1
+        if self.tracer is not None:
+            self.tracer.fire(plan.verdict, t)
         return plan.verdict
 
     def maybe_fire_accel(self) -> Optional[str]:
@@ -697,7 +930,7 @@ class Coordinator:
         the coordinator rng in worker order."""
         plans = []
         for w in sorted(alive):
-            prof = _fault_for(self.cfg, w)
+            prof = self.fault_for(w)
             delay = prof.sample_delay(self.rng)
             crashed = prof.sample_crash(self.rng)
             plans.append((w, prof, round_idx[w], delay, crashed))
@@ -734,8 +967,9 @@ class Coordinator:
         return t, None
 
     def arrival_tick(self, t: float) -> bool:
-        """Per-arrival bookkeeping of the thread backend: counters plus
-        every stop condition.  Callers must hold the coordinator lock."""
+        """Per-arrival bookkeeping of the real async backends: counters
+        plus every stop condition.  Callers with concurrent arrivals (the
+        thread backend) must hold their coordinator lock."""
         self.arrivals += 1
         self.since_record += 1
         stop = self.arrivals >= self.max_arrivals
@@ -772,6 +1006,8 @@ class Coordinator:
         self.res_norm = self.problem.residual_norm(self.x)
         self._res_version = self._x_version
         self.history.append((t, self.wu, self.res_norm))
+        if self.tracer is not None:
+            self.tracer.record(t, self.res_norm)
         return self.res_norm
 
     def record_begin(self, t: float) -> RecordPlan:
@@ -788,6 +1024,8 @@ class Coordinator:
         self.res_norm = float(value)
         self._res_version = plan.x_version
         self.history.append((plan.t, plan.wu, self.res_norm))
+        if self.tracer is not None:
+            self.tracer.record(plan.t, self.res_norm)
         return self.res_norm
 
     def converged(self) -> bool:
@@ -829,6 +1067,7 @@ class Coordinator:
             fire_window_s=self.fire_window_s,
             fire_window_arrivals=self.fire_window_arrivals,
             preemptions=self.preemptions,
+            joins=self.joins,
             reassigned_blocks=self.reassigned_blocks,
             preempt_discards=self.preempt_discards,
             service_fractions={
@@ -836,8 +1075,12 @@ class Coordinator:
                 for w, cnt in sorted(self.applied_by_worker.items())},
             sdc_rejects=self.sdc_rejects,
             quarantined=self.quarantined,
+            checkpoints_written=self.checkpoints_written,
+            resumed_from=self.resumed_from,
             pin_copies_avoided=self.pin_copies_avoided,
             pin_cow_saves=self.pin_cow_saves,
             device_dispatches=self.device_dispatches,
             device_refreshes=self.device_refreshes,
+            trace=(self.tracer.to_trace() if self.tracer is not None
+                   else None),
         )

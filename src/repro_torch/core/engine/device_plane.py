@@ -21,8 +21,11 @@ Structural requirements (anything else returns None — host path):
 * async mode with fixed selection and block returns (the resident block
   IS the worker's fixed block),
 * identity projection, no offloaded eval service in the loop
-  (``accel_eval="worker"`` keeps the host loop), and no SDC guard (its
-  quarantine reassigns blocks, which a resident block cannot follow).
+  (``accel_eval="worker"`` keeps the host loop), and nothing that can
+  move a block to another worker or restart the loop mid-run: no chaos
+  scenario, trace capture, checkpoint or resume, and no SDC guard (a
+  worker's plan holds only its home block resident, so it cannot follow a
+  reassigned block).
 
 ``"auto"`` (the default) additionally requires ``n >= AUTO_THRESHOLD``.
 """
@@ -60,7 +63,10 @@ def resolve_device_plane(problem: FixedPointProblem, cfg: RunConfig,
         return None
     if cfg.selection != "fixed" or cfg.return_mode != "block":
         return None
-    if cfg.accel_eval == "worker":
+    if (cfg.scenario is not None or cfg.capture_trace
+            or cfg.accel_eval == "worker"):
+        return None
+    if cfg.checkpoint_every is not None or cfg.resume_from is not None:
         return None
     if cfg.sdc_guard:
         # A quarantine moves blocks between workers, and a worker's plan

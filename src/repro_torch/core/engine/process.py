@@ -73,11 +73,19 @@ the other workers' arrivals keep being applied.  A simulated eval fault
 (``FaultProfile.eval_crash_prob``) reports ``eval_crash`` and the
 coordinator evaluates that item itself.
 
+Chaos scenarios and trace capture take their own loops: the parent's
+result wait is bounded by the next scripted event time, preempted workers
+are simply not redispatched (their interpreters stay pooled), a result
+that raced its worker's preemption is discarded (``preempt_gen``), and
+``set_profile`` events reach the workers as ``("prof", profile)``
+messages, applied from the worker's next task on.  A scripted
+``coordinator_crash`` drains every in-flight result before it raises, so
+the warm pool stays clean for the resumed session.  Checkpoints and
+resumes run on the default async loop, through the same pool lease.
+
 ``cfg.compute_time`` is ignored — compute cost is whatever the hardware
 takes.  Pool startup and per-run warm-up happen before ``t0``, so measured
-wall-clock covers only the iteration itself.  The reference's chaos loops
-(scenarios, controllers, trace capture) are not ported: ``RunConfig``
-refuses their knobs (ROADMAP.md queue 1, item 4).
+wall-clock covers only the iteration itself.
 """
 
 from __future__ import annotations
@@ -107,7 +115,7 @@ from .coordinator import (
 )
 from .device_plane import resolve_device_plane
 from .poolreg import PoolRegistry, payload_key
-from .types import RunConfig, RunResult, _fault_for
+from .types import CoordinatorCrash, RunConfig, RunResult, _fault_for
 
 __all__ = [
     "ProcessPoolExecutor",
@@ -170,6 +178,9 @@ def _worker_main(
       ("eval", kind)                     — EvalService item: the input x is
                                            in this worker's result slot;
                                            kind is "full_map" | "res_norm"
+      ("prof", profile)                  — chaos set_profile: delay/crash
+                                           draws use ``profile`` from the
+                                           next task on
       ("counts",)                        — end of run: send the launch counts
       None                               — shut the interpreter down
     ``my_block`` is this worker's own row of the coordinator's memoized
@@ -227,6 +238,10 @@ def _worker_main(
                 continue
             if kind == "counts":
                 result_q.put((w, "counts", ops.launch_counts(), 0))
+                continue
+            if kind == "prof":
+                # Chaos scenario set_profile: applies from the next task.
+                prof = task[1]
                 continue
             if kind == "eval":
                 # Offloaded accel/record evaluation: input x is whatever
@@ -366,6 +381,12 @@ class _WorkerPool:
         Each worker receives only its own block row — at large n the full
         partition is O(n) of int64 per queue."""
         seeds = np.random.SeedSequence(cfg.seed).spawn(cfg.n_workers)
+        if cfg.resume_from is not None:
+            # The checkpoint carries the coordinator's arrays, which the
+            # workers have no use for.
+            import dataclasses as _dc
+
+            cfg = _dc.replace(cfg, resume_from=None)
         for w, q in enumerate(self.task_qs):
             q.put(("run", cfg, seeds[w], blocks[w]))
         self._await(self.n_workers, {"ready"})
@@ -421,14 +442,29 @@ class _WorkerPool:
 
     def get_result(self, deadline: float):
         """Blocking result read that notices dead children and timeouts."""
+        return self.get_result_wake(deadline, None)
+
+    def get_result_wake(self, deadline: float, wake_s: Optional[float]):
+        """:meth:`get_result` that additionally returns None once
+        ``wake_s`` seconds (from now) elapse with no result — the chaos
+        loop's bounded wait, so scripted events are applied on time even
+        while every worker is busy."""
+        wake = None if wake_s is None else time.monotonic() + max(wake_s, 0.0)
         while True:
             now = time.monotonic()
             if deadline - now <= 0:
                 raise RuntimeError(
                     "timed out waiting for process-backend worker results")
+            timeout = min(_POLL_S, deadline - now)
+            if wake is not None:
+                if wake - now <= 0:
+                    return None
+                timeout = min(timeout, wake - now)
             try:
-                return self.result_q.get(timeout=min(_POLL_S, deadline - now))
+                return self.result_q.get(timeout=timeout)
             except queue_mod.Empty:
+                if wake is not None and time.monotonic() >= wake:
+                    return None
                 if not any(p.is_alive() for p in self.procs):
                     try:  # drain results that raced with the exits
                         return self.result_q.get_nowait()
@@ -525,6 +561,98 @@ def pool_stats() -> Dict[Tuple[str, int, str], Dict[str, object]]:
 atexit.register(shutdown_pools)
 
 
+class _EvalQueue:
+    """The EvalService of the offloaded async loops (``cfg.accel_eval ==
+    "worker"``): a FIFO of fire and record plans whose evaluation items go,
+    one at a time, to an idle worker.  The item's input iterate goes
+    through that worker's result slot, which is safe to write exactly when
+    the worker's last result has been consumed and it has no queued task;
+    the worker is not handed block work until the item returns."""
+
+    def __init__(self, coord: Coordinator, pool: _WorkerPool, elapsed):
+        self.coord, self.pool, self.elapsed = coord, pool, elapsed
+        self.plans: "deque" = deque()  # front is being served
+        self.worker: Optional[int] = None
+        self.item: Optional[EvalItem] = None
+
+    def open_fire(self) -> None:
+        """One fire in flight at a time; due fires while one is pending
+        are coalesced."""
+        if not any(isinstance(p, AccelPlan) for p in self.plans):
+            plan = self.coord.accel_begin(self.elapsed(), pin="lazy")
+            if plan is not None:
+                self.plans.append(plan)
+
+    def open_record(self) -> None:
+        if not any(isinstance(p, RecordPlan) for p in self.plans):
+            self.plans.append(self.coord.record_begin(self.elapsed()))
+
+    def serve(self, w: int) -> bool:
+        """Hand idle worker ``w`` the front plan's next item, if any."""
+        if self.worker is not None:
+            return False
+        while self.plans:
+            front = self.plans[0]
+            if isinstance(front, AccelPlan):
+                # Lazy pin: reconstruct the begin-time snapshot now, right
+                # before the pinned iterate leaves the (single-threaded)
+                # parent through the worker's slot.
+                self.coord.materialize_pin(front)
+            item = front.next_item()
+            if item is None:  # already complete (committed elsewhere)
+                self.plans.popleft()
+                continue
+            self.pool.slot_views[w][:] = item.x
+            self.pool.task_qs[w].put(("eval", item.kind))
+            self.worker, self.item = w, item
+            return True
+        return False
+
+    def finish(self, w: int, kind: str, data) -> bool:
+        """Feed a returned item ("eval_ok" or "eval_crash") through its
+        plan; True when the run should stop."""
+        coord = self.coord
+        plan, item = self.plans[0], self.item
+        self.worker = self.item = None
+        if kind == "eval_crash":
+            # The offloaded evaluation was lost: the coordinator evaluates
+            # the item itself and the pipeline continues.
+            val, offloaded = coord.eval_item(item), False
+        elif item.kind == EvalItem.FULL_MAP:
+            val, offloaded = self.pool.slot_views[w][:data].copy(), True
+        else:
+            val, offloaded = data, True  # residual-norm scalar
+        if isinstance(plan, AccelPlan):
+            coord.accel_feed(plan, val, offloaded=offloaded)
+            if plan.next_item() is None:
+                self.plans.popleft()
+                # Across membership changes only unmoved blocks commit.
+                coord.accel_commit(plan, t=self.elapsed())
+                self.pool.write_x(coord)
+            return False
+        self.plans.popleft()
+        res = coord.record_commit(plan, val, offloaded=offloaded)
+        if not np.isfinite(res) or res > 1e60:
+            return True
+        if coord.converged():
+            # The offloaded record judged the pinned iterate: confirm at
+            # the live one (inline-mode contract).
+            res = coord.record(self.elapsed())
+            return (not np.isfinite(res) or res > 1e60
+                    or coord.converged())
+        return False
+
+
+def _forward_profile(pool: _WorkerPool, cfg: RunConfig, ev) -> None:
+    """Push a scripted ``set_profile`` into the worker interpreters (their
+    delay/crash draws are made worker-side)."""
+    if ev.kind == "set_profile":
+        targets = ([ev.worker] if ev.worker is not None
+                   else range(cfg.n_workers))
+        for wt in targets:
+            pool.task_qs[wt].put(("prof", ev.profile))
+
+
 # --------------------------------------------------------------------- #
 @register_executor
 class ProcessPoolExecutor(Executor):
@@ -544,6 +672,10 @@ class ProcessPoolExecutor(Executor):
         coord.measure_fire_windows = True  # real clock: time inline fires
         if cfg.accel is not None:
             problem.full_map(coord.x)  # warm the parent-side accel path
+        if cfg.capture_trace and cfg.mode == "async":
+            from ...chaos.trace import TraceRecorder
+
+            coord.tracer = TraceRecorder(cfg, self.name, problem)
         lease = _acquire_pool(payload, cfg, problem.n)
         try:
             # Exclusive fleet use: concurrent same-family sessions queue
@@ -554,13 +686,28 @@ class ProcessPoolExecutor(Executor):
                     pool.setup_run(cfg, coord.blocks)
                     pool.write_x(coord)
                     if cfg.mode == "sync":
-                        res = self._run_sync(cfg, coord, pool)
+                        if cfg.scenario is not None:
+                            res = self._run_sync_chaos(cfg, coord, pool)
+                        else:
+                            res = self._run_sync(cfg, coord, pool)
+                    elif cfg.scenario is not None:
+                        # Hosts both eval placements; offloaded fires
+                        # commit only to unmoved blocks.
+                        res = self._run_async_chaos(cfg, coord, pool)
                     elif cfg.accel_eval == "worker":
                         res = self._run_async_offload(cfg, coord, pool)
+                    elif cfg.capture_trace:
+                        res = self._run_async_chaos(cfg, coord, pool)
                     else:
                         res = self._run_async(cfg, coord, pool)
                     pool.merge_launch_counts()
                     return res
+                except CoordinatorCrash:
+                    # The *control plane* died, not a worker: the loop
+                    # drained every in-flight result before unwinding, so
+                    # the warm pool is clean for the resumed session.
+                    pool.merge_launch_counts()
+                    raise
                 except Exception:
                     # A worker error (or timeout) leaves queues in an
                     # unknown state: retire the whole pool rather than
@@ -617,8 +764,30 @@ class ProcessPoolExecutor(Executor):
     ) -> RunResult:
         since_fire = 0
         alive = set(range(cfg.n_workers))
-        t0 = time.perf_counter()
-        coord.record(0.0)
+        if cfg.resume_from is not None:
+            # Restore the coordinator on the (warm) pool, push the restored
+            # iterate into shared memory and continue the wall clock from
+            # the checkpoint's time.  The lease taken in _execute is the one
+            # any same-payload run takes: zero respawns.
+            from ...recover.checkpoint import (
+                resolve_checkpoint, restore_coordinator)
+
+            ckpt = resolve_checkpoint(cfg.resume_from)
+            restore_coordinator(coord, ckpt)
+            loop = ckpt.loop
+            if loop.get("kind") != "process_async":
+                raise ValueError(
+                    f"checkpoint loop state is {loop.get('kind')!r}, not "
+                    "resumable on the process backend's async loop")
+            since_fire = int(loop.get("since_fire", 0))
+            alive = {int(w) for w in loop.get("alive", alive)}
+            alive &= {w for w in range(cfg.n_workers)
+                      if coord.dispatchable(w)}
+            pool.write_x(coord)
+            t0 = time.perf_counter() - ckpt.t
+        else:
+            t0 = time.perf_counter()
+            coord.record(0.0)
         pending: Dict[int, np.ndarray] = {}  # worker -> dispatched indices
         rejoin_owed: Set[int] = set()  # restartable crashes mid-downtime
         stop = False
@@ -638,6 +807,10 @@ class ProcessPoolExecutor(Executor):
                 is not None}
         dev_fresh = dict.fromkeys(dev_workers, False)
         dev_cver = dict.fromkeys(dev_workers, -1)
+
+        def _loop_state():
+            return ({"kind": "process_async", "since_fire": since_fire,
+                     "alive": sorted(alive)}, {})
 
         def dispatch(w: int) -> None:
             idx = coord.select_indices(w)
@@ -720,10 +893,292 @@ class ProcessPoolExecutor(Executor):
                 stop = coord.arrival_tick(time.perf_counter() - t0)
                 if not stop and redispatch:
                     dispatch(w)
+                coord.maybe_checkpoint(time.perf_counter() - t0, _loop_state)
         t = time.perf_counter() - t0
         # In-flight evaluations are discarded; draining leaves the pool's
         # queues empty for the next run.
         pool.drain(set(pending), rejoin_owed)
+        coord.record(t)
+        return coord.result(t, coord.wu, coord.converged())
+
+    # ----------------------------------------------------------------- #
+    def _run_sync_chaos(
+        self, cfg: RunConfig, coord: Coordinator, pool: _WorkerPool
+    ) -> RunResult:
+        """BSP loop under a chaos scenario (events at round boundaries; see
+        the thread backend's ``_run_sync_chaos`` for the semantics)."""
+        from ...chaos.scenario import ScenarioClock
+
+        clock = ScenarioClock(cfg.scenario)
+        t0 = time.perf_counter()
+        rounds = 0
+        alive = set(range(cfg.n_workers))
+
+        def elapsed() -> float:
+            return time.perf_counter() - t0
+
+        coord.record(0.0)
+        while (coord.wu < cfg.max_updates and alive
+               and coord.arrivals < coord.max_arrivals):
+            now = elapsed()
+            for ev in clock.due(now):
+                coord.apply_scenario_event(ev, now)
+                _forward_profile(pool, cfg, ev)
+            parts = [w for w in coord.round_participants() if w in alive]
+            if not parts:
+                nt = clock.next_time()
+                if nt is None:
+                    break  # membership can never recover
+                time.sleep(max(0.0, nt - elapsed()))
+                continue
+            rounds += 1
+            pool.write_x(coord)
+            round_idx = {w: coord.round_assignment(w) for w in parts}
+            plans = coord.plan_round(set(parts), round_idx)
+            by_worker: Dict[int, Tuple] = {}
+            for w, prof, idx, delay, crashed in plans:
+                by_worker[w] = (prof, idx, crashed)
+                wire_idx = None if idx is coord.blocks[w] else idx
+                pool.task_qs[w].put(("sync", wire_idx, delay, crashed))
+            deadline = time.monotonic() + _READY_TIMEOUT_S
+            remaining = len(plans)
+            while remaining:
+                w, kind, data, _snap = pool.get_result(deadline)
+                if kind == "error":
+                    raise RuntimeError(f"worker {w} failed: {data}")
+                remaining -= 1
+                coord.arrivals += 1
+                prof, idx, crashed = by_worker[w]
+                if crashed:
+                    coord.note_sync_crash(prof, w, alive)
+                    continue
+                coord.apply_return(idx, pool.slot_views[w][:data], prof,
+                                   staleness=0, worker=w)
+            t, verdict = coord.sync_round_tick(rounds, elapsed)
+            if verdict in ("diverged", "converged"):
+                return coord.result(t, rounds, verdict == "converged")
+            if verdict == "budget":
+                break
+        t = elapsed()
+        return coord.result(t, rounds, coord.converged())
+
+    # ----------------------------------------------------------------- #
+    def _run_async_chaos(
+        self, cfg: RunConfig, coord: Coordinator, pool: _WorkerPool
+    ) -> RunResult:
+        """Async loop with chaos scenarios and/or trace capture.
+
+        The parent's result wait is bounded by the next scripted event
+        time (``get_result_wake``), so events apply on schedule even with
+        every worker mid-task.  Preempted workers are simply not
+        redispatched; a result that raced its worker's preemption is
+        discarded via ``preempt_gen``.  With ``cfg.accel_eval == "worker"``
+        fire/record evaluations ride the same single-item-in-flight
+        pipeline as :meth:`_run_async_offload` (preempted/paused workers
+        never serve evals), and a fire whose begin -> commit window spans
+        a membership change commits only to the blocks that did not move.
+        A ``coordinator_crash`` stops the loop, drains every in-flight
+        result and then raises.
+        """
+        from ...chaos.scenario import ScenarioClock
+
+        clock = ScenarioClock(cfg.scenario)
+        t0 = time.perf_counter()
+        coord.record(0.0)
+        since_fire = 0
+        alive = set(range(cfg.n_workers))
+        pending: Dict[int, Tuple[np.ndarray, int]] = {}  # w -> (idx, gen)
+        rejoin_owed: Set[int] = set()
+        rejoin_gen: Dict[int, int] = {}  # incarnation that crashed
+        parked: Set[int] = set()  # paused workers with no task in flight
+        stop = False
+        crash_box: List[CoordinatorCrash] = []
+
+        def elapsed() -> float:
+            return time.perf_counter() - t0
+
+        evq = (_EvalQueue(coord, pool, elapsed)
+               if cfg.accel_eval == "worker" else None)
+
+        def _loop_state():
+            # Chaos-loop checkpoints resume on the default process loop
+            # (the script's remaining events die with the control plane).
+            return ({"kind": "process_async", "since_fire": since_fire,
+                     "alive": sorted(alive)}, {})
+
+        def dispatch(w: int) -> None:
+            gen = coord.preempt_gen[w]
+            bid, idx = coord.next_dispatch(w)
+            pending[w] = (idx, gen)
+            wire_idx = None if idx is coord.blocks[w] else idx
+            if coord.tracer is not None:
+                coord.tracer.dispatch(elapsed(), w, bid, gen)
+            pool.task_qs[w].put(("async", wire_idx))
+
+        def idle_or_park(w: int, allow_eval: bool = True) -> None:
+            """Redispatch an idle worker (possibly onto an eval item), or
+            park it while paused."""
+            if coord.dispatchable(w) and w in alive:
+                if evq is not None and allow_eval and evq.serve(w):
+                    return
+                dispatch(w)
+            elif w in coord.active and w in alive:
+                parked.add(w)
+
+        def apply_event(ev, now: float) -> None:
+            """Apply one scripted event, then its backend-side effects
+            (dispatching, parking, profile forwarding)."""
+            try:
+                coord.apply_scenario_event(ev, now)
+            except CoordinatorCrash as e:
+                # Let the loop fall through to the drain below: the queues
+                # must be empty before the kept-warm pool serves again.
+                crash_box.append(e)
+                return
+            _forward_profile(pool, cfg, ev)
+            if ev.kind == "join":
+                parked.discard(ev.worker)
+                if (ev.worker not in pending and ev.worker in alive
+                        and (evq is None or ev.worker != evq.worker)):
+                    # An eval-serving worker is redispatched when its item
+                    # returns: block work queued behind the eval would let
+                    # the block result clobber the eval's result slot.
+                    if coord.dispatchable(ev.worker):
+                        dispatch(ev.worker)
+                    elif ev.worker in coord.active:
+                        parked.add(ev.worker)  # joined into a pause
+            elif ev.kind == "resume":
+                for wt in sorted(parked):
+                    if coord.dispatchable(wt):
+                        parked.discard(wt)
+                        dispatch(wt)
+            elif ev.kind == "preempt":
+                parked.discard(ev.worker)
+
+        def arrival_tick_either() -> bool:
+            """Record-cadence/stop tick (offload opens record plans)."""
+            if evq is None:
+                return coord.arrival_tick(elapsed())
+            tick_stop, record_due = coord.arrival_tick_offload(elapsed())
+            if record_due:
+                evq.open_record()
+            return tick_stop
+
+        for ev in clock.due(0.0):
+            apply_event(ev, 0.0)
+        if not crash_box:
+            for w in sorted(alive):
+                if w in pending:
+                    continue  # a t=0 join event already dispatched it
+                if coord.dispatchable(w):
+                    dispatch(w)
+                elif w in coord.active:
+                    parked.add(w)  # paused before first dispatch: resumable
+        while alive and not stop and not crash_box:
+            now = elapsed()
+            for ev in clock.due(now):
+                apply_event(ev, now)
+            if crash_box:
+                break
+            nt = clock.next_time()
+            if (not pending and not rejoin_owed
+                    and (evq is None or evq.worker is None)):
+                if nt is None:
+                    break  # nothing in flight, no event can revive us
+                time.sleep(max(0.0, nt - elapsed()))
+                continue
+            deadline = time.monotonic() + _READY_TIMEOUT_S
+            wake = None if nt is None else nt - elapsed()
+            res = pool.get_result_wake(deadline, wake)
+            if res is None:
+                continue  # an event came due; handle it at the loop top
+            w, kind, data, snap_wu = res
+            if kind == "error":
+                raise RuntimeError(f"worker {w} failed: {data}")
+            if kind == "rejoin":
+                rejoin_owed.discard(w)
+                if rejoin_gen.pop(w, -1) == coord.preempt_gen[w]:
+                    # Downtime ended inside the same incarnation: the
+                    # restart rejoined (a worker preempted mid-downtime
+                    # never did).
+                    coord.restarts += 1
+                    if coord.tracer is not None:
+                        coord.tracer.restart(elapsed(), w)
+                continue
+            if kind in ("eval_ok", "eval_crash"):
+                with coord.busy():
+                    stop = evq.finish(w, kind, data)
+                    if not stop and w not in pending:
+                        idle_or_park(w)
+                continue
+            with coord.busy():
+                prof = coord.fault_for(w)
+                idx, gen = pending.pop(w)
+                if kind == "crash":
+                    if data:  # data=True iff the worker will rejoin
+                        rejoin_owed.add(w)
+                        rejoin_gen[w] = gen
+                    if gen != coord.preempt_gen[w]:
+                        coord.preempt_discards += 1
+                        if coord.tracer is not None:
+                            coord.tracer.arrival(elapsed(), w,
+                                                 "preempt_discard", gen=gen)
+                        # A rejoined worker must get fresh work even though
+                        # this (doomed) result was a crash report.
+                        idle_or_park(w, allow_eval=False)
+                        continue
+                    coord.crashes += 1
+                    if coord.tracer is not None:
+                        coord.tracer.arrival(elapsed(), w, "crash", gen=gen)
+                    stop = arrival_tick_either()
+                    if not data:
+                        alive.discard(w)
+                    elif not stop:
+                        # The redispatched task waits out the downtime in
+                        # the worker's queue (block work only: parking the
+                        # single-slot eval service behind that sleep would
+                        # stale-discard fires).
+                        idle_or_park(w, allow_eval=False)
+                    continue
+                if gen != coord.preempt_gen[w]:
+                    # Preempted (and possibly rejoined) while in flight:
+                    # the result predates the reassignment — discard it.
+                    coord.preempt_discards += 1
+                    if coord.tracer is not None:
+                        coord.tracer.arrival(elapsed(), w, "preempt_discard",
+                                             gen=gen)
+                    idle_or_park(w)
+                    continue
+                staleness = coord.wu - snap_wu
+                applied = coord.apply_return(
+                    idx, pool.slot_views[w][:data], prof,
+                    staleness=staleness, worker=w)
+                if coord.tracer is not None:
+                    coord.tracer.arrival(
+                        elapsed(), w,
+                        "applied" if applied else "filtered", staleness,
+                        gen=gen)
+                if applied:
+                    since_fire += 1
+                    if (coord.accel is not None
+                            and since_fire >= cfg.fire_every):
+                        since_fire = 0
+                        if evq is not None:
+                            evq.open_fire()
+                        else:
+                            coord.maybe_fire_accel()
+                pool.write_x(coord)
+                stop = arrival_tick_either()
+                if not stop:
+                    idle_or_park(w)
+                coord.maybe_checkpoint(elapsed(), _loop_state)
+        t = elapsed()
+        outstanding = set(pending)
+        if evq is not None and evq.worker is not None:
+            outstanding.add(evq.worker)
+        pool.drain(outstanding, rejoin_owed)
+        if crash_box:
+            raise crash_box[0]
         coord.record(t)
         return coord.result(t, coord.wu, coord.converged())
 
@@ -746,47 +1201,20 @@ class ProcessPoolExecutor(Executor):
         alive = set(range(cfg.n_workers))
         pending: Dict[int, np.ndarray] = {}  # worker -> dispatched indices
         rejoin_owed: Set[int] = set()  # restartable crashes mid-downtime
-        plans: "deque" = deque()  # eval pipelines; front is being served
-        eval_worker: Optional[int] = None
-        eval_item: Optional[EvalItem] = None
         stop = False
 
         def elapsed() -> float:
             return time.perf_counter() - t0
 
+        evq = _EvalQueue(coord, pool, elapsed)
+
         def dispatch(w: int) -> None:
-            _, idx = coord.next_dispatch(w)
+            bid, idx = coord.next_dispatch(w)
             pending[w] = idx
             wire_idx = None if idx is coord.blocks[w] else idx
+            if coord.tracer is not None:
+                coord.tracer.dispatch(elapsed(), w, bid)
             pool.task_qs[w].put(("async", wire_idx))
-
-        def service_eval(w: int) -> bool:
-            """Hand idle worker ``w`` the front plan's next item, if any.
-
-            The input iterate goes through w's result slot, which is safe
-            to write exactly now: w's last result has been consumed and it
-            has no queued task that could write the slot concurrently.
-            """
-            nonlocal eval_worker, eval_item
-            if eval_worker is not None:
-                return False
-            while plans:
-                front = plans[0]
-                if isinstance(front, AccelPlan):
-                    # Lazy pin: reconstruct the begin-time snapshot now,
-                    # right before the pinned iterate leaves the parent
-                    # through the worker's slot (single-threaded parent:
-                    # this is atomic with arrivals by construction).
-                    coord.materialize_pin(front)
-                item = front.next_item()
-                if item is None:  # already complete (committed elsewhere)
-                    plans.popleft()
-                    continue
-                pool.slot_views[w][:] = item.x
-                pool.task_qs[w].put(("eval", item.kind))
-                eval_worker, eval_item = w, item
-                return True
-            return False
 
         for w in sorted(alive):
             dispatch(w)
@@ -798,45 +1226,13 @@ class ProcessPoolExecutor(Executor):
             if kind == "rejoin":
                 coord.restarts += 1
                 rejoin_owed.discard(w)
+                if coord.tracer is not None:
+                    coord.tracer.restart(elapsed(), w)
                 continue
             if kind in ("eval_ok", "eval_crash"):
                 with coord.busy():
-                    plan = plans[0]
-                    item = eval_item
-                    eval_worker = eval_item = None
-                    if kind == "eval_crash":
-                        # Crash fallback: the offloaded evaluation was
-                        # lost — the coordinator evaluates the item itself
-                        # and the pipeline continues.
-                        val = coord.eval_item(item)
-                        offloaded = False
-                    elif item.kind == EvalItem.FULL_MAP:
-                        val = pool.slot_views[w][:data].copy()
-                        offloaded = True
-                    else:
-                        val = data  # residual-norm scalar over the queue
-                        offloaded = True
-                    if isinstance(plan, AccelPlan):
-                        coord.accel_feed(plan, val, offloaded=offloaded)
-                        if plan.next_item() is None:
-                            plans.popleft()
-                            coord.accel_commit(plan, t=elapsed())
-                            pool.write_x(coord)
-                    else:
-                        plans.popleft()
-                        res = coord.record_commit(plan, val,
-                                                  offloaded=offloaded)
-                        if not np.isfinite(res) or res > 1e60:
-                            stop = True
-                        elif coord.converged():
-                            # Confirm at the live iterate: the offloaded
-                            # record judged the pinned one and arrivals
-                            # may have landed since (inline-mode contract).
-                            res = coord.record(elapsed())
-                            if (not np.isfinite(res) or res > 1e60
-                                    or coord.converged()):
-                                stop = True
-                    if not stop and not service_eval(w):
+                    stop = evq.finish(w, kind, data)
+                    if not stop and not evq.serve(w):
                         dispatch(w)
                 continue
             with coord.busy():
@@ -845,6 +1241,8 @@ class ProcessPoolExecutor(Executor):
                 redispatch = True
                 if kind == "crash":
                     coord.crashes += 1
+                    if coord.tracer is not None:
+                        coord.tracer.arrival(elapsed(), w, "crash")
                     if not data:  # data=True iff the worker will rejoin
                         alive.discard(w)
                         redispatch = False
@@ -855,24 +1253,20 @@ class ProcessPoolExecutor(Executor):
                     applied = coord.apply_return(
                         idx, pool.slot_views[w][:data], prof,
                         staleness=staleness, worker=w)
+                    if coord.tracer is not None:
+                        coord.tracer.arrival(
+                            elapsed(), w,
+                            "applied" if applied else "filtered", staleness)
                     if applied:
                         since_fire += 1
                         if (coord.accel is not None
                                 and since_fire >= cfg.fire_every):
                             since_fire = 0
-                            # One fire in flight at a time; due fires
-                            # while one is pending are coalesced.
-                            if not any(isinstance(p, AccelPlan)
-                                       for p in plans):
-                                plan = coord.accel_begin(elapsed(),
-                                                         pin="lazy")
-                                if plan is not None:
-                                    plans.append(plan)
+                            evq.open_fire()
                     pool.write_x(coord)
                 tick_stop, record_due = coord.arrival_tick_offload(elapsed())
-                if record_due and not any(isinstance(p, RecordPlan)
-                                          for p in plans):
-                    plans.append(coord.record_begin(elapsed()))
+                if record_due:
+                    evq.open_record()
                 if tick_stop:
                     stop = True
                 if not stop and redispatch:
@@ -880,12 +1274,12 @@ class ProcessPoolExecutor(Executor):
                     # worker sleeps out its downtime before its next task,
                     # and parking the single-slot eval service behind that
                     # sleep would systematically stale-discard fires.
-                    if kind == "crash" or not service_eval(w):
+                    if kind == "crash" or not evq.serve(w):
                         dispatch(w)
         t = time.perf_counter() - t0
         outstanding = set(pending)
-        if eval_worker is not None:
-            outstanding.add(eval_worker)
+        if evq.worker is not None:
+            outstanding.add(evq.worker)
         pool.drain(outstanding, rejoin_owed)
         coord.record(t)
         return coord.result(t, coord.wu, coord.converged())

@@ -23,6 +23,13 @@ residual records run through the coordinator's begin/feed/commit pipeline
 on a dedicated eval thread instead of inline under the lock.  A simulated
 eval-service fault (``FaultProfile.eval_crash_prob``) makes the pipeline
 fall back to coordinator-side evaluation for that item.
+
+Chaos scenarios and trace capture take their own loops: a driver thread
+applies scripted events on the wall clock, workers park while preempted
+or paused, and a result computed across its worker's preemption is
+discarded (``preempt_gen``).  Those runs take the host path (the device
+plane cannot follow a reassigned block).  A worker thread that raises (a
+failed kernel launch) stops the run and the error re-raises on the caller.
 """
 
 from __future__ import annotations
@@ -43,9 +50,131 @@ from .coordinator import (
     worker_eval,
 )
 from .device_plane import resolve_device_plane
-from .types import FaultProfile, RunConfig, RunResult, _fault_for
+from .types import (
+    CoordinatorCrash,
+    FaultProfile,
+    RunConfig,
+    RunResult,
+    _fault_for,
+)
 
 __all__ = ["ThreadPoolExecutor"]
+
+
+def _run_threads(worker_loop, n: int, errors: list,
+                 stop: threading.Event) -> None:
+    """Run ``worker_loop(w)`` on ``n`` worker threads and join them.  A
+    worker that raises (a failed kernel launch) records the error and
+    stops the run; the caller re-raises it."""
+
+    def guarded(w: int) -> None:
+        try:
+            worker_loop(w)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+            errors.append(e)
+            stop.set()
+
+    threads = [
+        threading.Thread(target=guarded, args=(w,), daemon=True,
+                         name=f"fp-worker-{w}")
+        for w in range(n)
+    ]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+
+
+class _EvalThread:
+    """The EvalService of the offloaded async loops (``cfg.accel_eval ==
+    "worker"``).  A due fire or record only opens its plan under the
+    coordinator lock; one eval thread evaluates it, feeds the values back
+    under the lock and commits (a fire with the staleness guard).  At most
+    one fire and one record are in flight; further due ones are coalesced.
+    A simulated eval-service fault (``FaultProfile.eval_crash_prob``, drawn
+    from ``rng``) makes that item fall back to coordinator-side evaluation.
+    An error on the eval thread stops the run; the caller re-raises it."""
+
+    def __init__(self, coord: Coordinator, lock, stop: threading.Event,
+                 errors: list, rng: np.random.Generator, elapsed):
+        self.coord, self.lock, self.stop = coord, lock, stop
+        self.errors, self.rng, self.elapsed = errors, rng, elapsed
+        self.fire_plan = self.rec_plan = None
+        self.pool = _Pool(max_workers=1, thread_name_prefix="fp-eval")
+
+    def fire(self, prof: FaultProfile) -> None:
+        """Open a fire unless one is in flight; caller holds the lock."""
+        if self.fire_plan is None:
+            coord = self.coord
+            plan = coord.accel_begin(
+                self.elapsed(),
+                pin="lazy" if coord.x.size >= LAZY_PIN_MIN_N else "copy")
+            if plan is not None:
+                self.fire_plan = plan
+                self._submit(self._run_fire, plan, prof)
+
+    def tick(self, prof: FaultProfile) -> bool:
+        """Record-cadence/stop tick that opens a due record; caller holds
+        the lock.  Returns True when the run should stop."""
+        tick_stop, record_due = self.coord.arrival_tick_offload(
+            self.elapsed())
+        if record_due and self.rec_plan is None:
+            self.rec_plan = self.coord.record_begin(self.elapsed())
+            self._submit(self._run_record, self.rec_plan, prof)
+        return tick_stop
+
+    def shutdown(self) -> None:
+        self.pool.shutdown(wait=True)
+
+    def _submit(self, fn, plan, prof) -> None:
+        def job():
+            try:
+                fn(plan, prof)
+            except BaseException as e:  # noqa: BLE001 - re-raised by caller
+                self.errors.append(e)
+                self.stop.set()
+        self.pool.submit(job)
+
+    def _eval_one(self, item, prof: FaultProfile):
+        offloaded = not (prof.eval_crash_prob > 0.0
+                         and self.rng.random() < prof.eval_crash_prob)
+        return self.coord.eval_item(item), offloaded
+
+    def _run_fire(self, plan, prof: FaultProfile) -> None:
+        coord, lock = self.coord, self.lock
+        if plan._pin_lazy:
+            # Lazy pin: snapshot atomically with arrivals, right before the
+            # full-map item leaves the lock for the eval thread.
+            with lock, coord.busy():
+                coord.materialize_pin(plan)
+        item = plan.next_item()
+        while item is not None:
+            val, offloaded = self._eval_one(item, prof)
+            with lock, coord.busy():
+                coord.accel_feed(plan, val, offloaded=offloaded)
+            item = plan.next_item()
+        with lock, coord.busy():
+            if not self.stop.is_set():
+                coord.accel_commit(plan, t=self.elapsed())
+            self.fire_plan = None
+
+    def _run_record(self, plan, prof: FaultProfile) -> None:
+        coord = self.coord
+        val, offloaded = self._eval_one(plan.next_item(), prof)
+        with self.lock, coord.busy():
+            self.rec_plan = None
+            if self.stop.is_set():
+                return
+            res = coord.record_commit(plan, val, offloaded=offloaded)
+            if not np.isfinite(res) or res > 1e60:
+                self.stop.set()
+            elif coord.converged():
+                # The offloaded record judged the *pinned* iterate; confirm
+                # at the live iterate.
+                res = coord.record(self.elapsed())
+                if (not np.isfinite(res) or res > 1e60
+                        or coord.converged()):
+                    self.stop.set()
 
 
 @register_executor
@@ -65,11 +194,23 @@ class ThreadPoolExecutor(Executor):
         if cfg.accel is not None:
             problem.full_map(coord.x)
         problem.residual_norm(coord.x)
+        if cfg.capture_trace and cfg.mode == "async":
+            from ...chaos.trace import TraceRecorder
+
+            coord.tracer = TraceRecorder(cfg, self.name, problem)
         if cfg.mode == "sync":
+            if cfg.scenario is not None:
+                return self._run_sync_chaos(problem, cfg, coord)
             return self._run_sync(problem, cfg, coord)
         if cfg.mode == "async":
+            if cfg.scenario is not None:
+                # Hosts both eval placements; offloaded fires commit only
+                # to blocks whose ownership did not move.
+                return self._run_async_chaos(problem, cfg, coord)
             if cfg.accel_eval == "worker":
                 return self._run_async_offload(problem, cfg, coord)
+            if cfg.capture_trace:
+                return self._run_async_chaos(problem, cfg, coord)
             return self._run_async(problem, cfg, coord)
         raise ValueError(f"unknown mode {cfg.mode!r}")
 
@@ -150,12 +291,34 @@ class ThreadPoolExecutor(Executor):
                 dp.refresh(zx[coord.blocks[dw]])
                 dp.step(*[zx[s] for s in dp.needs])
 
-        t0 = time.perf_counter()
-        coord.record(0.0)
+        if cfg.resume_from is not None:
+            # Restore the coordinator (iterate, rng, Anderson window,
+            # counters) and continue the wall clock from the checkpoint's
+            # time.  Worker rngs re-derive from the seed, so a one-worker
+            # fault-free run continues bit-identically.
+            from ...recover.checkpoint import (
+                resolve_checkpoint, restore_coordinator)
+
+            ckpt = resolve_checkpoint(cfg.resume_from)
+            restore_coordinator(coord, ckpt)
+            loop = ckpt.loop
+            if loop.get("kind") != "thread_async":
+                raise ValueError(
+                    f"checkpoint loop state is {loop.get('kind')!r}, not "
+                    "resumable on the thread backend's async loop")
+            state["since_fire"] = int(loop.get("since_fire", 0))
+            t0 = time.perf_counter() - ckpt.t
+        else:
+            t0 = time.perf_counter()
+            coord.record(0.0)
         errors: list = []
 
         def elapsed() -> float:
             return time.perf_counter() - t0
+
+        def _loop_state():
+            return ({"kind": "thread_async",
+                     "since_fire": state["since_fire"]}, {})
 
         def worker_loop(w: int) -> None:
             prof = _fault_for(cfg, w)
@@ -168,7 +331,9 @@ class ThreadPoolExecutor(Executor):
                     if stop.is_set():
                         return
                     if not coord.dispatchable(w):
-                        return  # quarantined by the k-strikes SDC policy
+                        # Quarantined by the k-strikes SDC policy, or out of
+                        # a resumed membership: this thread is done.
+                        return
                     launch_wu = coord.wu
                     idx = coord.select_indices(w)
                     if dp is not None:
@@ -232,27 +397,255 @@ class ThreadPoolExecutor(Executor):
                             state["since_fire"] = 0
                     if coord.arrival_tick(elapsed()):
                         stop.set()
+                    coord.maybe_checkpoint(elapsed(), _loop_state)
 
-        def guarded(w: int) -> None:
-            # A worker that raises (a failed kernel launch) stops the run;
-            # the error re-raises on the calling thread below.
-            try:
-                worker_loop(w)
-            except BaseException as e:  # noqa: BLE001 - re-raised below
-                errors.append(e)
-                stop.set()
-
-        threads = [
-            threading.Thread(target=guarded, args=(w,), daemon=True,
-                             name=f"fp-worker-{w}")
-            for w in range(cfg.n_workers)
-        ]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
+        _run_threads(worker_loop, cfg.n_workers, errors, stop)
         if errors:
             raise errors[0]
+        t = elapsed()
+        with lock:
+            coord.record(t)
+            return coord.result(t, coord.wu, coord.converged())
+
+    # ----------------------------------------------------------------- #
+    def _run_sync_chaos(
+        self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator
+    ) -> RunResult:
+        """BSP loop under a chaos scenario: events apply at round
+        boundaries; preempted workers leave the round set with their
+        blocks served by survivors, paused workers idle, and when nobody
+        can take a round the loop sleeps to the next scripted event."""
+        from ...chaos.scenario import ScenarioClock
+
+        clock = ScenarioClock(cfg.scenario)
+        t0 = time.perf_counter()
+        rounds = 0
+        alive = set(range(cfg.n_workers))
+
+        def elapsed() -> float:
+            return time.perf_counter() - t0
+
+        coord.record(0.0)
+        with _Pool(max_workers=cfg.n_workers) as pool:
+            while (coord.wu < cfg.max_updates and alive
+                   and coord.arrivals < coord.max_arrivals):
+                now = elapsed()
+                for ev in clock.due(now):
+                    coord.apply_scenario_event(ev, now)
+                parts = [w for w in coord.round_participants() if w in alive]
+                if not parts:
+                    nt = clock.next_time()
+                    if nt is None:
+                        break  # membership can never recover
+                    time.sleep(max(0.0, nt - elapsed()))
+                    continue
+                rounds += 1
+                x_snap = coord.x.copy()
+                round_idx = {w: coord.round_assignment(w) for w in parts}
+                plans = coord.plan_round(set(parts), round_idx)
+                futs = [
+                    pool.submit(self._sync_task, problem, cfg, x_snap, idx,
+                                delay, crashed, prof)
+                    for _, prof, idx, delay, crashed in plans
+                ]
+                for (w, prof, idx, _, crashed), fut in zip(plans, futs):
+                    vals = fut.result()
+                    coord.arrivals += 1
+                    if crashed:
+                        coord.note_sync_crash(prof, w, alive)
+                        continue
+                    coord.apply_return(idx, vals, prof, staleness=0, worker=w)
+                t, verdict = coord.sync_round_tick(rounds, elapsed)
+                if verdict in ("diverged", "converged"):
+                    return coord.result(t, rounds, verdict == "converged")
+                if verdict == "budget":
+                    break
+        t = elapsed()
+        return coord.result(t, rounds, coord.converged())
+
+    # ----------------------------------------------------------------- #
+    def _run_async_chaos(
+        self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator
+    ) -> RunResult:
+        """Async loop with chaos scenarios and/or trace capture.
+
+        A chaos-driver thread wakes at each scripted event time and
+        applies it under the coordinator lock; worker threads park on a
+        condition while they are preempted or paused (and exit once no
+        future join can revive them).  A result computed across its
+        worker's preemption is discarded at the apply point
+        (``preempt_gen`` recognizes the stale incarnation).  A scripted
+        ``coordinator_crash`` stops every worker and raises
+        :class:`CoordinatorCrash` on the caller.
+
+        With ``cfg.accel_eval == "worker"`` due fires/records only *open*
+        plans under the lock and evaluate on a dedicated eval thread (as
+        in :meth:`_run_async_offload`); a fire whose begin -> commit
+        window spans a membership change commits only to the blocks that
+        did not move.
+        """
+        from ...chaos.scenario import ScenarioClock
+
+        lock = threading.Lock()
+        cond = threading.Condition(lock)
+        stop = threading.Event()
+        state = {"since_fire": 0, "crash": None}
+        errors: list = []
+        clock = ScenarioClock(cfg.scenario)
+        seeds = np.random.SeedSequence(cfg.seed).spawn(cfg.n_workers + 1)
+        worker_rngs = [np.random.default_rng(s) for s in seeds[:-1]]
+        t0 = time.perf_counter()
+        with cond:
+            for ev in clock.due(0.0):
+                coord.apply_scenario_event(ev, 0.0)
+        coord.record(0.0)
+
+        def elapsed() -> float:
+            return time.perf_counter() - t0
+
+        evals = (_EvalThread(coord, cond, stop, errors,
+                             np.random.default_rng(seeds[-1]), elapsed)
+                 if cfg.accel_eval == "worker" else None)
+
+        def tick(prof: FaultProfile) -> bool:
+            """Record-cadence/stop tick; caller holds the lock."""
+            if evals is None:
+                return coord.arrival_tick(elapsed())
+            return evals.tick(prof)
+
+        def chaos_driver() -> None:
+            while not stop.is_set():
+                nt = clock.next_time()
+                if nt is None:
+                    with cond:
+                        if not (coord.active - coord.paused):
+                            # Nobody can ever take work again: the script
+                            # ended with the membership empty/paused.
+                            stop.set()
+                            cond.notify_all()
+                    return
+                wait = nt - elapsed()
+                if wait > 0 and stop.wait(wait):
+                    return
+                with cond:
+                    now = elapsed()
+                    try:
+                        for ev in clock.due(now):
+                            coord.apply_scenario_event(ev, now)
+                    except CoordinatorCrash as e:
+                        # The control plane just died: stop every worker
+                        # (nothing commits past this point) and hand the
+                        # crash to the calling thread.
+                        state["crash"] = e
+                        stop.set()
+                        cond.notify_all()
+                        return
+                    cond.notify_all()
+
+        def worker_loop(w: int) -> None:
+            rng = worker_rngs[w]
+            while not stop.is_set():
+                with cond:
+                    while not stop.is_set() and not coord.dispatchable(w):
+                        if clock.exhausted:
+                            # join/resume only come from the script: an
+                            # undispatchable worker with the script drained
+                            # can never work again.
+                            return
+                        cond.wait(0.05)
+                    if stop.is_set():
+                        return
+                    gen = coord.preempt_gen[w]
+                    x_snap = coord.x.copy()
+                    launch_wu = coord.wu
+                    bid, idx = coord.next_dispatch(w)
+                    prof = coord.fault_for(w)
+                    if coord.tracer is not None:
+                        coord.tracer.dispatch(elapsed(), w, bid, gen)
+                vals = worker_eval(problem, cfg, x_snap, idx)
+                if cfg.async_overhead > 0.0:
+                    time.sleep(cfg.async_overhead)
+                delay = prof.sample_delay(rng)
+                if delay > 0.0:
+                    time.sleep(delay)
+                if prof.sample_crash(rng):
+                    with cond, coord.busy():
+                        if stop.is_set():
+                            return
+                        if gen != coord.preempt_gen[w]:
+                            coord.preempt_discards += 1
+                            if coord.tracer is not None:
+                                coord.tracer.arrival(elapsed(), w,
+                                                     "preempt_discard",
+                                                     gen=gen)
+                            continue  # park at loop top until join
+                        coord.crashes += 1
+                        if coord.tracer is not None:
+                            coord.tracer.arrival(elapsed(), w, "crash",
+                                                 gen=gen)
+                        if tick(prof):
+                            stop.set()
+                            cond.notify_all()
+                    if prof.restart_after is None or stop.is_set():
+                        return  # permanent crash (or run over): thread exits
+                    time.sleep(prof.restart_after)
+                    with cond:
+                        if stop.is_set():
+                            return
+                        if gen == coord.preempt_gen[w]:
+                            # Downtime ended inside the same incarnation:
+                            # the restart rejoins.
+                            coord.restarts += 1
+                            if coord.tracer is not None:
+                                coord.tracer.restart(elapsed(), w)
+                    continue
+                with cond, coord.busy():
+                    if stop.is_set():
+                        return
+                    if gen != coord.preempt_gen[w]:
+                        coord.preempt_discards += 1
+                        if coord.tracer is not None:
+                            coord.tracer.arrival(elapsed(), w,
+                                                 "preempt_discard", gen=gen)
+                        continue
+                    staleness = coord.wu - launch_wu
+                    applied = coord.apply_return(
+                        idx, vals, prof, staleness=staleness, worker=w
+                    )
+                    if coord.tracer is not None:
+                        coord.tracer.arrival(
+                            elapsed(), w,
+                            "applied" if applied else "filtered", staleness,
+                            gen=gen)
+                    if applied:
+                        state["since_fire"] += 1
+                        if (coord.accel is not None
+                                and state["since_fire"] >= cfg.fire_every):
+                            state["since_fire"] = 0
+                            if evals is not None:
+                                evals.fire(prof)
+                            else:
+                                coord.maybe_fire_accel()
+                    if tick(prof):
+                        stop.set()
+                        cond.notify_all()
+                    coord.maybe_checkpoint(
+                        elapsed(),
+                        lambda: ({"kind": "thread_async",
+                                  "since_fire": state["since_fire"]}, {}))
+
+        driver = threading.Thread(target=chaos_driver, daemon=True,
+                                  name="fp-chaos-driver")
+        driver.start()
+        _run_threads(worker_loop, cfg.n_workers, errors, stop)
+        stop.set()  # in-flight plans must not commit after the final record
+        driver.join(timeout=5.0)
+        if evals is not None:
+            evals.shutdown()
+        if errors:
+            raise errors[0]
+        if state["crash"] is not None:
+            raise state["crash"]
         t = elapsed()
         with lock:
             coord.record(t)
@@ -273,11 +666,9 @@ class ThreadPoolExecutor(Executor):
         """
         lock = threading.Lock()
         stop = threading.Event()
-        state = {"since_fire": 0, "fire_plan": None, "rec_plan": None}
+        state = {"since_fire": 0}
         seeds = np.random.SeedSequence(cfg.seed).spawn(cfg.n_workers + 1)
         worker_rngs = [np.random.default_rng(s) for s in seeds[:-1]]
-        eval_rng = np.random.default_rng(seeds[-1])
-        eval_pool = _Pool(max_workers=1, thread_name_prefix="fp-eval")
         errors: list = []
         t0 = time.perf_counter()
         coord.record(0.0)
@@ -285,63 +676,8 @@ class ThreadPoolExecutor(Executor):
         def elapsed() -> float:
             return time.perf_counter() - t0
 
-        def eval_one(item, prof: FaultProfile):
-            """Evaluate one pipeline item, simulating eval-service loss:
-            a lost evaluation falls back to the coordinator side."""
-            offloaded = not (prof.eval_crash_prob > 0.0
-                             and eval_rng.random() < prof.eval_crash_prob)
-            return coord.eval_item(item), offloaded
-
-        def run_fire(plan, prof: FaultProfile) -> None:
-            if plan._pin_lazy:
-                # Lazy pin: snapshot atomically with arrivals, right before
-                # the full-map item leaves the lock for the eval thread.
-                with lock, coord.busy():
-                    coord.materialize_pin(plan)
-            item = plan.next_item()
-            while item is not None:
-                val, offloaded = eval_one(item, prof)
-                with lock, coord.busy():
-                    coord.accel_feed(plan, val, offloaded=offloaded)
-                item = plan.next_item()
-            with lock, coord.busy():
-                if not stop.is_set():
-                    coord.accel_commit(plan, t=elapsed())
-                state["fire_plan"] = None
-
-        def run_record(plan, prof: FaultProfile) -> None:
-            val, offloaded = eval_one(plan.next_item(), prof)
-            with lock, coord.busy():
-                state["rec_plan"] = None
-                if stop.is_set():
-                    return
-                res = coord.record_commit(plan, val, offloaded=offloaded)
-                if not np.isfinite(res) or res > 1e60:
-                    stop.set()
-                elif coord.converged():
-                    # The offloaded record judged the *pinned* iterate;
-                    # confirm at the live iterate.
-                    res = coord.record(elapsed())
-                    if (not np.isfinite(res) or res > 1e60
-                            or coord.converged()):
-                        stop.set()
-
-        def submit(fn, plan, prof) -> None:
-            def job():
-                try:
-                    fn(plan, prof)
-                except BaseException as e:  # noqa: BLE001 - re-raised below
-                    errors.append(e)
-                    stop.set()
-            eval_pool.submit(job)
-
-        def tick(prof: FaultProfile) -> bool:
-            """Record-cadence/stop tick; caller holds the lock."""
-            tick_stop, record_due = coord.arrival_tick_offload(elapsed())
-            if record_due and state["rec_plan"] is None:
-                state["rec_plan"] = coord.record_begin(elapsed())
-                submit(run_record, state["rec_plan"], prof)
-            return tick_stop
+        evals = _EvalThread(coord, lock, stop, errors,
+                            np.random.default_rng(seeds[-1]), elapsed)
 
         def worker_loop(w: int) -> None:
             prof = _fault_for(cfg, w)
@@ -354,7 +690,9 @@ class ThreadPoolExecutor(Executor):
                         return  # quarantined by the k-strikes SDC policy
                     x_snap = coord.x.copy()
                     launch_wu = coord.wu
-                    _, idx = coord.next_dispatch(w)
+                    bid, idx = coord.next_dispatch(w)
+                    if coord.tracer is not None:
+                        coord.tracer.dispatch(elapsed(), w, bid)
                 vals = worker_eval(problem, cfg, x_snap, idx)
                 if cfg.async_overhead > 0.0:
                     time.sleep(cfg.async_overhead)
@@ -364,7 +702,9 @@ class ThreadPoolExecutor(Executor):
                 if prof.sample_crash(rng):
                     with lock, coord.busy():
                         coord.crashes += 1
-                        if tick(prof):
+                        if coord.tracer is not None:
+                            coord.tracer.arrival(elapsed(), w, "crash")
+                        if evals.tick(prof):
                             stop.set()
                     if prof.restart_after is None or stop.is_set():
                         return
@@ -373,6 +713,8 @@ class ThreadPoolExecutor(Executor):
                         if stop.is_set():
                             return  # run ended mid-downtime: never rejoined
                         coord.restarts += 1
+                        if coord.tracer is not None:
+                            coord.tracer.restart(elapsed(), w)
                     continue
                 with lock, coord.busy():
                     if stop.is_set():
@@ -381,40 +723,22 @@ class ThreadPoolExecutor(Executor):
                     applied = coord.apply_return(
                         idx, vals, prof, staleness=staleness, worker=w
                     )
+                    if coord.tracer is not None:
+                        coord.tracer.arrival(
+                            elapsed(), w,
+                            "applied" if applied else "filtered", staleness)
                     if applied:
                         state["since_fire"] += 1
                         if (coord.accel is not None
                                 and state["since_fire"] >= cfg.fire_every):
                             state["since_fire"] = 0
-                            if state["fire_plan"] is None:
-                                plan = coord.accel_begin(
-                                    elapsed(),
-                                    pin=("lazy" if coord.x.size
-                                         >= LAZY_PIN_MIN_N else "copy"))
-                                if plan is not None:
-                                    state["fire_plan"] = plan
-                                    submit(run_fire, plan, prof)
-                    if tick(prof):
+                            evals.fire(prof)
+                    if evals.tick(prof):
                         stop.set()
 
-        def guarded(w: int) -> None:
-            try:
-                worker_loop(w)
-            except BaseException as e:  # noqa: BLE001 - re-raised below
-                errors.append(e)
-                stop.set()
-
-        threads = [
-            threading.Thread(target=guarded, args=(w,), daemon=True,
-                             name=f"fp-worker-{w}")
-            for w in range(cfg.n_workers)
-        ]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
+        _run_threads(worker_loop, cfg.n_workers, errors, stop)
         stop.set()  # in-flight plans must not commit after the final record
-        eval_pool.shutdown(wait=True)
+        evals.shutdown()
         if errors:
             raise errors[0]
         t = elapsed()

@@ -6,15 +6,15 @@ process backends (``cfg.executor`` selects which — see
 :mod:`repro_torch.core.engine.base`).
 
 The port's engine carries the reference engine's fields so a config reads
-the same in both packages, but the layers that hook into the reference
-coordinator (chaos scenarios, autoscale controllers, trace capture,
-checkpoints, telemetry) and the Ray backend are not ported yet: setting
-any of them raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it.
+the same in both packages.  Chaos scenarios, trace capture and checkpoints
+are ported; autoscale controllers, telemetry and the Ray backend are not:
+setting any of those raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -22,13 +22,24 @@ import numpy as np
 
 from ..anderson import AndersonConfig
 
-__all__ = ["FaultProfile", "RunConfig", "RunResult"]
+__all__ = ["FaultProfile", "RunConfig", "RunResult", "CoordinatorCrash"]
 
-_LAYERS_ITEM = ("ROADMAP.md queue 1, item 4 (recover/, telemetry/, chaos/, "
-                "autoscale/, serve/)")
+_LAYERS_ITEM = ("ROADMAP.md queue 1, item 10 (telemetry/, autoscale/, "
+                "serve/, launch/solver_serve.py, launch/run_report.py)")
 _UNPORTED_EXECUTORS = {
     "ray": "ROADMAP.md queue 1, item 5 (the Ray backend)",
 }
+
+
+class CoordinatorCrash(RuntimeError):
+    """The control plane died mid-solve.
+
+    Raised out of a backend's coordinator loop when a chaos scenario's
+    ``coordinator_crash`` event fires: the session fails (workers drain
+    their in-flight results and are torn down with the loop), and any
+    checkpoints written so far stay on disk for
+    :func:`repro_torch.recover.resume_fixed_point`.
+    """
 
 
 @dataclass
@@ -101,10 +112,9 @@ class RunConfig:
     """One (a)synchronous run of a fixed-point problem.
 
     Field meanings follow the reference engine's ``RunConfig``.  The
-    knobs of layers the port does not carry yet (``scenario``,
-    ``controller``, ``capture_trace``, ``checkpoint_every``,
-    ``checkpoint_dir``, ``resume_from``, ``telemetry`` and the ``"ray"``
-    executor) raise ``NotImplementedError``.
+    knobs of layers the port does not carry yet (``controller``,
+    ``telemetry`` and the ``"ray"`` executor) raise
+    ``NotImplementedError``.
     """
 
     n_workers: int = 4
@@ -148,13 +158,29 @@ class RunConfig:
     async_overhead: float = 0.0  # per-dispatch cost in async mode
     faults: Union[None, FaultProfile, Dict[int, FaultProfile]] = None
     converge_on: str = "residual"  # "residual" | "error"
-    # --- layers not ported yet (raise NotImplementedError when set) ------- #
-    scenario: Optional[object] = None
-    controller: Optional[object] = None
+    # --- chaos scenarios (repro_torch.chaos) ------------------------------ #
+    # A FaultScenario of timestamped events (set_profile / preempt / join /
+    # pause / resume / coordinator_crash and delay-trace segments)
+    # interpreted against virtual time on the virtual backend and wall time
+    # on thread/process.  Preempted workers' blocks are reassigned to the
+    # least-loaded survivors and handed back on join.  Requires
+    # selection="fixed"; composes with accel_eval="worker" on the real
+    # backends (a fire whose begin->commit window crossed a membership
+    # change commits only to the blocks whose ownership did not move).
+    scenario: Optional[object] = None  # repro_torch.chaos.FaultScenario
+    # Record the run's event trace into RunResult.trace for deterministic
+    # replay (repro_torch.chaos.replay_trace).  Async, selection="fixed".
     capture_trace: bool = False
+    # --- durable solves (repro_torch.recover) ----------------------------- #
+    # Write a SolveCheckpoint (JSON + npz under checkpoint_dir) every this
+    # many applied worker updates, at an arrival boundary.  None disables.
     checkpoint_every: Optional[int] = None
-    checkpoint_dir: Optional[str] = None
+    checkpoint_dir: Optional[str] = None  # required when checkpoint_every set
+    # Resume handle: a SolveCheckpoint (or a path to one); use
+    # repro_torch.recover.resume_fixed_point rather than setting it.
     resume_from: Optional[object] = None
+    # --- layers not ported yet (raise NotImplementedError when set) ------- #
+    controller: Optional[object] = None
     telemetry: Optional[object] = None
     # --- SDC quarantine (coordinator-side guard) --------------------------- #
     # Screen every arriving block for NaN/Inf and for update norms that
@@ -177,16 +203,11 @@ class RunConfig:
     device_plane: str = "auto"
 
     def __post_init__(self) -> None:
-        for name in ("scenario", "controller", "telemetry", "resume_from",
-                     "checkpoint_every", "checkpoint_dir"):
+        for name in ("controller", "telemetry"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"RunConfig.{name} is not ported to repro_torch yet: "
                     f"{_LAYERS_ITEM}")
-        if self.capture_trace:
-            raise NotImplementedError(
-                "RunConfig.capture_trace is not ported to repro_torch yet: "
-                f"{_LAYERS_ITEM}")
         if self.executor in _UNPORTED_EXECUTORS:
             raise NotImplementedError(
                 f"executor {self.executor!r} is not ported to repro_torch "
@@ -215,26 +236,78 @@ class RunResult:
     # --- evaluation pipeline (accel_eval="worker") ------------------------ #
     offloaded_evals: int = 0  # eval items served worker-side
     accel_discards: int = 0  # fires dropped by the commit staleness guard
-    # Fires whose begin->commit window crossed a quarantine and committed
-    # restricted to the blocks whose ownership did not move.
+    # Fires whose begin->commit window crossed a membership change and
+    # committed restricted to the blocks whose ownership did not move.
     accel_partial_commits: int = 0
     # Fraction of the run the coordinator spent doing its own work —
     # measured on the thread backend, modeled on the virtual eval-cost loop.
     coordinator_busy_frac: float = 0.0
     fire_window_s: float = 0.0
     fire_window_arrivals: int = 0
-    # --- membership (SDC quarantine) -------------------------------------- #
+    # --- elastic membership (chaos scenarios, SDC quarantine) ------------ #
     preemptions: int = 0  # workers removed from the membership
-    reassigned_blocks: int = 0  # block moves to surviving workers
-    preempt_discards: int = 0  # in-flight results of quarantined workers
+    joins: int = 0  # workers that (re)joined the membership
+    reassigned_blocks: int = 0  # block moves across preempt/join events
+    preempt_discards: int = 0  # in-flight results discarded by a preemption
+    # Fraction of applied worker updates each worker served.
     service_fractions: Dict[int, float] = field(default_factory=dict)
+    # --- durable solves (repro_torch.recover) ------------------------------ #
     sdc_rejects: int = 0  # corrupted arrivals rejected by the SDC guard
     quarantined: int = 0  # workers quarantined by the k-strikes policy
+    checkpoints_written: int = 0  # SolveCheckpoints written this run
+    resumed_from: Optional[str] = None  # checkpoint tag this run resumed from
     # --- device-resident data plane --------------------------------------- #
     pin_copies_avoided: int = 0
     pin_cow_saves: int = 0
     device_dispatches: int = 0  # block updates served by the device plane
     device_refreshes: int = 0  # device blocks re-synced from the host iterate
+    # --- trace capture (cfg.capture_trace) -------------------------------- #
+    trace: Optional[object] = None  # repro_torch.chaos.RunTrace
+
+    def to_dict(self, include_history: bool = True,
+                include_x: bool = False) -> dict:
+        """JSON-safe dict of this result.  ``x`` is omitted unless
+        ``include_x`` (it is O(n)); a captured trace serializes through its
+        own ``to_dict``.  Round-trips through :meth:`from_dict`."""
+        out: dict = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name == "x":
+                if include_x:
+                    out["x"] = np.asarray(v, dtype=np.float64).tolist()
+            elif f.name == "history":
+                if include_history:
+                    out["history"] = [[float(t), int(wu), float(r)]
+                                      for t, wu, r in v]
+            elif f.name == "trace":
+                if v is not None:
+                    out["trace"] = v.to_dict() if hasattr(v, "to_dict") else v
+            elif f.name == "service_fractions":
+                out["service_fractions"] = {
+                    str(k): float(sv) for k, sv in (v or {}).items()}
+            elif f.name == "error_norm":
+                out["error_norm"] = None if v is None else float(v)
+            elif isinstance(v, (bool, int, str)) or v is None:
+                out[f.name] = v
+            else:
+                out[f.name] = float(v)
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RunResult":
+        """Rebuild a result from :meth:`to_dict` output (the reference's
+        too: keys this port does not carry are ignored).  Absent payloads
+        come back empty: ``x`` as a zero-length array, ``history`` as
+        ``[]``, the trace as the raw dict it was serialized to."""
+        kw = dict(d)
+        kw["x"] = np.asarray(kw.pop("x", []), dtype=np.float64)
+        kw["history"] = [(float(t), int(wu), float(r))
+                         for t, wu, r in kw.pop("history", [])]
+        kw["service_fractions"] = {
+            int(k): float(v)
+            for k, v in (kw.pop("service_fractions", {}) or {}).items()}
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in kw.items() if k in known})
 
     def summary(self) -> str:
         return (

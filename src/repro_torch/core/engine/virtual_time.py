@@ -10,7 +10,11 @@ The event loops are the reference engine's, so a fixed-seed run consumes
 the random streams in the same order and, given the same block-update
 values, applies the same updates at the same virtual times.  That is what
 lets the port's tests hold whole trajectories against the JAX package's
-golden runs.
+golden runs.  Chaos scenarios and trace capture take their own event
+loops (:meth:`VirtualTimeExecutor._run_async_chaos`,
+:meth:`~VirtualTimeExecutor._run_sync_chaos`); runs without them never
+enter those loops.  Checkpoints carry the default loop's event heap, so a
+resumed run continues bit-identically.
 
 Evaluation-cost model (opt-in)
 ------------------------------
@@ -64,7 +68,11 @@ class VirtualTimeExecutor(Executor):
             else measure_compute(problem, coord.blocks)  # memoized partition
         )
         if cfg.mode == "sync":
+            if cfg.scenario is not None:
+                return self._run_sync_chaos(problem, cfg, coord, compute)
             return self._run_sync(problem, cfg, coord, compute)
+        if cfg.scenario is not None or cfg.capture_trace:
+            return self._run_async_chaos(problem, cfg, coord, compute)
         if cfg.accel_eval == "worker" or cfg.eval_time is not None:
             return self._run_async_evalmodel(problem, cfg, coord, compute)
         return self._run_async(problem, cfg, coord, compute)
@@ -144,12 +152,73 @@ class VirtualTimeExecutor(Executor):
             heapq.heappush(heap, (at, seq, worker, coord.wu, None, None))
             seq += 1
 
-        coord.record(t)
-        for w in range(cfg.n_workers):
-            launch(w, 0.0)
-        since_record = 0  # arrivals (applied or not) since last record
-        since_fire = 0
-        arrivals = 0
+        def loop_state():
+            """Resumable loop state for a SolveCheckpoint: the event heap
+            (block ids where possible; payload arrays in the npz), the
+            cadence counters and the compute cost (reused on resume so the
+            ``done`` arithmetic replays exactly)."""
+            block_ids = {id(blk): b for b, blk in enumerate(coord.blocks)}
+            meta = {"kind": "virtual_async", "t": t, "seq": seq,
+                    "compute": compute, "since_record": since_record,
+                    "since_fire": since_fire, "arrivals": arrivals,
+                    "heap": []}
+            arrays = {}
+            for k, (done, s, w, lwu, idx, vals) in enumerate(heap):
+                ent = {"done": done, "seq": s, "worker": w, "launch_wu": lwu}
+                if idx is None:
+                    ent["kind"] = "restart"
+                else:
+                    ent["kind"] = "work"
+                    bid = block_ids.get(id(idx))
+                    if bid is not None:
+                        ent["block"] = bid
+                    else:  # dynamic selection: store the index set itself
+                        arrays[f"heap_idx_{k}"] = np.asarray(idx)
+                    arrays[f"heap_vals_{k}"] = np.asarray(vals)
+                meta["heap"].append(ent)
+            return meta, arrays
+
+        if cfg.resume_from is not None:
+            # Restore the coordinator, rebuild the event heap against this
+            # coordinator's memoized block objects (the id-keyed slice
+            # cache must recognize them) and skip the initial record and
+            # launches, which happened before the snapshot.
+            from ...recover.checkpoint import (
+                resolve_checkpoint, restore_coordinator)
+
+            ckpt = resolve_checkpoint(cfg.resume_from)
+            restore_coordinator(coord, ckpt)
+            loop = ckpt.loop
+            if loop.get("kind") != "virtual_async":
+                raise ValueError(
+                    f"checkpoint loop state is {loop.get('kind')!r}, not "
+                    "resumable on the virtual backend's default async loop")
+            t = float(loop["t"])
+            seq = int(loop["seq"])
+            compute = float(loop["compute"])
+            since_record = int(loop["since_record"])
+            since_fire = int(loop["since_fire"])
+            arrivals = int(loop["arrivals"])
+            for k, ent in enumerate(loop["heap"]):
+                if ent["kind"] == "restart":
+                    idx = vals = None
+                elif "block" in ent:
+                    idx = coord.blocks[int(ent["block"])]
+                    vals = ckpt.arrays[f"heap_vals_{k}"]
+                else:
+                    idx = ckpt.arrays[f"heap_idx_{k}"]
+                    vals = ckpt.arrays[f"heap_vals_{k}"]
+                heap.append((float(ent["done"]), int(ent["seq"]),
+                             int(ent["worker"]), int(ent["launch_wu"]),
+                             idx, vals))
+            heapq.heapify(heap)
+        else:
+            coord.record(t)
+            for w in range(cfg.n_workers):
+                launch(w, 0.0)
+            since_record = 0  # arrivals (applied or not) since last record
+            since_fire = 0
+            arrivals = 0
 
         while (heap and coord.wu < cfg.max_updates
                and arrivals < coord.max_arrivals):
@@ -195,6 +264,260 @@ class VirtualTimeExecutor(Executor):
                     schedule_restart(worker, t + prof.restart_after)
             elif coord.dispatchable(worker):
                 launch(worker, t)
+            coord.maybe_checkpoint(t, loop_state)
+        coord.record(t)
+        return coord.result(t, coord.wu, coord.converged())
+
+    # ----------------------------------------------------------------- #
+    def _run_sync_chaos(
+        self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator,
+        compute: float
+    ) -> RunResult:
+        """BSP loop under a chaos scenario (``cfg.scenario``).
+
+        Events apply at round boundaries: preempted workers leave the
+        round set and their blocks are served by the survivors (a survivor
+        holding two blocks pays 2x compute that round), paused workers
+        idle with their blocks parked, and ``set_profile`` changes the
+        delay/crash draws from the next round on.  When every worker is
+        out of the membership the clock jumps to the next event.
+        """
+        from ...chaos.scenario import ScenarioClock
+
+        clock = ScenarioClock(cfg.scenario)
+        t = 0.0
+        rounds = 0
+        arrivals = 0
+        alive = set(range(cfg.n_workers))
+        coord.record(t)
+        while (coord.wu < cfg.max_updates
+               and arrivals < coord.max_arrivals):
+            for ev in clock.due(t):
+                coord.apply_scenario_event(ev, t)
+            parts = [w for w in coord.round_participants() if w in alive]
+            if not parts:
+                nt = clock.next_time()
+                if nt is None or not alive:
+                    break  # membership can never recover
+                t = max(t, nt)
+                continue
+            rounds += 1
+            round_time = 0.0
+            updates = []
+            for w in parts:
+                prof = coord.fault_for(w)
+                idx = coord.round_assignment(w)
+                vals = worker_eval(problem, cfg, coord.x, idx)
+                arrivals += 1
+                # A multi-block assignment costs one compute per block.
+                blocks_held = max(len(coord.worker_blocks.get(w, [])), 1)
+                cost = blocks_held * compute + prof.sample_delay(coord.rng)
+                if prof.sample_crash(coord.rng):
+                    coord.crashes += 1
+                    if prof.restart_after is None:
+                        alive.discard(w)
+                    else:
+                        coord.restarts += 1
+                        cost += prof.restart_after
+                    round_time = max(round_time, cost)
+                    continue
+                round_time = max(round_time, cost)
+                updates.append((w, idx, vals, prof))
+            t += round_time + cfg.sync_overhead
+            for w, idx, vals, prof in updates:
+                coord.apply_return(idx, vals, prof, staleness=0, worker=w)
+            if coord.accel is not None and rounds % cfg.fire_every == 0:
+                coord.maybe_fire_accel()
+            res = coord.record(t)
+            if not np.isfinite(res) or res > 1e60:
+                return coord.result(t, rounds, False)
+            if coord.converged():
+                return coord.result(t, rounds, True)
+            if cfg.max_wall is not None and t > cfg.max_wall:
+                break
+        return coord.result(t, rounds, coord.converged())
+
+    # ----------------------------------------------------------------- #
+    def _run_async_chaos(
+        self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator,
+        compute: float
+    ) -> RunResult:
+        """Async event loop with chaos scenarios and/or trace capture.
+
+        Scenario events are heap-scheduled alongside worker completions,
+        so a ``join`` launches its worker at exactly the scripted virtual
+        time and a ``set_profile`` governs every later dispatch.  A worker
+        preempted with a result in flight has that result *discarded* on
+        arrival (``preempt_gen`` recognizes the stale incarnation);
+        paused workers' results apply but the worker parks until resume.
+        Deterministic for a fixed seed.
+        """
+        from ...chaos.scenario import ScenarioClock
+        from ...chaos.trace import TraceRecorder
+
+        if cfg.capture_trace:
+            coord.tracer = TraceRecorder(cfg, self.name, problem)
+        clock = ScenarioClock(cfg.scenario)
+        t = 0.0
+        # Events before the first dispatch (flash_crowd's t=0 preempts)
+        # shape the initial membership.
+        for ev in clock.due(0.0):
+            coord.apply_scenario_event(ev, 0.0)
+        coord.record(0.0)
+        heap: List[Tuple[float, int, str, tuple]] = []
+        seq = 0
+        parked: set = set()  # paused workers whose last result has landed
+
+        def push(done: float, tag: str, data: tuple) -> None:
+            nonlocal seq
+            heapq.heappush(heap, (done, seq, tag, data))
+            seq += 1
+
+        def launch(worker: int, now: float) -> None:
+            parked.discard(worker)  # in flight now: parked means awaiting
+            prof = coord.fault_for(worker)
+            gen = coord.preempt_gen[worker]
+            bid, idx = coord.next_dispatch(worker)
+            vals = worker_eval(problem, cfg, coord.x, idx)
+            done = (now + compute + cfg.async_overhead
+                    + prof.sample_delay(coord.rng))
+            if coord.tracer is not None:
+                coord.tracer.dispatch(now, worker, bid, gen)
+            push(done, "work", (worker, gen, coord.wu, idx, vals))
+
+        for ev in clock.drain():
+            push(ev.t, "chaos", (ev,))
+        for w in range(cfg.n_workers):
+            if coord.dispatchable(w):
+                launch(w, 0.0)
+            elif w in coord.active:
+                parked.add(w)  # paused before first dispatch: resumable
+
+        since_record = 0
+        since_fire = 0
+        arrivals = 0
+        t_now = 0.0
+
+        def loop_state():
+            """Chaos-loop checkpoints resume on the *default* loop (the
+            scenario's remaining events die with the control plane), so
+            the state is emitted in the default loop's ``virtual_async``
+            format: pending chaos events are dropped, and so are in-flight
+            results/restarts of preempted incarnations — the live loop
+            would discard them anyway."""
+            block_ids = {id(blk): b for b, blk in enumerate(coord.blocks)}
+            meta = {"kind": "virtual_async", "t": t_now, "seq": seq,
+                    "compute": compute, "since_record": since_record,
+                    "since_fire": since_fire, "arrivals": arrivals,
+                    "heap": []}
+            arrays = {}
+            for done, s, tag, data in heap:
+                k = len(meta["heap"])  # arrays key by *kept* position
+                if tag == "chaos":
+                    continue
+                if tag == "restart":
+                    w, gen = data
+                    if gen != coord.preempt_gen[w]:
+                        continue
+                    meta["heap"].append(
+                        {"done": done, "seq": s, "worker": w,
+                         "launch_wu": coord.wu, "kind": "restart"})
+                    continue
+                w, gen, lwu, idx, vals = data
+                if gen != coord.preempt_gen[w]:
+                    continue
+                ent = {"done": done, "seq": s, "worker": w,
+                       "launch_wu": lwu, "kind": "work"}
+                bid = block_ids.get(id(idx))
+                if bid is not None:
+                    ent["block"] = bid
+                else:
+                    arrays[f"heap_idx_{k}"] = np.asarray(idx)
+                arrays[f"heap_vals_{k}"] = np.asarray(vals)
+                meta["heap"].append(ent)
+            return meta, arrays
+
+        while (heap and coord.wu < cfg.max_updates
+               and arrivals < coord.max_arrivals):
+            t, _, tag, data = heapq.heappop(heap)
+            t_now = t
+            if tag == "chaos":
+                (ev,) = data
+                was_paused = set(coord.paused)
+                coord.apply_scenario_event(ev, t)
+                if ev.kind == "join":
+                    if coord.dispatchable(ev.worker):
+                        launch(ev.worker, t)
+                    elif ev.worker in coord.active:
+                        parked.add(ev.worker)  # joined into a pause
+                elif ev.kind == "resume":
+                    for w in sorted(was_paused - coord.paused):
+                        if w in parked and coord.dispatchable(w):
+                            parked.discard(w)
+                            launch(w, t)
+                continue
+            if tag == "restart":
+                worker, gen = data
+                if gen != coord.preempt_gen[worker]:
+                    # The crashed incarnation was preempted during its
+                    # downtime: no restart, and no second dispatch stream.
+                    continue
+                coord.restarts += 1
+                if coord.tracer is not None:
+                    coord.tracer.restart(t, worker)
+                if coord.dispatchable(worker):
+                    launch(worker, t)
+                elif worker in coord.active:  # rejoined into a pause
+                    parked.add(worker)
+                continue
+            worker, gen, launch_wu, idx, vals = data
+            if gen != coord.preempt_gen[worker]:
+                # Preempted while in flight: the result is discarded and
+                # the old incarnation never relaunches.
+                coord.preempt_discards += 1
+                if coord.tracer is not None:
+                    coord.tracer.arrival(t, worker, "preempt_discard",
+                                         gen=gen)
+                continue
+            prof = coord.fault_for(worker)
+            arrivals += 1
+            crashed = prof.sample_crash(coord.rng)
+            if crashed:
+                coord.crashes += 1
+                if coord.tracer is not None:
+                    coord.tracer.arrival(t, worker, "crash", gen=gen)
+            else:
+                staleness = coord.wu - launch_wu
+                applied = coord.apply_return(
+                    idx, vals, prof, staleness=staleness, worker=worker
+                )
+                if coord.tracer is not None:
+                    coord.tracer.arrival(
+                        t, worker, "applied" if applied else "filtered",
+                        staleness, gen=gen)
+                if applied:
+                    since_fire += 1
+                    if coord.accel is not None and since_fire >= cfg.fire_every:
+                        coord.maybe_fire_accel()
+                        since_fire = 0
+            since_record += 1
+            if since_record >= coord.record_every:
+                res = coord.record(t)
+                since_record = 0
+                if not np.isfinite(res) or res > 1e60:
+                    return coord.result(t, coord.wu, False)
+                if coord.converged():
+                    return coord.result(t, coord.wu, True)
+            if cfg.max_wall is not None and t > cfg.max_wall:
+                break
+            if crashed:
+                if prof.restart_after is not None:
+                    push(t + prof.restart_after, "restart", (worker, gen))
+            elif coord.dispatchable(worker):
+                launch(worker, t)
+            elif worker in coord.active:  # paused mid-flight: park
+                parked.add(worker)
+            coord.maybe_checkpoint(t, loop_state)
         coord.record(t)
         return coord.result(t, coord.wu, coord.converged())
 

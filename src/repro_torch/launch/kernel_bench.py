@@ -1,5 +1,5 @@
-"""Time the Jacobi halo, flash-attention and Bellman kernels of one source
-tree on the card.
+"""Time the Jacobi halo, flash-attention, Bellman and Anderson-mix kernels
+of one source tree on the card.
 
 To compare two versions of the kernels, run it once per source tree, in
 turns (parent, change, change, parent), on one card.  It imports
@@ -16,14 +16,17 @@ that tree's kernels there and times each kernel with CUDA events around
   k/v (2, 8192, 4, 256), causal, softcap 50: a local layer (window 4096)
   and a global one (no window) in float32, the local one in bfloat16;
 * ``bellman`` at (10^6, 4, 5) and ``bellman_block`` at (250000, 4, 5)
-  gathering from a 10^6-state v (the value-iteration smoke shapes).
+  gathering from a 10^6-state v (the value-iteration smoke shapes);
+* ``anderson_mix`` with beta = 1 at (6, 4,194,304) and (9, 1,048,576), the
+  Jacobi and SCF smoke windows, beside ``a @ G`` (one PyTorch call for the
+  same function).
 
 Each row carries its bound (the larger of bytes over the memory rate and
 operations over the float32 rate outside the tensor cores, or the float64
 rate; NVIDIA's H100 data sheet for the part ``nvidia-smi`` names) and the
 largest deviation from the tree's plain version.  ``chip_smoke.py`` uses
 the same timing and the same work counts (:func:`jacobi_halo_work`,
-:func:`flash_work`, :func:`bellman_work`).  Run it by path so that
+:func:`flash_work`, :func:`bellman_work`, :func:`anderson_work`).  Run it by path so that
 ``--src`` decides which ``repro_torch`` is imported:
 
     python3 src/repro_torch/launch/kernel_bench.py [--src DIR/src] \\
@@ -137,6 +140,17 @@ def bellman_work(idx, block=False):
     return nbytes, flops
 
 
+def anderson_work(h: int, N: int):
+    """Bytes and operations of one ``anderson_mix`` call with beta = 1 on an
+    (h, N) window: G, the h coefficients and the output once each; a
+    multiply-add per window entry."""
+    return (h * N + h + N) * 8, 2 * h * N
+
+
+#: (h, N) of the ``anderson_mix`` timings: the Jacobi and SCF windows
+ANDERSON_SHAPES = ((6, 2048 * 2048), (9, 1024 * 1024))
+
+
 def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
     """The least time for the work: bytes over ``bw`` or operations over
     ``peak``, whichever is longer, and which one it is."""
@@ -224,6 +238,22 @@ def bench(torch, card: str):
     row("bellman_block", [n, A, b, S], err,
         lambda: ops.bellman_block(bi, bp, bR, v, v_old, gamma=gamma),
         *bellman_work(bi, block=True), fp64)
+    del idx, probs, R, v
+    torch.cuda.empty_cache()
+
+    for h, N in ANDERSON_SHAPES:
+        X, G = (torch.randn(h, N, generator=gen, **f64) for _ in range(2))
+        a = torch.randn(h, generator=gen, **f64)
+        a = a / a.sum()
+        want = ref.anderson_mix(X, G, a, beta=1.0)
+        err = float((ops.anderson_mix(X, G, a, beta=1.0) - want).abs().max())
+        row("anderson_mix", [h, N], err,
+            lambda: ops.anderson_mix(X, G, a, beta=1.0),
+            *anderson_work(h, N), fp64,
+            plain_ms=time_ms(torch, lambda: ref.anderson_mix(X, G, a,
+                                                             beta=1.0)),
+            library_ms=time_ms(torch, lambda: a @ G))
+        del X, G
     return rows
 
 

@@ -318,6 +318,103 @@ class TestProblemsOnTheCard:
                                        rtol=1e-10, atol=1e-12)
 
 
+def _scripted_cfg(tmp, **kw):
+    """A scripted virtual Jacobi run with Anderson through ``anderson_mix``
+    (``mix_kernel_n=1``) and checkpoints every 150 updates."""
+    from repro_torch.chaos import get_scenario
+    from repro_torch.core import FaultProfile, RunConfig
+
+    base = dict(mode="async", tol=1e-300, max_updates=600, seed=7,
+                compute_time=1e-3, fire_every=4,
+                faults=FaultProfile(delay_mean=2e-3, delay_std=1e-3),
+                accel=AndersonConfig(m=5, mix_kernel_n=1),
+                scenario=get_scenario("rolling_restart", 4).scaled(0.05),
+                checkpoint_every=150, checkpoint_dir=str(tmp))
+    base.update(kw)
+    return RunConfig(**base)
+
+
+class TestChaosAndRecoverOnTheCard:
+    """Tolerances: the card's Anderson Gram is a cuBLAS product and the
+    CPU's numpy's, so they differ in the last place at every fire, and
+    accelerated async Jacobi (the paper's iterate-corruption case)
+    amplifies that over the run's 150 fires (5.0e-7 measured on the H100):
+    a card run and a CPU run take the same decisions with iterates within
+    1e-5 relative.  A resume on the card continues the card run byte for
+    byte (the same device, the same deterministic kernels and shapes)."""
+
+    def test_scripted_virtual_run_matches_cpu(self, dev, tmp_path):
+        from repro_torch.core import run_fixed_point
+
+        runs = [run_fixed_point(JacobiProblem(grid=32, sweeps=5, seed=0,
+                                              device=d),
+                                _scripted_cfg(tmp_path / str(d)))
+                for d in (dev, "cpu")]
+        gpu, cpu = runs
+        for f in ("worker_updates", "wall_time", "accel_fires",
+                  "accel_accepts", "preemptions", "joins",
+                  "reassigned_blocks", "preempt_discards"):
+            assert getattr(gpu, f) == getattr(cpu, f), f
+        assert gpu.preemptions == 4
+        np.testing.assert_allclose(gpu.x, cpu.x, rtol=0,
+                                   atol=1e-5 * np.abs(cpu.x).max())
+
+    def test_resume_on_the_card_is_bit_identical(self, dev, tmp_path):
+        import dataclasses
+
+        from repro_torch.core import run_fixed_point
+        from repro_torch.recover import SolveCheckpoint, list_checkpoints
+
+        prob = JacobiProblem(grid=32, sweeps=5, seed=0, device=dev)
+        cfg = _scripted_cfg(tmp_path)
+        last = max(ev.t for ev in cfg.scenario.events)
+        ops.reset_launch_counts()
+        full = run_fixed_point(prob, cfg)
+        ck = next(c for c in map(SolveCheckpoint.load,
+                                 list_checkpoints(str(tmp_path)))
+                  if c.t > last and c.wu < 600)
+        res = run_fixed_point(prob, dataclasses.replace(
+            cfg, scenario=None, resume_from=ck))
+        assert ops.launch_counts()["anderson_mix"] > 0
+        assert res.worker_updates == full.worker_updates
+        assert res.accel_fires == full.accel_fires
+        assert res.x.tobytes() == full.x.tobytes()
+
+    def test_thread_scenario_and_crash_resume(self, dev, tmp_path):
+        """The thread chaos loop on the card: workers preempted and
+        rejoined, halo kernels launched on the host path; then a scripted
+        crash and an at-most-once resume (one worker: exact fire count)."""
+        from repro_torch.chaos import FaultScenario, get_scenario
+        from repro_torch.core import (CoordinatorCrash, FaultProfile,
+                                      RunConfig, run_fixed_point)
+        from repro_torch.recover import latest_checkpoint, resume_fixed_point
+
+        prob = JacobiProblem(grid=256, sweeps=5, seed=0, device=dev)
+        ops.reset_launch_counts()
+        r = run_fixed_point(prob, RunConfig(
+            mode="async", executor="thread", n_workers=4, max_updates=400,
+            tol=1e-300, accel=AndersonConfig(m=5), fire_every=4,
+            faults=FaultProfile(delay_mean=2e-3),
+            scenario=get_scenario("spot_wave", 4, t0=0.05, downtime=0.15,
+                                  stagger=0.01, slow=0.005)))
+        assert r.preemptions == 2 and r.joins == 2
+        assert r.device_dispatches == 0
+        assert ops.launch_counts()["jacobi_halo_sweeps"] >= 400
+        cfg = RunConfig(mode="async", executor="thread", n_workers=1,
+                        max_updates=2000, tol=1e-300,
+                        accel=AndersonConfig(m=5), fire_every=4,
+                        faults=FaultProfile(delay_mean=1e-3),
+                        checkpoint_every=25, checkpoint_dir=str(tmp_path),
+                        scenario=FaultScenario().coordinator_crash(0.5))
+        with pytest.raises(CoordinatorCrash):
+            run_fixed_point(prob, cfg)
+        ck = latest_checkpoint(str(tmp_path))
+        assert ck is not None and ck.wu < 2000
+        res = resume_fixed_point(prob, cfg, ck)
+        assert res.worker_updates == 2000 and res.accel_fires == 500
+        assert res.resumed_from == ck.tag
+
+
 #: B, Sq, Skv, nq, nkv, hd, causal, window, softcap, q_offset
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 64, True, None, None, 0),    # TestFlashAttention's

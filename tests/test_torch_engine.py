@@ -7,8 +7,8 @@ problems on the port's side:
 * ``jacobi_async_plain`` is held to the bytes: identical worker updates,
   virtual wall time and sha256 of the iterate (the block updates are adds
   and an exact division in the same order on both sides).
-* ``jacobi_async_accel`` is held to the bytes too (tolerance 0.0), with
-  identical update, fire and accept counts.  Async Jacobi with Anderson
+* ``jacobi_async_accel`` and ``jacobi_sync_accel`` are held to the bytes
+  too (tolerance 0.0), with identical update, fire and accept counts.  Async Jacobi with Anderson
   is the paper's iterate-level-corruption case and amplifies any
   last-ulp difference, so the port computes the reference's float
   operations in the reference's order: the full map in ``_full_sweep``'s
@@ -28,7 +28,9 @@ problems on the port's side:
 
 Also here: the thread executor with the device plane against the JAX
 thread run, the device-plane resolver matrix, and the guard that refuses
-the knobs of layers the port does not carry yet.
+the knobs of layers the port does not carry yet (controllers, telemetry
+and the Ray backend; the chaos and recover knobs are ported and tested in
+``tests/test_torch_chaos.py`` and ``tests/test_torch_recover.py``).
 """
 
 import hashlib
@@ -90,7 +92,7 @@ GOLDEN = {
                    fire_every=4), {}, 0.0),
     "jacobi_sync_accel": (
         _jac, dict(mode="sync", tol=1e-10, max_updates=400, seed=7,
-                   fire_every=1), {}, 1e-12),
+                   fire_every=1), {}, 0.0),
     "vi_async_plain": (
         _vi, dict(mode="async", tol=1e-12, max_updates=800, seed=11),
         None, 1e-12),
@@ -377,19 +379,36 @@ class TestResolver:
 
 class TestUnportedKnobs:
     @pytest.mark.parametrize("kw,item", [
-        (dict(scenario=object()), "item 4"),
-        (dict(controller=object()), "item 4"),
-        (dict(telemetry=True), "item 4"),
-        (dict(capture_trace=True), "item 4"),
-        (dict(checkpoint_every=10), "item 4"),
-        (dict(checkpoint_dir="ckpt"), "item 4"),
-        (dict(resume_from="ckpt"), "item 4"),
+        (dict(controller=object()), "item 10"),
+        (dict(telemetry=True), "item 10"),
         (dict(executor="ray"), "item 5"),
     ])
     def test_raises_naming_the_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, "
                                                       f"{item}"):
             RunConfig(**kw)
+
+    @pytest.mark.parametrize("kw", [
+        dict(scenario=object()),
+        dict(capture_trace=True),
+        dict(checkpoint_every=10),
+        dict(checkpoint_dir="ckpt"),
+        dict(resume_from="ckpt"),
+    ])
+    def test_chaos_and_recover_knobs_are_ported(self, kw):
+        """The chaos and recover layers are ported: their knobs pass
+        ``RunConfig`` (the coordinator validates combinations)."""
+        cfg = RunConfig(**kw)
+        for name, value in kw.items():
+            assert getattr(cfg, name) is value
+
+    def test_known_executors_name_the_unported_backend(self):
+        from repro_torch.core import known_executors
+
+        known = known_executors()
+        assert {k for k, v in known.items() if v == "available"} == {
+            "virtual", "thread", "process"}
+        assert "item 5" in known["ray"]
 
     def test_process_executor_is_ported(self):
         from repro_torch.core import available_executors
