@@ -17,7 +17,12 @@ and no result line is printed):
    halo kernel also at the paper's four-worker block (25 x 100) and the
    one-worker block (the whole grid), with its device time and CUDA
    launches per call as ``torch.profiler`` records them (at most 2 at 10
-   sweeps: one pass and the norm's combine);
+   sweeps: one pass and the norm's combine); ``anderson_mix`` at every
+   beta at the Jacobi, VI and SCF windows (where the launcher must take
+   16-byte loads) and at an odd N through a misaligned window view (8-byte
+   loads), the two giving the same bits at SCF's window, timed at the
+   three windows by events and CUPTI beside ``a @ G``, VI's with the L2
+   flushed before every call;
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -269,50 +274,95 @@ def phase_kernels(torch, dev, name):
            source="src/repro_torch/csrc/bellman.cu",
            replaces="src/repro/kernels/bellman.py:62")
 
-    # anderson_mix: the Jacobi fire's (6, n) window (and VI's (6, S) and
-    # SCF's (9, 2^20)), every beta path checked, beta = 1 (the main path's)
-    # timed at Jacobi's.
+    # anderson_mix: every beta path at the Jacobi fire's (6, n), VI's (6, S)
+    # and SCF's (9, 2^20) windows, where the launcher must take 16-byte
+    # loads, and at an odd N through a window view one row into a ring
+    # buffer, whose rows alternate between aligned and 8 bytes off, where
+    # it takes 8-byte loads.  Then beta = 1 (the main paths') timed at the
+    # three windows beside `a @ G`, VI's with the L2 flushed before every
+    # call (its 56 MB nearly fit the 50 MB L2; a fire finds its window
+    # cold).
+    from repro_torch.kernels.anderson_mix import plan_of
+    from repro_torch.launch.kernel_bench import l2_flush
+
     h = 6
-    errs = {}
-    for hh, N in ((h, n), (h, S), (SCF_DIIS_M + 1, SCF_ATOMS ** 2)):
-        X, G = randn(hh, N), randn(hh, N)
-        a = randn(hh)
+    hs, Ns = SCF_DIIS_M + 1, SCF_ATOMS ** 2
+    odd_buf = [randn(12, 1_000_001) for _ in range(2)]
+    windows = {"jacobi": (randn(h, n), randn(h, n), "vector"),
+               "vi": (randn(h, S), randn(h, S), "vector"),
+               "scf": (randn(hs, Ns), randn(hs, Ns), "vector"),
+               "odd_view": (odd_buf[0][1:7], odd_buf[1][1:7], "scalar")}
+    errs, mixes = {}, {}
+    for label, (X, G, kernel) in windows.items():
+        a = randn(X.shape[0])
         a = a / a.sum()
         for beta in (1.0, 0.5, 0.0):
+            taken = plan_of(X, G, beta).kernel
+            check(taken == kernel, f"anderson_mix {label} {list(X.shape)} "
+                  f"beta {beta}: the launcher took the {taken} kernel, "
+                  f"expected {kernel}")
             got = ops.anderson_mix(X, G, a, beta=beta)
             want = ref.anderson_mix(X, G, a, beta=beta)
-            errs[f"{hh}x{N}/{beta}"] = (err_of(got, want)
-                                        / float(want.abs().max()))
-    # SCF's window (9, 2^20), the shape of most of the kernel's launches,
-    # is timed beside the row's Jacobi shape, with its own bound.
-    hs, Ns = SCF_DIIS_M + 1, SCF_ATOMS ** 2
-    Xs, Gs, a_s = randn(hs, Ns), randn(hs, Ns), randn(hs)
-    a_s = a_s / a_s.sum()
-    scf_bound, scf_by = bound(*anderson_work(hs, Ns))
-    scf = dict(scf_shape=[hs, Ns],
-               scf_ms=time_ms(torch, lambda: ops.anderson_mix(Xs, Gs, a_s,
-                                                              beta=1.0)),
-               scf_plain_ms=time_ms(torch, lambda: ref.anderson_mix(
-                   Xs, Gs, a_s, beta=1.0)),
-               scf_library_ms=time_ms(torch, lambda: a_s @ Gs),
-               scf_bound_ms=scf_bound, scf_bound_by=scf_by)
-    print(f"[kernels] anderson_mix {[hs, Ns]}: kernel {scf['scf_ms']:.4f} "
-          f"ms, plain {scf['scf_plain_ms']:.4f} ms, a @ G "
-          f"{scf['scf_library_ms']:.4f} ms, bound {scf_bound:.4f} ms "
-          f"({scf_by}, {100 * scf_bound / scf['scf_ms']:.1f}%)")
-    del Xs, Gs
-    X, G = randn(h, n), randn(h, n)
-    a = randn(h)
-    a = a / a.sum()
-    worst = max(errs.values())
-    record("anderson_mix", [h, n], worst, 1e-12,
+            errs[f"{label}/{beta}"] = (err_of(got, want)
+                                       / float(want.abs().max()))
+        mixes[label] = (X, G, a)
+    del odd_buf, got, want
+    # 8-byte loads from a copy of SCF's window one element off a 16-byte
+    # boundary give the 16-byte loads' bits.
+    X, G, a = mixes["scf"]
+    Go = torch.empty(G.numel() + 1, dtype=G.dtype, device=dev)[1:]
+    Go = Go.view(G.shape).copy_(G)
+    check(plan_of(X, Go, 1.0).kernel == "scalar", "anderson_mix: a window "
+          "one element off a 16-byte boundary took 16-byte loads")
+    check(torch.equal(ops.anderson_mix(X, Go, a, beta=1.0),
+                      ops.anderson_mix(X, G, a, beta=1.0)),
+          "anderson_mix: 8-byte and 16-byte loads disagree in bits")
+    del Go
+    flush = l2_flush(torch, dev)
+    timed = {}
+    for label, cold in (("jacobi", False), ("vi", True), ("scf", False)):
+        X, G, a = mixes[label]
+        between = flush if cold else None
+
+        def kernel():
+            return ops.anderson_mix(X, G, a, beta=1.0)
+
+        def library():
+            return a @ G
+
+        b_ms, b_by = bound(*anderson_work(*X.shape))
+        t = dict(shape=list(X.shape), kernel=plan_of(X, G, 1.0).kernel,
+                 l2_flush=cold, ms=time_ms(torch, kernel, between=between),
+                 device_ms=device_profile(torch, kernel, between=between)[0],
+                 plain_ms=time_ms(torch, lambda: ref.anderson_mix(
+                     X, G, a, beta=1.0), between=between),
+                 library_ms=time_ms(torch, library, between=between),
+                 library_device_ms=device_profile(torch, library,
+                                                  between=between)[0],
+                 bound_ms=b_ms, bound_by=b_by)
+        t.update(bound_share=b_ms / t["ms"],
+                 device_bound_share=b_ms / t["device_ms"])
+        timed[label] = t
+        print(f"[kernels] anderson_mix {label} {t['shape']} ({t['kernel']} "
+              f"loads{', L2 flushed' if cold else ''}): kernel "
+              f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms, a @ G "
+              f"{t['library_ms']:.4f} ms, device "
+              f"{t['library_device_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{100 * t['bound_share']:.1f}% by events, "
+              f"{100 * t['device_bound_share']:.1f}% by device time)")
+    del flush
+    X, G, a = mixes["jacobi"]
+    record("anderson_mix", [h, n], max(errs.values()), 1e-12,
            lambda: ops.anderson_mix(X, G, a, beta=1.0),
            lambda: ref.anderson_mix(X, G, a, beta=1.0),
            *anderson_work(h, n), lfn=lambda: a @ G,
            source="src/repro_torch/csrc/anderson_mix.cu",
            replaces="src/repro/kernels/anderson_mix.py:46",
-           extra=dict(rel_err_by_n_beta=errs, **scf))
-    del X, G, idx, probs, R
+           extra=dict(rel_err_by_window_beta=errs, windows=timed),
+           note=f", max rel err {max(errs.values()):.2e} over "
+                f"{sorted(windows)} x beta {{1, 0.5, 0}}")
+    del X, G, mixes, idx, probs, R
     torch.cuda.empty_cache()
 
     flash_row(torch, dev, record, bound, err_of, (fp32, bf16))

@@ -168,8 +168,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a raw handle (read
+    without building a ``torch.cuda.Stream``, which costs a few
+    microseconds of every launch's host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(tensors: Dict[str, torch.Tensor], dtype: torch.dtype,

@@ -17,9 +17,17 @@ that tree's kernels there and times each kernel with CUDA events around
   and a global one (no window) in float32, the local one in bfloat16;
 * ``bellman`` at (10^6, 4, 5) and ``bellman_block`` at (250000, 4, 5)
   gathering from a 10^6-state v (the value-iteration smoke shapes);
-* ``anderson_mix`` with beta = 1 at (6, 4,194,304) and (9, 1,048,576), the
-  Jacobi and SCF smoke windows, beside ``a @ G`` (one PyTorch call for the
-  same function).
+* ``anderson_mix`` with beta = 1 at (6, 4,194,304), (6, 1,000,000) and
+  (9, 1,048,576), the Jacobi, VI and SCF smoke windows, beside ``a @ G``
+  (one PyTorch call for the same function), each also with its CUPTI
+  device time, the wrapper's host microseconds per call, the kernel the
+  launcher chose and the SHA-256 of the output bytes at beta = 0 and 1
+  (fixed seed: equal hashes across two trees mean equal bits), and again
+  with G one element off a 16-byte boundary (where the launcher takes
+  8-byte loads), with whether its bits equal the aligned call's.  At VI's
+  shape, whose 56 MB nearly fit the 50 MB L2, a 128 MB scratch write runs
+  before every call, as a fire finds its window cold: the event times
+  subtract the write's own, the device times leave its kernel out by name.
 
 Each row carries its bound (the larger of bytes over the memory rate and
 operations over the float32 rate outside the tensor cores, or the float64
@@ -30,15 +38,19 @@ the same timing and the same work counts (:func:`jacobi_halo_work`,
 ``--src`` decides which ``repro_torch`` is imported:
 
     python3 src/repro_torch/launch/kernel_bench.py [--src DIR/src] \\
-        [--label NAME] [--out FILE.json]
+        [--label NAME] [--only KERNEL] [--out FILE.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 #: (bytes/s, float64 FLOP/s, float32 FLOP/s outside the tensor cores,
@@ -56,10 +68,16 @@ def peaks(name: str):
     return PEAKS["SXM"]
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3,
+            between=None) -> float:
     """Milliseconds per call: ``reps`` calls back to back between two CUDA
     events, after warm-up, so the host's launch cost hides behind the
-    device's work (timing each call alone adds the wrapper's host time)."""
+    device's work (timing each call alone adds the wrapper's host time).
+    ``between``, where given, runs before every call (an L2 flush); its own
+    time, measured the same way, is subtracted."""
+    if between is not None:
+        return (time_ms(torch, lambda: (between(), fn()), reps, warmup)
+                - time_ms(torch, between, reps, warmup))
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -73,10 +91,9 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(torch, fn, reps: int = 20, warmup: int = 3):
-    """Device milliseconds and CUDA launches per call: the kernels that
-    CUPTI records through ``torch.profiler`` over ``reps`` calls, their
-    times summed, each divided by ``reps``."""
+def _device_kernels(torch, fn, reps: int, warmup: int):
+    """The device kernels CUPTI records through ``torch.profiler`` over
+    ``reps`` calls of ``fn`` after warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -88,11 +105,67 @@ def device_profile(torch, fn, reps: int = 20, warmup: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_profile(torch, fn, reps: int = 20, warmup: int = 3,
+                   between=None):
+    """Device milliseconds and CUDA launches per call: the kernels that
+    CUPTI records through ``torch.profiler`` over ``reps`` calls, their
+    times summed, each divided by ``reps``.  ``between``, where given, runs
+    before every call, and the kernels it launches alone are left out by
+    name."""
+    skip = set()
+    call = fn
+    if between is not None:
+        skip = {e.name for e in _device_kernels(torch, between, 1, 1)}
+        call = lambda: (between(), fn())  # noqa: E731
+    kernels = [e for e in _device_kernels(torch, call, reps, warmup)
+               if e.name not in skip]
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device kernels")
     return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps,
             len(kernels) / reps)
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """The host microseconds per call of ``fn``: ``calls`` calls on the
+    host clock, without synchronising, over ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def ptxas_report(log: str, source: str):
+    """``(kernel, registers, spill stores, spill loads)`` of every entry
+    that ``ptxas -v`` reported for ``source`` in a build log (empty when
+    the library was reused and nothing was compiled)."""
+    if f"== {source}\n" not in log:
+        return []
+    part = log.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    rows, name, spills = [], None, (0, 0)
+    for line in part.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout
+        rows = [(n, *r[1:]) for n, r in zip(names.splitlines(), rows)]
+    return rows
 
 
 def jacobi_halo_work(rows: int, g: int, sweeps: int):
@@ -147,8 +220,36 @@ def anderson_work(h: int, N: int):
     return (h * N + h + N) * 8, 2 * h * N
 
 
-#: (h, N) of the ``anderson_mix`` timings: the Jacobi and SCF windows
-ANDERSON_SHAPES = ((6, 2048 * 2048), (9, 1024 * 1024))
+#: (h, N, cold) of the ``anderson_mix`` timings: the Jacobi, VI and SCF
+#: windows; ``cold`` flushes the L2 before every call
+ANDERSON_SHAPES = ((6, 2048 * 2048, False), (6, 10 ** 6, True),
+                   (9, 1024 * 1024, False))
+
+#: bytes of the scratch written to flush the 50 MB L2
+L2_FLUSH_BYTES = 128 * 2 ** 20
+
+
+def l2_flush(torch, dev):
+    """A function that writes :data:`L2_FLUSH_BYTES` of scratch on ``dev``,
+    evicting what the L2 held."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 8, dtype=torch.float64,
+                          device=dev)
+    return lambda: scratch.fill_(0.0)
+
+
+def out_sha256(out) -> str:
+    """SHA-256 of a tensor's bytes (copied to the host)."""
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def mix_kernel_of(X, G, beta: float) -> str:
+    """Which loads the launcher of this tree takes for the window (its
+    plan's kernel), or the one-thread-per-column kernel of trees before
+    the launch plan."""
+    from repro_torch.kernels import anderson_mix as mix
+
+    plan_of = getattr(mix, "plan_of", None)
+    return plan_of(X, G, beta).kernel if plan_of else "per-column"
 
 
 def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
@@ -158,23 +259,46 @@ def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def bench(torch, card: str):
-    from repro_torch.kernels import ops, ref
+#: the kernel groups :func:`bench` times, in order (``--only`` picks one)
+GROUPS = ("jacobi_halo_sweeps", "flash_attention", "bellman", "anderson_mix")
+
+
+def bench(torch, card: str, only=None):
+    from repro_torch.kernels import _build, ops, ref
 
     dev = torch.device("cuda", 0)
     bw, fp64, fp32, bf16 = peaks(card)
     rows = []
+    _build.load_library()
 
-    def row(name, shape, err, fn, nbytes, flops, peak, **extra):
+    def row(name, shape, err, fn, nbytes, flops, peak, between=None,
+            **extra):
         b, by = bound_ms(nbytes, flops, bw, peak)
-        ms = time_ms(torch, fn)
+        ms = time_ms(torch, fn, between=between)
         rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
                          bound_ms=b, bound_by=by, bound_share=b / ms,
                          **extra))
-        more = "".join(f", {k} {v:.4g}" for k, v in extra.items())
+        more = "".join(f", {k} {v:.4g}" if isinstance(v, float)
+                       else f", {k} {v}" for k, v in extra.items())
         print(f"[bench] {name} {shape}: {ms:.4f} ms, bound {b:.4f} ms ({by},"
               f" {100 * b / ms:.1f}%), err {err:.2e}{more}", flush=True)
 
+    if only in (None, "jacobi_halo_sweeps"):
+        bench_halo(torch, dev, ops, ref, row, fp64)
+    if only in (None, "flash_attention"):
+        bench_flash(torch, dev, ops, ref, row, fp32, bf16)
+    if only in (None, "bellman"):
+        bench_bellman(torch, dev, ops, ref, row, fp64)
+    if only in (None, "anderson_mix"):
+        for name, regs, st, ld in ptxas_report(_build.build_info().log,
+                                               "anderson_mix.cu"):
+            print(f"[bench] ptxas {name}: {regs} registers, spill stores "
+                  f"{st} B, loads {ld} B", flush=True)
+        bench_anderson(torch, dev, ops, ref, row, fp64)
+    return rows
+
+
+def bench_halo(torch, dev, ops, ref, row, fp64):
     f64 = dict(dtype=torch.float64, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     for shape in HALO_SHAPES:
@@ -193,8 +317,9 @@ def bench(torch, card: str):
             *jacobi_halo_work(*shape), fp64,
             norm_rel_err=float((norm - wnorm).abs() / wnorm.abs()),
             device_ms=dev_ms, launches_per_call=launches)
-    del xb, bb, out, want
 
+
+def bench_flash(torch, dev, ops, ref, row, fp32, bf16):
     gen = torch.Generator(device=dev).manual_seed(1)
     B, S, nq, nkv, hd = 2, 8192, 8, 4, 256
     qf = torch.randn(B, S, nq, hd, generator=gen, device=dev)
@@ -216,6 +341,9 @@ def bench(torch, card: str):
     del q, k, v, qf, kf, vf
     torch.cuda.empty_cache()
 
+
+def bench_bellman(torch, dev, ops, ref, row, fp64):
+    f64 = dict(dtype=torch.float64, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     S, A, b, gamma = 10 ** 6, 4, 5, 0.95
     idx = torch.randint(0, S, (S, A, b), generator=gen, device=dev,
@@ -241,20 +369,56 @@ def bench(torch, card: str):
     del idx, probs, R, v
     torch.cuda.empty_cache()
 
-    for h, N in ANDERSON_SHAPES:
+
+def bench_anderson(torch, dev, ops, ref, row, fp64):
+    f64 = dict(dtype=torch.float64, device=dev)
+    flush = l2_flush(torch, dev)
+    for h, N, cold in ANDERSON_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(5)
         X, G = (torch.randn(h, N, generator=gen, **f64) for _ in range(2))
         a = torch.randn(h, generator=gen, **f64)
         a = a / a.sum()
+        between = flush if cold else None
         want = ref.anderson_mix(X, G, a, beta=1.0)
         err = float((ops.anderson_mix(X, G, a, beta=1.0) - want).abs().max())
-        row("anderson_mix", [h, N], err,
-            lambda: ops.anderson_mix(X, G, a, beta=1.0),
-            *anderson_work(h, N), fp64,
+        sha = {str(b): out_sha256(ops.anderson_mix(X, G, a, beta=b))
+               for b in (0.0, 1.0)}
+
+        def kernel():
+            return ops.anderson_mix(X, G, a, beta=1.0)
+
+        def library():
+            return a @ G
+
+        dev_ms, launches = device_profile(torch, kernel, between=between)
+        row("anderson_mix", [h, N], err, kernel, *anderson_work(h, N), fp64,
+            between=between, kernel=mix_kernel_of(X, G, 1.0), l2_flush=cold,
+            device_ms=dev_ms, launches_per_call=launches,
+            host_us=host_us(torch, kernel),
             plain_ms=time_ms(torch, lambda: ref.anderson_mix(X, G, a,
-                                                             beta=1.0)),
-            library_ms=time_ms(torch, lambda: a @ G))
-        del X, G
-    return rows
+                                                             beta=1.0),
+                             between=between),
+            library_ms=time_ms(torch, library, between=between),
+            library_device_ms=device_profile(torch, library,
+                                             between=between)[0],
+            library_host_us=host_us(torch, library), out_sha256=sha)
+        # The same window one element off a 16-byte boundary, where the
+        # launcher takes 8-byte loads.
+        Go = torch.empty(h * N + 1, **f64)[1:].view(h, N)
+        Go.copy_(G)
+
+        def scalar():
+            return ops.anderson_mix(X, Go, a, beta=1.0)
+
+        got = scalar()
+        row("anderson_mix", [h, N, "one element off"],
+            float((got - want).abs().max()), scalar, *anderson_work(h, N),
+            fp64, between=between, kernel=mix_kernel_of(X, Go, 1.0),
+            l2_flush=cold,
+            device_ms=device_profile(torch, scalar, between=between)[0],
+            bits_equal_aligned=bool(torch.equal(got, kernel())))
+        del X, G, Go, got, want
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -263,6 +427,8 @@ def main() -> int:
     ap.add_argument("--src", type=Path, default=here,
                     help="the src/ directory whose repro_torch is timed")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--only", choices=GROUPS, default=None,
+                    help="time one kernel group only")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
@@ -276,7 +442,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(f"[bench] {args.label or args.src}: {card}", flush=True)
     result = dict(label=args.label or str(args.src), card=card,
-                  rows=bench(torch, card))
+                  rows=bench(torch, card, args.only))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

@@ -25,7 +25,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.anderson import AndersonConfig, AndersonState  # noqa: E402
+from repro_torch.kernels import anderson_mix as mix  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.anderson_mix import MixPlan  # noqa: E402
 from repro_torch.launch import lm_serve  # noqa: E402
 from repro_torch.problems import (  # noqa: E402
     GarnetMDP,
@@ -217,6 +219,105 @@ class TestKernelsMatchPlain:
         a = torch.as_tensor(r.standard_normal(h), device=dev)
         torch.testing.assert_close(ops.anderson_mix(X, G, a, beta=beta),
                                    ref.anderson_mix(X, G, a, beta=beta),
+                                   rtol=1e-12, atol=1e-12)
+
+    @staticmethod
+    def _mix_case(dev, h, N, seed, storage=None):
+        """X, G (views into ``storage``'s rows when given) and alpha."""
+        r = np.random.default_rng(seed)
+        X, G = (torch.as_tensor(r.standard_normal((h, N)), device=dev)
+                for _ in range(2))
+        if storage is not None:
+            X, G = (storage(t) for t in (X, G))
+        return X, G, torch.as_tensor(r.standard_normal(h), device=dev)
+
+    @pytest.mark.parametrize("beta", [0.0, 0.5, 1.0])
+    @pytest.mark.parametrize("h,N", [
+        (6, 2048 * 2048), (6, 10 ** 6), (9, 1024 * 1024),  # main paths
+        (1, 100_000), (9, 100_002), (16, 100_000),         # depths
+        (9, 2), (16, 62),                                  # under a CTA
+    ])
+    def test_anderson_mix_vector_loads(self, dev, beta, h, N):
+        """Aligned windows of even N take 16-byte loads."""
+        from repro_torch.kernels.anderson_mix import plan_of
+
+        X, G, a = self._mix_case(dev, h, N, h + N)
+        assert plan_of(X, G, beta).kernel == "vector"
+        torch.testing.assert_close(ops.anderson_mix(X, G, a, beta=beta),
+                                   ref.anderson_mix(X, G, a, beta=beta),
+                                   rtol=1e-12, atol=1e-12)
+
+    @pytest.mark.parametrize("beta", [0.0, 0.5, 1.0])
+    @pytest.mark.parametrize("start,length,N", [(1, 6, 100_001),
+                                                (3, 9, 4097), (0, 16, 1)])
+    def test_anderson_mix_odd_ring_view(self, dev, beta, start, length, N):
+        """A window ``buf[start:start + length]`` of a ring buffer with odd
+        N: its rows alternate between aligned and 8 bytes off, so the
+        kernel takes 8-byte loads."""
+        from repro_torch.kernels.anderson_mix import plan_of
+
+        r = np.random.default_rng(N)
+        bufs = [torch.as_tensor(r.standard_normal((start + length, N)),
+                                device=dev) for _ in range(2)]
+        X, G = (b[start:start + length] for b in bufs)
+        a = torch.as_tensor(r.standard_normal(length), device=dev)
+        assert plan_of(X, G, beta).kernel == "scalar"
+        torch.testing.assert_close(ops.anderson_mix(X, G, a, beta=beta),
+                                   ref.anderson_mix(X, G, a, beta=beta),
+                                   rtol=1e-12, atol=1e-12)
+
+    @pytest.mark.parametrize("beta", [0.0, 1.0])
+    @pytest.mark.parametrize("h,N", [(1, 4096), (6, 10 ** 6), (9, 2 ** 20),
+                                     (16, 30_002)])
+    def test_anderson_mix_kernels_agree_bitwise(self, dev, beta, h, N):
+        """8-byte loads (a window one element off a 16-byte boundary)
+        and 16-byte loads (its aligned clone) give the same bits at beta =
+        0 and 1, as does every grid and load policy of the plan."""
+        from repro_torch.kernels.anderson_mix import plan_of
+
+        def off_by_one(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            view = flat[1:].view(t.shape)
+            view.copy_(t)
+            return view
+
+        X, G, a = self._mix_case(dev, h, N, 7 * h + N, storage=off_by_one)
+        Xc, Gc = X.clone(), G.clone()
+        assert plan_of(X, G, beta).kernel == "scalar"
+        assert plan_of(Xc, Gc, beta).kernel == "vector"
+        want = ops.anderson_mix(Xc, Gc, a, beta=beta)
+        assert torch.equal(ops.anderson_mix(X, G, a, beta=beta), want)
+        for p in (MixPlan("vector", 1), MixPlan("vector", 3),
+                  MixPlan("scalar", 2)):
+            assert torch.equal(mix.anderson_mix(Xc, Gc, a, beta=beta,
+                                                plan=p), want), p
+
+    def test_anderson_mix_refuses_vector_loads_off_alignment(self, dev):
+        X, G, a = self._mix_case(dev, 6, 1000, 3)
+        Go = torch.empty(G.numel() + 1, dtype=G.dtype, device=dev)[1:]
+        Go = Go.view(G.shape).copy_(G)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            mix.anderson_mix(X, Go, a, beta=1.0,
+                             plan=MixPlan("vector", 4))
+
+    def test_stream_of_is_the_current_stream(self, dev):
+        """The launchers' raw stream handle is PyTorch's current stream,
+        also under a side stream, and the combine runs on it."""
+        from repro_torch.kernels import _build
+
+        x = torch.zeros(4, device=dev)
+        assert _build.stream_of(x) == torch.cuda.current_stream(
+            dev).cuda_stream
+        side = torch.cuda.Stream(dev)
+        X, G, a = self._mix_case(dev, 6, 1 << 20, 11)
+        torch.cuda.synchronize(dev)
+        with torch.cuda.stream(side):
+            assert _build.stream_of(x) == side.cuda_stream
+            assert _build.stream_of(x) != torch.cuda.default_stream(
+                dev).cuda_stream
+            got = ops.anderson_mix(X, G, a, beta=1.0)
+        side.synchronize()
+        torch.testing.assert_close(got, ref.anderson_mix(X, G, a, beta=1.0),
                                    rtol=1e-12, atol=1e-12)
 
     def test_launches_are_counted(self, dev):
