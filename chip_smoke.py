@@ -70,7 +70,26 @@ and no result line is printed):
    shut down;
 13. recover parity — ``[recover-parity]``: a scripted virtual Jacobi run
    with Anderson (through ``anderson_mix``) on the card against the CPU,
-   and on each its resume at a mid ``wu`` against the uninterrupted run.
+   and on each its resume at a mid ``wu`` against the uninterrupted run;
+14. telemetry — ``[telemetry]``: the Jacobi main path with
+   ``telemetry=True`` beside the same run without it (both walls, span
+   counts, staleness p50/p95, the fire ledger against ``accel_fires`` and
+   ``accel_accepts``, the busy-share tail, a lane per worker, each
+   worker's fused block-local norm, ``run_report --validate`` on the
+   saved capture, and a fire's split from the spans: mean, p95 and share
+   of the wall); then VI S = 10^6 on the process backend with telemetry,
+   whose worker lanes arrive as ``"tel"`` batches and whose fused norms
+   cover the four workers;
+15. autoscale — ``[autoscale]``: VI S = 10^6 on threads under
+   ``get_policy("target_staleness")`` with the straggler: the decision
+   log, ``controller_actions``, ``worker_seconds``, ``run_cost``; no
+   device plane under a controller;
+16. serve — ``[serve]``: a ``SolverService`` (``max_active=2``, tenants
+   a:2 b:1, telemetry) multiplexing 4 VI and 2 Jacobi main-path requests
+   on the thread backend (two families on the card at once): each
+   ticket's wait and service ms, throughput, p50/p95 latency, served
+   counts and the Prometheus round trip; then 3 VI requests through one
+   process pool, which spawns nothing after the first.
 
 The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
 on the main paths (counts are reset right before each path and read right
@@ -85,6 +104,7 @@ the device summary.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -994,6 +1014,249 @@ def phase_recover_parity(dev):
               f"recover parity {label}: card and CPU differ by {rel:.3e}")
 
 
+@contextlib.contextmanager
+def local_norms():
+    """Capture each run's ``device_local_norms`` (the device plane's fused
+    block-local norm per worker) as the coordinator assembles its result;
+    ``RunResult`` does not carry them, as in the reference."""
+    from repro_torch.core.engine import coordinator
+
+    seen = []
+    result0 = coordinator.Coordinator.result
+
+    def result(self, *a, **k):
+        seen.append(dict(self.device_local_norms))
+        return result0(self, *a, **k)
+
+    coordinator.Coordinator.result = result
+    try:
+        yield seen
+    finally:
+        coordinator.Coordinator.result = result0
+
+
+def fire_split(res):
+    """(count, mean ms, p95 ms, share of the run wall) of the fire spans
+    of a telemetry capture: accel begin -> commit on the backend clock."""
+    import numpy as np
+
+    d = np.array([ev["t1"] - ev["t0"] for ev in res.telemetry.events
+                  if ev["k"] == "fire"])
+    if not len(d):
+        return 0, 0.0, 0.0, 0.0
+    return (len(d), float(d.mean() * 1e3), float(np.percentile(d, 95) * 1e3),
+            float(d.sum() / res.wall_time))
+
+
+def add_counts(total, got):
+    for k, c in got.items():
+        total[k] = total.get(k, 0) + c
+
+
+def phase_telemetry(dev, jac, vi):
+    """[telemetry]: the Jacobi main path with ``telemetry=True`` beside the
+    same run without it (thread backend, device plane on); the capture's
+    ledger, lanes, fire split and ``run_report --validate``; then VI
+    S = 10^6 on the process backend with telemetry, whose worker lanes
+    arrive as ``"tel"`` batches and whose fused block-local norms come
+    back as ``"okd"`` messages."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core import shutdown_pools
+    from repro_torch.launch.run_report import main as run_report_main
+    from repro_torch.telemetry import TelemetryConfig
+    from repro_torch.telemetry.export import trace_lanes
+
+    launches = {}
+    off, got, _ = run_path("telemetry-jacobi-off", jac, main_cfg())
+    add_counts(launches, got)
+    with local_norms() as norms:
+        on, got, _ = run_path("telemetry-jacobi-on", jac,
+                              main_cfg(telemetry=True))
+    add_counts(launches, got)
+    summ, cap = on.telemetry_summary, on.telemetry
+    fires = summ["fires"]
+    lanes = trace_lanes(cap)
+    n, mean_ms, p95_ms, share = fire_split(on)
+    print(f"[telemetry] jacobi run wall: telemetry on {on.wall_time:.3f} s, "
+          f"off {off.wall_time:.3f} s (ratio "
+          f"{on.wall_time / off.wall_time:.3f}); span counts "
+          f"{json.dumps(summ['span_counts'], sort_keys=True)}; staleness "
+          f"p50 {summ['staleness_p50']:g} p95 {summ['staleness_p95']:g} "
+          f"(n {summ['staleness_n']}); fire ledger {json.dumps(fires)} "
+          f"(accel_fires {on.accel_fires}, accepts {on.accel_accepts}, "
+          f"rejects {on.accel_rejects}, discards {on.accel_discards}); "
+          f"busy share tail {summ['busy_frac_tail']}; device_dispatches "
+          f"{on.device_dispatches}; lanes {lanes}; device_local_norms "
+          f"{json.dumps({w: f'{v:.6e}' for w, v in sorted(norms[-1].items())})}")
+    print(f"[telemetry] jacobi fire split from the spans: {n} fires, mean "
+          f"{mean_ms:.3f} ms, p95 {p95_ms:.3f} ms, fire share of the wall "
+          f"{share:.4f}")
+    check(sum(fires.values()) == on.accel_fires > 0,
+          f"telemetry: fire ledger {fires} != {on.accel_fires} fires")
+    check(fires.get("accept", 0) == on.accel_accepts,
+          f"telemetry: ledger accepts {fires.get('accept', 0)} != "
+          f"{on.accel_accepts}")
+    check(fires.get("fallback", 0) + fires.get("discard", 0)
+          == on.accel_rejects, "telemetry: ledger rejects disagree")
+    check(summ["span_counts"]["fire"] == on.accel_fires,
+          "telemetry: fire span count != accel_fires")
+    check({f"w{w}" for w in range(4)} <= set(lanes),
+          f"telemetry: a worker has no lane ({lanes})")
+    check(on.device_dispatches > 0, "telemetry: the device plane never ran")
+    check(set(norms[-1]) == set(range(4)),
+          f"telemetry: device_local_norms cover {sorted(norms[-1])}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tel_")
+    try:
+        path = cap.save(os.path.join(tmp, "capture.json"))
+        chrome = os.path.join(tmp, "capture.trace.json")
+        rc = run_report_main([path, "--chrome", chrome, "--validate"])
+        check(rc == 0 and os.path.getsize(chrome) > 0,
+              f"telemetry: run_report --validate exited {rc}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # Batches of 8 spans, so the straggler's lane arrives too (a worker
+    # ships a batch once it holds worker_batch spans; the tail is dropped).
+    with local_norms() as norms:
+        res, got, _ = run_path("telemetry-vi-process", vi, main_cfg(
+            executor="process", telemetry=TelemetryConfig(worker_batch=8)))
+    add_counts(launches, got)
+    shutdown_pools()  # [serve] counts the runs of a fresh VI pool
+    worker = [ev for ev in res.telemetry.events if ev.get("src") == "worker"]
+    wl = sorted({ev["lane"] for ev in worker})
+    n, mean_ms, p95_ms, share = fire_split(res)
+    print(f"[telemetry] vi process: {len(worker)} worker spans in \"tel\" "
+          f"batches on lanes {wl} (compute mean "
+          f"{sum(e['t1'] - e['t0'] for e in worker) / max(len(worker), 1) * 1e3:.3f}"
+          f" ms), span counts "
+          f"{json.dumps(res.telemetry_summary['span_counts'], sort_keys=True)}"
+          f", pool series {json.dumps({k: v for k, v in res.telemetry.series.items() if k.startswith('pool')})}"
+          f", device_local_norms "
+          f"{json.dumps({w: f'{v:.6e}' for w, v in sorted(norms[-1].items())})}"
+          f"; fire split: {n} fires, mean {mean_ms:.3f} ms, p95 "
+          f"{p95_ms:.3f} ms, share {share:.4f}")
+    check(wl == [f"w{w}" for w in range(4)],
+          f"telemetry vi process: worker lanes {wl}")
+    check(res.device_dispatches > 0 and set(norms[-1]) == set(range(4)),
+          f"telemetry vi process: device_local_norms cover "
+          f"{sorted(norms[-1])}")
+    check(launches["bellman_block"] > 0,
+          "telemetry: bellman_block never launched in the workers")
+    return launches
+
+
+def phase_autoscale(dev, vi):
+    """[autoscale]: VI S = 10^6 on threads under the ``target_staleness``
+    policy with the 100 ms straggler.  A controller keeps the run on the
+    host path (the resolver refuses the device plane)."""
+    from repro_torch.autoscale import get_policy, run_cost
+
+    ctl = get_policy("target_staleness")
+    res, launches, r0 = run_path("autoscale-vi", vi,
+                                 main_cfg(controller=ctl))
+    print(f"[autoscale] target_staleness: controller_actions "
+          f"{res.controller_actions}, decision log "
+          f"{json.dumps(ctl.decision_log)} ({len(ctl.decision_log)} "
+          f"entries), worker_seconds {res.worker_seconds:.3f}, run_cost "
+          f"{run_cost(res):.3f} worker-s x s, preemptions "
+          f"{res.preemptions}, joins {res.joins}, residual {r0:.6e} -> "
+          f"{res.residual_norm:.6e}, service_fractions "
+          f"{json.dumps(res.service_fractions)}")
+    check(res.controller_actions == len(ctl.decision_log),
+          "autoscale: controller_actions != len(decision_log)")
+    check(res.device_dispatches == 0,
+          "autoscale: a controller run took the device plane")
+    check(res.worker_seconds > 0.0, "autoscale: worker-seconds not metered")
+    for k in ("bellman", "anderson_mix"):
+        check(launches[k] > 0, f"autoscale: {k} was never launched")
+    return launches
+
+
+def phase_serve(dev, jac, vi):
+    """[serve]: a ``SolverService`` (two dispatchers, tenants a:2 b:1,
+    telemetry) multiplexing 4 VI and 2 Jacobi main-path requests on the
+    thread backend, so two families run on the card at once; then 3 VI
+    requests of one family through one warm process pool."""
+    import numpy as np
+
+    from repro_torch.core import pool_stats, shutdown_pools
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServiceConfig, SolverService
+    from repro_torch.telemetry.export import parse_prometheus, to_prometheus
+
+    probs = {"vi": vi, "jacobi": jac}
+    r0 = {k: p.residual_norm(p.initial()) for k, p in probs.items()}
+    kinds = ["vi", "jacobi", "vi", "jacobi", "vi", "vi"]
+
+    def checked(label, kind, tk):
+        r = tk.result()
+        check(tk._exception is None, f"serve {label}: ticket raised")
+        check(bool(np.isfinite(r.x).all()) and r.residual_norm < r0[kind],
+              f"serve {label}: residual {r.residual_norm:.3e} did not fall "
+              f"below {r0[kind]:.3e}")
+        return r
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with SolverService(ServiceConfig(max_active=2, weights={"a": 2, "b": 1},
+                                     telemetry=True)) as svc:
+        tickets = [svc.submit(probs[k], main_cfg(), tenant="ab"[i % 2])
+                   for i, k in enumerate(kinds)]
+        results = [checked(f"#{i}", k, tk)
+                   for i, (k, tk) in enumerate(zip(kinds, tickets))]
+        stats = svc.stats()
+        prom = parse_prometheus(to_prometheus(svc))
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for i, (k, tk, r) in enumerate(zip(kinds, tickets, results)):
+        print(f"[serve] #{i} {k} tenant {tk.tenant}: wait "
+              f"{tk.wait_s * 1e3:.1f} ms, service "
+              f"{(tk.total_s - tk.wait_s) * 1e3:.1f} ms, updates "
+              f"{r.worker_updates}, fires {r.accel_fires}, device_dispatches "
+              f"{r.device_dispatches}, residual {r0[k]:.6e} -> "
+              f"{r.residual_norm:.6e}")
+    totals = sorted(tk.total_s for tk in tickets)
+    print(f"[serve] {len(tickets)} requests in {wall:.3f} s "
+          f"({len(tickets) / wall:.3f} req/s); total latency p50 "
+          f"{np.percentile(totals, 50) * 1e3:.1f} ms, p95 "
+          f"{np.percentile(totals, 95) * 1e3:.1f} ms; served "
+          f"{json.dumps(stats['served'], sort_keys=True)}; prometheus "
+          f"round trip {json.dumps(prom, sort_keys=True)}; launches "
+          f"{json.dumps(launches)}")
+    check(stats["served"] == {"a": 3, "b": 3} and stats["failed"] == 0,
+          f"serve: served {stats['served']}, failed {stats['failed']}")
+    check(prom['repro_serve_served_total{tenant="a"}'] == 3.0
+          and 'repro_serve_request_seconds{quantile="0.95"}' in prom,
+          "serve: the Prometheus round trip lost a sample")
+    for k in ("jacobi_halo_sweeps", "jacobi_sweep", "bellman_block",
+              "bellman", "anderson_mix"):
+        check(launches[k] > 0, f"serve: {k} was never launched")
+
+    shutdown_pools()
+    cfg = main_cfg(executor="process")
+    ops.reset_launch_counts()
+    with SolverService(ServiceConfig(max_active=1)) as svc:
+        first = checked("process #0", "vi", svc.submit(vi, cfg))
+        pids = pool_pids()
+        rest = [svc.submit(vi, cfg) for _ in range(2)]
+        rest = [checked(f"process #{i + 1}", "vi", tk)
+                for i, tk in enumerate(rest)]
+        spawned = len(pool_pids() - pids)
+    add_counts(launches, ops.launch_counts())
+    served = [s["runs_served"] for s in pool_stats().values()]
+    print(f"[serve] process: 3 VI requests on one pool: walls "
+          f"{[round(r.wall_time, 3) for r in [first] + rest]} s, "
+          f"interpreters spawned after the first {spawned}, runs served "
+          f"{served}")
+    check(spawned == 0 and served == [3],
+          f"serve process: {spawned} spawns, runs served {served}")
+    shutdown_pools()
+    return launches
+
+
 def phase_small_parity(dev):
     """Small inputs with a known answer: the committed Jacobi golden, and
     the card against the CPU's plain versions for accelerated VI."""
@@ -1148,6 +1411,12 @@ def main() -> int:
 
     try:
         for path in (phase_process, lambda d: phase_recover(d, "process")):
+            for k, c in path(dev).items():
+                launches[k] += c
+        jac, vi = jacobi_problem(dev), vi_problem(dev)
+        for path in (lambda d: phase_telemetry(d, jac, vi),
+                     lambda d: phase_autoscale(d, vi),
+                     lambda d: phase_serve(d, jac, vi)):
             for k, c in path(dev).items():
                 launches[k] += c
     finally:

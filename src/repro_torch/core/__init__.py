@@ -5,8 +5,10 @@
 - :mod:`repro_torch.core.anderson`   — Anderson/DIIS with the Eq. 5
   safeguard, window on the device
 - :mod:`repro_torch.core.engine`     — coordinator, virtual-time, thread
-  and process backends, device plane, elastic membership and checkpoint
-  hooks
+  and process backends, device plane, elastic membership, checkpoint,
+  autoscale and telemetry hooks
+- :mod:`repro_torch.core.coupling`   — coupling-density analysis (paper
+  §3.5)
 """
 
 from .anderson import AndersonConfig, AndersonState, diis_solve
@@ -30,6 +32,11 @@ from .engine import (
     run_fixed_point,
     shutdown_pools,
     submit_fixed_point,
+)
+from .coupling import (
+    block_internal_coupling,
+    coupling_density,
+    predict_acceleration_survives,
 )
 from .fixedpoint import FixedPointProblem, contiguous_blocks
 
@@ -58,4 +65,7 @@ __all__ = [
     "measure_compute",
     "FixedPointProblem",
     "contiguous_blocks",
+    "coupling_density",
+    "block_internal_coupling",
+    "predict_acceleration_survives",
 ]

@@ -7,9 +7,7 @@ history, and assembles the :class:`~repro_torch.core.engine.types.RunResult`.
 Backends differ only in *how* worker evaluations are scheduled (virtual
 event queue vs real threads).  This is the reference coordinator's apply,
 accel (begin/feed/commit), record and result logic, with its elastic
-membership, trace and checkpoint hooks; the hooks of the layers not
-ported yet (autoscale controllers, telemetry) are left out, and
-``RunConfig`` refuses their knobs.
+membership, trace, checkpoint, autoscale-controller and telemetry hooks.
 
 Evaluation pipeline
 -------------------
@@ -48,6 +46,7 @@ everything else here is host numpy.
 from __future__ import annotations
 
 import time
+from dataclasses import replace as _dc_replace
 from typing import List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -157,11 +156,12 @@ def rebuild_problem(payload) -> FixedPointProblem:
 
 
 def _validate_layers(cfg: RunConfig) -> None:
-    """The reference coordinator's checks on the chaos, trace and
-    checkpoint knobs (same conditions, same messages)."""
-    if cfg.scenario is not None or cfg.capture_trace:
-        # Scenarios and trace replay pin the dispatch schedule to the
-        # memoized block partition.
+    """The reference coordinator's checks on the chaos, trace, controller
+    and checkpoint knobs (same conditions, same messages)."""
+    if (cfg.scenario is not None or cfg.capture_trace
+            or cfg.controller is not None):
+        # Scenarios, trace replay and controllers pin the dispatch schedule
+        # to the memoized block partition.
         if cfg.selection != "fixed":
             raise ValueError(
                 "chaos scenarios, trace capture and controllers require "
@@ -194,7 +194,8 @@ def _validate_layers(cfg: RunConfig) -> None:
                 "eval_time (in-flight offloaded evaluations cannot be "
                 "checkpointed)")
     if cfg.resume_from is not None:
-        if cfg.scenario is not None or cfg.capture_trace:
+        if (cfg.scenario is not None or cfg.controller is not None
+                or cfg.capture_trace):
             raise ValueError(
                 "a resumed run cannot re-attach a scenario, controller or "
                 "trace capture (their state died with the control plane); "
@@ -202,7 +203,7 @@ def _validate_layers(cfg: RunConfig) -> None:
                 "them")
         if cfg.mode != "async":
             raise ValueError("resume_from covers async solves only")
-    if cfg.scenario is not None:
+    if cfg.scenario is not None or cfg.controller is not None:
         if cfg.accel_eval == "worker" and cfg.executor == "virtual":
             # The virtual chaos event loop evaluates fires inline only.
             raise ValueError(
@@ -266,7 +267,7 @@ class AccelPlan:
 
     __slots__ = ("x_pin", "wu_begin", "t_begin", "mver", "stage", "g", "cand",
                  "cur_res", "verdict", "done", "_item", "_pin_lazy",
-                 "_pin_saves")
+                 "_pin_saves", "_tel_t0")
 
     def __init__(self, x_pin: np.ndarray, wu_begin: int, t_begin: float,
                  mver: int = 0):
@@ -274,6 +275,7 @@ class AccelPlan:
         self.wu_begin = wu_begin
         self.t_begin = t_begin
         self.mver = mver  # membership version at begin (reassignment guard)
+        self._tel_t0 = t_begin  # telemetry fire-span open (recorder clock)
         # Copy-on-write pin (accel_begin(pin="lazy")): while True, x_pin is
         # the *live* iterate and _pin_saves holds the (indices, old values)
         # of every block overwritten since begin.
@@ -376,6 +378,10 @@ class Coordinator:
         self.last_apply_verbatim = False
         self.device_dispatches = 0
         self.device_refreshes = 0
+        # Last fused block-local residual norm per worker (a convergence
+        # proxy for observability; the recorded history stays the true
+        # full residual).
+        self.device_local_norms: dict = {}
         self._accel_stale_limit = (
             cfg.accel_stale_limit if cfg.accel_stale_limit is not None
             else 4 * cfg.n_workers
@@ -410,11 +416,13 @@ class Coordinator:
         self.accel_partial_commits = 0
         # Scenario set_profile overrides (worker -> live FaultProfile).
         self.live_profiles: dict = {}
-        # Workers removed by scripted preemptions until the script joins
-        # them back (checkpointed with the membership).
+        # --- closed-loop autoscaling (repro_torch.autoscale) ------------ #
+        # Workers removed by *scripted* preemptions: their infrastructure
+        # is gone until the script joins them back, so a controller may
+        # never "resurrect" them (controller_admissible).  Maintained by
+        # apply_scenario_event's source tag; controller-initiated
+        # preemptions (voluntary shedding) do not land here.
         self.scenario_down: set = set()
-        # Always 0: controllers are not ported; kept so the checkpoint
-        # counters match the reference's format.
         self.controller_actions = 0
         # Trace recorder (repro_torch.chaos.TraceRecorder), set by backends
         # when cfg.capture_trace; fire/record/offload/scenario events are
@@ -432,6 +440,32 @@ class Coordinator:
         self.checkpoints_written = 0
         self.resumed_from: Optional[str] = None
         self._last_ckpt_wu = -1
+        self.probe = None
+        if cfg.controller is not None:
+            from ...autoscale.signals import SignalProbe
+
+            cfg.controller.reset(cfg)
+            self.probe = SignalProbe(cfg, p, self._accel_stale_limit,
+                                     cfg.controller)
+        # --- unified telemetry plane (repro_torch.telemetry) ------------ #
+        # Span/series recorder, None by default: every hook below is one
+        # `is not None` guard, and the recorder consumes no rng and never
+        # touches iterate floats, so runs are bit-identical off *or* on.
+        self.telemetry = None
+        if cfg.telemetry:
+            from ...telemetry import TelemetryRecorder, as_telemetry_config
+
+            self.telemetry = TelemetryRecorder(
+                as_telemetry_config(cfg.telemetry),
+                meta={"executor": cfg.executor, "mode": cfg.mode,
+                      "n_workers": p, "seed": cfg.seed,
+                      "accel": cfg.accel is not None,
+                      "accel_eval": cfg.accel_eval},
+                n_workers=p)
+            if self.probe is not None:
+                # One staleness window for both planes: the probe reads
+                # the recorder's buffer instead of keeping its own.
+                self.probe.attach_telemetry(self.telemetry)
 
     # ----------------------------------------------------------------- #
     def busy(self):
@@ -507,16 +541,29 @@ class Coordinator:
         return (worker in self.active and worker not in self.paused
                 and bool(self.worker_blocks.get(worker)))
 
-    def apply_scenario_event(self, ev, t: float = 0.0) -> None:
+    def apply_scenario_event(self, ev, t: float = 0.0,
+                             source: str = "script") -> None:
         """Apply one :class:`repro_torch.chaos.ScenarioEvent` to the
         membership / live-profile state.  Backend-specific plumbing
         (waking parked threads, re-dispatching joined workers, pushing
         profiles into worker processes) stays in the backends.  A
-        ``coordinator_crash`` raises :class:`CoordinatorCrash`."""
-        if ev.kind == "preempt":
-            self.scenario_down.add(ev.worker)
-        elif ev.kind == "join":
-            self.scenario_down.discard(ev.worker)
+        ``coordinator_crash`` raises :class:`CoordinatorCrash`.
+
+        ``source`` tells scripted events (``"script"``) from controller
+        actions (``"controller"``): scripted preemptions mark the worker
+        ``scenario_down`` (its infrastructure is gone until the script
+        joins it back), while controller preemptions are voluntary
+        shedding the controller may undo.  Both apply through the same
+        idempotent membership primitives."""
+        if self.probe is not None:
+            # Worker-seconds meter: charge the segment that ends here at
+            # the membership size that held during it.
+            self.probe.accumulate(len(self.active - self.paused), t)
+        if source == "script":
+            if ev.kind == "preempt":
+                self.scenario_down.add(ev.worker)
+            elif ev.kind == "join":
+                self.scenario_down.discard(ev.worker)
         if ev.kind == "set_profile":
             targets = ([ev.worker] if ev.worker is not None
                        else range(self.cfg.n_workers))
@@ -545,6 +592,67 @@ class Coordinator:
             raise ValueError(f"unknown scenario event kind {ev.kind!r}")
         if self.tracer is not None:
             self.tracer.scenario_event(t, ev)
+        if self.telemetry is not None:
+            # (A coordinator_crash raises above and so never lands here:
+            # the post-restore "restore" instant marks it instead.)
+            self.telemetry.instant("scenario", "coord", t, ev=ev.kind,
+                                   worker=ev.worker, src=source)
+
+    # ----------------------------------------------------------------- #
+    # Closed-loop autoscaling (repro_torch.autoscale)
+    # ----------------------------------------------------------------- #
+    def controller_admissible(self, ev) -> bool:
+        """Safety rails on controller intents (policies stay unprivileged).
+
+        - never join a worker the *script* holds down (``scenario_down``:
+          reclaimed infrastructure), nor one already in the membership,
+          nor an id outside the fleet;
+        - never preempt or pause away the last dispatchable worker — a
+          controller may be wrong, but it may not wedge the run.
+        """
+        kind, w = ev.kind, ev.worker
+        if kind == "join":
+            return (w is not None and 0 <= w < self.cfg.n_workers
+                    and w not in self.active and w not in self.scenario_down)
+        if kind in ("preempt", "pause"):
+            live = self.active - self.paused
+            return (w in live and len(live) > 1)
+        return True  # set_profile / resume are always safe
+
+    def controller_tick(self, t: float, arrivals: Optional[int] = None) -> list:
+        """Give the controller a decision opportunity at time ``t``.
+
+        Returns the *applied* actions (possibly []), so backends can do
+        their plumbing (launch joined workers, wake parked threads).  Free
+        when no controller is configured; between due decision points it
+        costs one cadence check.  Every loop calls this at its arrival
+        ticks (plus timed driver points on the real backends, where
+        arrivals can stall).  The virtual loops keep their own arrival
+        counters and pass them in so the ``tick_every`` cadence means the
+        same thing on every backend.
+        """
+        ctl = self.cfg.controller
+        if ctl is None:
+            return []
+        if arrivals is None:
+            arrivals = self.arrivals
+        probe = self.probe
+        probe.accumulate(len(self.active - self.paused), t)
+        if not probe.due(arrivals, t):
+            return []
+        sig = probe.sample(self, t, arrivals)
+        applied = []
+        for ev in (ctl.decide(sig) or []):
+            if not self.controller_admissible(ev):
+                continue
+            ev = _dc_replace(ev, t=t)
+            self.apply_scenario_event(ev, t, source="controller")
+            self.controller_actions += 1
+            ctl.decision_log.append({
+                "tick": sig.tick, "t": round(float(t), 9),
+                "kind": ev.kind, "worker": ev.worker})
+            applied.append(ev)
+        return applied
 
     def round_participants(self) -> List[int]:
         """Sync mode: the workers that take part in the next round."""
@@ -630,6 +738,9 @@ class Coordinator:
         if cfg.sdc_guard:
             if not self._sdc_admit(ind, values):
                 self.sdc_rejects += 1
+                if self.telemetry is not None:
+                    self.telemetry.instant("sdc_screen", "coord",
+                                           worker=worker)
                 if worker is not None and cfg.sdc_strikes > 0:
                     s = self._sdc_strikes.get(worker, 0) + 1
                     self._sdc_strikes[worker] = s
@@ -662,6 +773,10 @@ class Coordinator:
             self.fire_window_arrivals += 1
         self.staleness_sum += staleness
         self.staleness_n += 1
+        if self.telemetry is not None:
+            self.telemetry.observe_staleness(staleness)
+        if self.probe is not None:  # autoscale signal window; off => free
+            self.probe.observe(staleness)
         if worker is not None:
             self.applied_by_worker[worker] = (
                 self.applied_by_worker.get(worker, 0) + 1)
@@ -725,10 +840,15 @@ class Coordinator:
             return False
         from ...recover.checkpoint import write_checkpoint  # lazy: no cycle
 
+        t_h0 = time.perf_counter()
         write_checkpoint(self, t,
                          loop_state() if callable(loop_state) else loop_state)
         self._last_ckpt_wu = self.wu
         self.checkpoints_written += 1
+        if self.telemetry is not None:
+            self.telemetry.span(
+                "checkpoint", "coord", t, t, wu=self.wu,
+                host_dur_s=time.perf_counter() - t_h0)
         return True
 
     # ----------------------------------------------------------------- #
@@ -758,6 +878,11 @@ class Coordinator:
         else:
             x_pin = self.x
         plan = AccelPlan(x_pin, self.wu, t, self._membership_version)
+        if self.telemetry is not None:
+            # Recorder clock, not the caller's t: inline fires pass the
+            # t=0.0 default, and the recorder's clock matches t on the
+            # paths that do pass one.
+            plan._tel_t0 = self.telemetry.now()
         if pin == "ref":
             self.pin_copies_avoided += 1
         elif pin == "lazy":
@@ -867,6 +992,10 @@ class Coordinator:
             self.accel.record_reject()
             if self.tracer is not None:
                 self.tracer.fire("discard", t)
+            if self.telemetry is not None:
+                t1 = t if t is not None else self.telemetry.now()
+                self.telemetry.fire_span(plan._tel_t0, t1, "discard",
+                                         stale=stale, moved=len(moved))
             return "discard"
         for p in [p for p in self._pin_watch if p is not plan]:
             self.materialize_pin(p)
@@ -898,6 +1027,10 @@ class Coordinator:
         self.commit_version += 1
         if self.tracer is not None:
             self.tracer.fire(plan.verdict, t)
+        if self.telemetry is not None:
+            t1 = t if t is not None else self.telemetry.now()
+            self.telemetry.fire_span(plan._tel_t0, t1, plan.verdict,
+                                     stale=stale, moved=len(moved))
         return plan.verdict
 
     def maybe_fire_accel(self) -> Optional[str]:
@@ -918,6 +1051,14 @@ class Coordinator:
             item = plan.next_item()
         if self.measure_fire_windows:
             self.fire_window_s += time.perf_counter() - t0
+        tel = self.telemetry
+        if tel is not None:
+            # Inline observability: an inline fire blocks the loop, so the
+            # work overlapping it is what is still in flight — count the
+            # open dispatches.  Host busy accounting rides along for
+            # backends whose metered busy_s is zero (virtual inline).
+            tel.host_busy_s += time.perf_counter() - t0
+            self.fire_window_arrivals += tel.open_tasks
         return self.accel_commit(plan)
 
     # ----------------------------------------------------------------- #
@@ -972,6 +1113,8 @@ class Coordinator:
         thread backend) must hold their coordinator lock."""
         self.arrivals += 1
         self.since_record += 1
+        if self.telemetry is not None:
+            self.telemetry.maybe_sample_busy(t, self.busy_s)
         stop = self.arrivals >= self.max_arrivals
         if self.since_record >= self.record_every:
             res = self.record(t)
@@ -991,6 +1134,8 @@ class Coordinator:
         record is *reported* (second return value) instead of evaluated."""
         self.arrivals += 1
         self.since_record += 1
+        if self.telemetry is not None:
+            self.telemetry.maybe_sample_busy(t, self.busy_s)
         stop = self.arrivals >= self.max_arrivals
         record_due = False
         if self.since_record >= self.record_every:
@@ -1003,11 +1148,18 @@ class Coordinator:
         return stop, record_due
 
     def record(self, t: float) -> float:
+        tel = self.telemetry
+        t_h0 = time.perf_counter() if tel is not None else 0.0
         self.res_norm = self.problem.residual_norm(self.x)
         self._res_version = self._x_version
         self.history.append((t, self.wu, self.res_norm))
         if self.tracer is not None:
             self.tracer.record(t, self.res_norm)
+        if tel is not None:
+            tel.host_busy_s += time.perf_counter() - t_h0
+            tel.span("record", "coord", t, t, res=self.res_norm, wu=self.wu)
+            tel.series_point("residual", t, self.res_norm)
+            tel.maybe_sample_busy(t, self.busy_s)
         return self.res_norm
 
     def record_begin(self, t: float) -> RecordPlan:
@@ -1026,6 +1178,11 @@ class Coordinator:
         self.history.append((plan.t, plan.wu, self.res_norm))
         if self.tracer is not None:
             self.tracer.record(plan.t, self.res_norm)
+        if self.telemetry is not None:
+            tel = self.telemetry
+            tel.span("record", "coord", plan.t, plan.t,
+                     res=self.res_norm, wu=plan.wu, offloaded=offloaded)
+            tel.series_point("residual", plan.t, self.res_norm)
         return self.res_norm
 
     def converged(self) -> bool:
@@ -1037,11 +1194,24 @@ class Coordinator:
     def result(self, t: float, rounds: int, converged: bool) -> RunResult:
         mean_stale = self.staleness_sum / max(self.staleness_n, 1)
         acc = self.accel
+        if self.probe is not None:  # close the worker-seconds meter at t
+            self.probe.accumulate(len(self.active - self.paused), t)
         if self._res_version == self._x_version:
             res = self.res_norm
         else:
             res = self.problem.residual_norm(self.x)
         busy_frac = min(1.0, self.busy_s / t) if t > 0 else 0.0
+        tel = self.telemetry
+        tel_capture = tel_summary = None
+        if tel is not None:
+            if self.busy_s == 0.0:
+                # Inline virtual runs never meter busy_s (coordinator work
+                # is free in virtual time); the recorder's host-clock
+                # fraction stands in.
+                busy_frac = tel.host_busy_frac()
+            tel.finalize(t, self.busy_s)
+            tel_capture = tel.to_capture()
+            tel_summary = tel_capture.summary
         return RunResult(
             x=self.x,
             converged=converged,
@@ -1073,6 +1243,9 @@ class Coordinator:
             service_fractions={
                 w: cnt / max(self.wu, 1)
                 for w, cnt in sorted(self.applied_by_worker.items())},
+            worker_seconds=(self.probe.worker_seconds
+                            if self.probe is not None else 0.0),
+            controller_actions=self.controller_actions,
             sdc_rejects=self.sdc_rejects,
             quarantined=self.quarantined,
             checkpoints_written=self.checkpoints_written,
@@ -1083,4 +1256,6 @@ class Coordinator:
             device_refreshes=self.device_refreshes,
             trace=(self.tracer.to_trace() if self.tracer is not None
                    else None),
+            telemetry=tel_capture,
+            telemetry_summary=tel_summary,
         )

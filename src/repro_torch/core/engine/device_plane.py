@@ -23,9 +23,10 @@ Structural requirements (anything else returns None — host path):
 * identity projection, no offloaded eval service in the loop
   (``accel_eval="worker"`` keeps the host loop), and nothing that can
   move a block to another worker or restart the loop mid-run: no chaos
-  scenario, trace capture, checkpoint or resume, and no SDC guard (a
-  worker's plan holds only its home block resident, so it cannot follow a
-  reassigned block).
+  scenario, autoscale controller, trace capture, checkpoint or resume,
+  and no SDC guard (a worker's plan holds only its home block resident,
+  so it cannot follow a reassigned block).  Telemetry is allowed: it
+  moves no block.
 
 ``"auto"`` (the default) additionally requires ``n >= AUTO_THRESHOLD``.
 """
@@ -63,8 +64,8 @@ def resolve_device_plane(problem: FixedPointProblem, cfg: RunConfig,
         return None
     if cfg.selection != "fixed" or cfg.return_mode != "block":
         return None
-    if (cfg.scenario is not None or cfg.capture_trace
-            or cfg.accel_eval == "worker"):
+    if (cfg.scenario is not None or cfg.controller is not None
+            or cfg.capture_trace or cfg.accel_eval == "worker"):
         return None
     if cfg.checkpoint_every is not None or cfg.resume_from is not None:
         return None

@@ -73,15 +73,24 @@ the other workers' arrivals keep being applied.  A simulated eval fault
 (``FaultProfile.eval_crash_prob``) reports ``eval_crash`` and the
 coordinator evaluates that item itself.
 
-Chaos scenarios and trace capture take their own loops: the parent's
-result wait is bounded by the next scripted event time, preempted workers
+Chaos scenarios, trace capture and autoscale controllers take their own
+loops: the parent's result wait is bounded by the next scripted event
+time (and by 50 ms under a controller, so its timed ticks fire), preempted
+workers
 are simply not redispatched (their interpreters stay pooled), a result
 that raced its worker's preemption is discarded (``preempt_gen``), and
 ``set_profile`` events reach the workers as ``("prof", profile)``
 messages, applied from the worker's next task on.  A scripted
 ``coordinator_crash`` drains every in-flight result before it raises, so
 the warm pool stays clean for the resumed session.  Checkpoints and
-resumes run on the default async loop, through the same pool lease.
+resumes run on the default async loop, through the same pool lease.  A
+controller never crosses to the workers: the config shipped to them has
+it stripped.
+
+Telemetry: workers time their own evaluations and ship ``("tel", ...)``
+span batches over the result channel; the parent anchors them on its
+clock.  Device-plane arrivals come back as ``"okd"`` with the kernel's
+fused block-local norm, which lands in ``coord.device_local_norms``.
 
 ``cfg.compute_time`` is ignored — compute cost is whatever the hardware
 takes.  Pool startup and per-run warm-up happen before ``t0``, so measured
@@ -127,6 +136,10 @@ __all__ = [
 ]
 
 _CTX = get_context("spawn")  # fork would copy a live CUDA context
+#: grace window (s) a controller gets to revive an empty membership after
+#: the script is exhausted, before the chaos loops declare the run dead
+#: (the thread backend's constant of the same name).
+_CTL_STALL_S = 2.0
 _READY_TIMEOUT_S = 300.0  # interpreter + torch import + CUDA context
 _POLL_S = 5.0
 #: how many idle pools to keep alive (LRU beyond this is closed)
@@ -189,12 +202,21 @@ def _worker_main(
 
     Messages out (``result_q``): ``(w, kind, data, snap_wu)`` with kind in
     {"boot", "ready", "ok", "crash", "rejoin", "eval_ok", "eval_crash",
-    "counts", "error"}; for "ok" the values are in the shared result slot
-    and ``data`` is their length; for "eval_ok" the full-map result is in
-    the slot (``data`` = its length) or ``data`` is the residual-norm
-    scalar; for "counts" ``data`` is the run's launch counts.  An async
-    restartable crash reports "crash" with ``data=True`` (it will rejoin),
-    sleeps out its downtime, then reports "rejoin".
+    "okd", "tel", "counts", "error"}; for "ok" the values are in the
+    shared result slot and ``data`` is their length; "okd" is a device-plane
+    "ok" whose ``data`` is ``(length, block-local residual norm)``; for
+    "eval_ok" the full-map result is in the slot (``data`` = its length)
+    or ``data`` is the residual-norm scalar; for "counts" ``data`` is the
+    run's launch counts.  With ``cfg.telemetry`` set, the worker times its
+    own evaluations with a local ``perf_counter`` and ships them as
+    ``("tel", [(age_s, dur_s, kind), ...])`` batches over the same channel
+    (flushed just before a result once ``worker_batch`` spans accumulate;
+    the parent re-anchors them on its clock via
+    ``TelemetryRecorder.merge_worker_batch``).  An unflushed tail at run
+    end is dropped: span batches are observability, never part of the
+    numeric protocol.  An async restartable crash reports "crash" with
+    ``data=True`` (it will rejoin), sleeps out its downtime, then reports
+    "rejoin".
     """
     shm = slot = None
     try:
@@ -207,6 +229,25 @@ def _worker_main(
         slot_view = np.ndarray(n, dtype=np.float64, buffer=slot.buf)
         result_q.put((w, "boot", None, 0))
         cfg = prof = rng = my_block = dplan = my_read = None
+        tel_buf: List[Tuple[float, float, str]] = []  # (end_perf, dur, kind)
+        tel_bs = 0  # telemetry batch size; 0 = telemetry off
+
+        def tel_note(kind: str, start_perf: float) -> None:
+            if tel_bs:
+                end = time.perf_counter()
+                tel_buf.append((end, end - start_perf, kind))
+
+        def tel_flush() -> None:
+            # Ship a full batch just before a result message, so the
+            # parent only ever sees "tel" adjacent to real traffic (the
+            # pre-run _await / post-run drain can discard strays safely).
+            if tel_bs and len(tel_buf) >= tel_bs:
+                now = time.perf_counter()
+                result_q.put(
+                    (w, "tel",
+                     [(now - end, dur, kind) for end, dur, kind in tel_buf],
+                     0))
+                tel_buf.clear()
 
         while True:
             task = task_q.get()
@@ -215,6 +256,9 @@ def _worker_main(
             kind = task[0]
             if kind == "run":
                 _, cfg, seed_seq, my_block = task
+                tel_bs = (int(getattr(cfg.telemetry, "worker_batch", 32))
+                          if cfg.telemetry else 0)
+                tel_buf.clear()  # a previous run's unflushed tail
                 ops.reset_launch_counts()
                 warm_problem(problem, cfg, blocks=[my_block])
                 prof = _fault_for(cfg, w)
@@ -250,14 +294,20 @@ def _worker_main(
                 xin = slot_view[:n].copy()
                 if (prof.eval_crash_prob > 0.0
                         and rng.random() < prof.eval_crash_prob):
+                    tel_flush()
                     result_q.put((w, "eval_crash", None, 0))
                     continue
+                e0 = time.perf_counter()
                 if ekind == "full_map":
                     slot_view[:n] = np.asarray(problem.full_map(xin),
                                                dtype=np.float64)
+                    tel_note("eval", e0)
+                    tel_flush()
                     result_q.put((w, "eval_ok", n, 0))
                 else:
                     rnorm = float(problem.residual_norm(xin))
+                    tel_note("eval", e0)
+                    tel_flush()
                     result_q.put((w, "eval_ok", rnorm, 0))
                 continue
             if kind == "sync":
@@ -265,7 +315,9 @@ def _worker_main(
                 idx = my_block if idx is None else idx
                 with shm_lock:
                     snap = view.copy()
+                c0 = time.perf_counter()
                 vals = worker_eval(problem, cfg, snap[1:], idx)
+                tel_note("compute", c0)
                 if delay > 0.0:
                     time.sleep(delay)
                 if crashed:
@@ -273,9 +325,11 @@ def _worker_main(
                     # its in-flight result is lost either way.
                     if prof.restart_after is not None:
                         time.sleep(prof.restart_after)
+                    tel_flush()
                     result_q.put((w, "crash", None, int(snap[0])))
                 else:
                     slot_view[:len(vals)] = vals
+                    tel_flush()
                     result_q.put((w, "ok", len(vals), int(snap[0])))
                 continue
             if kind == "device":
@@ -287,16 +341,21 @@ def _worker_main(
                     snap_wu = int(view[0])
                     blk = None if fresh else np.copy(view[1:][my_read])
                     needs = [np.copy(view[1:][s]) for s in dplan.needs]
+                c0 = time.perf_counter()
                 if blk is not None:
                     dplan.refresh(blk)
-                vals, _ = dplan.step(*needs)
+                vals, dnorm = dplan.step(*needs)
+                tel_note("compute", c0)
             else:
                 _, idx = task
                 idx = my_block if idx is None else idx
                 with shm_lock:
                     snap = view.copy()
                 snap_wu = int(snap[0])
+                c0 = time.perf_counter()
                 vals = worker_eval(problem, cfg, snap[1:], idx)
+                tel_note("compute", c0)
+                dnorm = None
             if cfg.async_overhead > 0.0:
                 time.sleep(cfg.async_overhead)
             delay = prof.sample_delay(rng)
@@ -304,6 +363,7 @@ def _worker_main(
                 time.sleep(delay)
             if prof.sample_crash(rng):
                 will_rejoin = prof.restart_after is not None
+                tel_flush()
                 result_q.put((w, "crash", will_rejoin, snap_wu))
                 if not will_rejoin:
                     # Simulated permanent crash: dead for the rest of THIS
@@ -314,7 +374,13 @@ def _worker_main(
                 result_q.put((w, "rejoin", None, 0))
                 continue
             slot_view[:len(vals)] = vals
-            result_q.put((w, "ok", len(vals), snap_wu))
+            tel_flush()
+            if dnorm is None:
+                result_q.put((w, "ok", len(vals), snap_wu))
+            else:
+                # "okd": an "ok" that also carries the fused block-local
+                # residual norm the device kernel computed for free.
+                result_q.put((w, "okd", (len(vals), dnorm), snap_wu))
     except Exception as e:  # surface rebuild/eval failures to the parent
         import traceback
 
@@ -381,12 +447,15 @@ class _WorkerPool:
         Each worker receives only its own block row — at large n the full
         partition is O(n) of int64 per queue."""
         seeds = np.random.SeedSequence(cfg.seed).spawn(cfg.n_workers)
-        if cfg.resume_from is not None:
-            # The checkpoint carries the coordinator's arrays, which the
-            # workers have no use for.
+        if cfg.controller is not None or cfg.resume_from is not None:
+            # Controllers live coordinator-side only and may hold
+            # unpicklable hooks (the serve layer's queue-depth closure);
+            # resume checkpoints carry the coordinator's arrays, which the
+            # workers have no use for.  Strip both before the config
+            # crosses the process boundary.
             import dataclasses as _dc
 
-            cfg = _dc.replace(cfg, resume_from=None)
+            cfg = _dc.replace(cfg, controller=None, resume_from=None)
         for w, q in enumerate(self.task_qs):
             q.put(("run", cfg, seeds[w], blocks[w]))
         self._await(self.n_workers, {"ready"})
@@ -403,6 +472,8 @@ class _WorkerPool:
             w, kind, data, _ = self.get_result(deadline)
             if kind == "error":
                 raise RuntimeError(f"worker {w} failed: {data}")
+            if kind == "tel":
+                continue  # stray telemetry batch: observability only
             if kind != "counts":
                 raise RuntimeError(f"unexpected end-of-run message {kind!r}")
             ops.add_launch_counts(data)
@@ -415,6 +486,8 @@ class _WorkerPool:
             w, kind, data, _ = self.get_result(deadline)
             if kind == "error":
                 raise RuntimeError(f"worker {w} failed during startup: {data}")
+            if kind == "tel":
+                continue  # stray telemetry batch from a stopped run
             if kind not in kinds:
                 raise RuntimeError(f"unexpected pre-run message {kind!r}")
             seen.add(w)
@@ -431,6 +504,8 @@ class _WorkerPool:
             w, kind, data, _ = self.get_result(deadline)
             if kind == "error":
                 raise RuntimeError(f"worker {w} failed: {data}")
+            if kind == "tel":
+                continue  # drained telemetry batch: observability only
             if kind == "rejoin":
                 owed.discard(w)
             else:
@@ -682,17 +757,33 @@ class ProcessPoolExecutor(Executor):
             # here and pipeline over the one warm pool, zero respawns.
             with lease.run_lock:
                 pool = lease.pool
+                if coord.telemetry is not None:
+                    # Pool-plane counters at acquire time: how contended
+                    # the warm pool is and whether this family ever had to
+                    # respawn a fleet (0 respawns = pure warm reuse).
+                    coord.telemetry.series_point(
+                        "pool_leases", 0.0, _POOLS.lease_count(lease.key))
+                    coord.telemetry.series_point(
+                        "pool_respawns", 0.0,
+                        max(0, _POOLS.created_count(lease.key) - 1))
+                    coord.telemetry.meta["pool_runs_served"] = (
+                        pool.runs_served)
                 try:
                     pool.setup_run(cfg, coord.blocks)
                     pool.write_x(coord)
                     if cfg.mode == "sync":
-                        if cfg.scenario is not None:
+                        if (cfg.scenario is not None
+                                or cfg.controller is not None):
                             res = self._run_sync_chaos(cfg, coord, pool)
                         else:
                             res = self._run_sync(cfg, coord, pool)
-                    elif cfg.scenario is not None:
+                    elif (cfg.scenario is not None
+                          or cfg.controller is not None):
                         # Hosts both eval placements; offloaded fires
-                        # commit only to unmoved blocks.
+                        # commit only to unmoved blocks.  Controller runs
+                        # land here too (an empty ScenarioClock without a
+                        # script): only this loop handles elastic
+                        # membership.
                         res = self._run_async_chaos(cfg, coord, pool)
                     elif cfg.accel_eval == "worker":
                         res = self._run_async_offload(cfg, coord, pool)
@@ -724,6 +815,9 @@ class ProcessPoolExecutor(Executor):
         t0 = time.perf_counter()
         rounds = 0
         alive = set(range(cfg.n_workers))
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(lambda: time.perf_counter() - t0)
         coord.record(0.0)
         while (coord.wu < cfg.max_updates and alive
                and coord.arrivals < coord.max_arrivals):
@@ -731,6 +825,7 @@ class ProcessPoolExecutor(Executor):
             pool.write_x(coord)
             plans = coord.plan_round(alive, coord.select_round_indices())
             by_worker: Dict[int, Tuple] = {}
+            rs = time.perf_counter() - t0  # round dispatch time
             for w, prof, idx, delay, crashed in plans:
                 by_worker[w] = (prof, idx, crashed)
                 wire_idx = None if idx is coord.blocks[w] else idx
@@ -741,14 +836,25 @@ class ProcessPoolExecutor(Executor):
                 w, kind, data, _snap = pool.get_result(deadline)
                 if kind == "error":
                     raise RuntimeError(f"worker {w} failed: {data}")
+                if kind == "tel":
+                    if tel is not None:
+                        tel.merge_worker_batch(
+                            w, data, time.perf_counter() - t0)
+                    continue
                 remaining -= 1
                 coord.arrivals += 1
                 prof, idx, crashed = by_worker[w]
                 if crashed:
                     coord.note_sync_crash(prof, w, alive)
+                    if tel is not None:
+                        tel.task_open(w, rs)
+                        tel.task_close(w, disp="crash")
                     continue
                 coord.apply_return(idx, pool.slot_views[w][:data], prof,
                                    staleness=0)
+                if tel is not None:
+                    tel.task_open(w, rs)
+                    tel.task_close(w, disp="applied")
             t, verdict = coord.sync_round_tick(
                 rounds, lambda: time.perf_counter() - t0)
             if verdict in ("diverged", "converged"):
@@ -788,6 +894,9 @@ class ProcessPoolExecutor(Executor):
         else:
             t0 = time.perf_counter()
             coord.record(0.0)
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(lambda: time.perf_counter() - t0)
         pending: Dict[int, np.ndarray] = {}  # worker -> dispatched indices
         rejoin_owed: Set[int] = set()  # restartable crashes mid-downtime
         stop = False
@@ -815,6 +924,8 @@ class ProcessPoolExecutor(Executor):
         def dispatch(w: int) -> None:
             idx = coord.select_indices(w)
             pending[w] = idx
+            if tel is not None:
+                tel.task_open(w, time.perf_counter() - t0)
             if w in dev_workers:
                 fresh = (dev_fresh[w]
                          and coord.commit_version == dev_cver[w])
@@ -833,11 +944,18 @@ class ProcessPoolExecutor(Executor):
             w, kind, data, snap_wu = pool.get_result(deadline)
             if kind == "error":
                 raise RuntimeError(f"worker {w} failed: {data}")
+            if kind == "tel":
+                if tel is not None:
+                    tel.merge_worker_batch(w, data, time.perf_counter() - t0)
+                continue
             if kind == "rejoin":
                 # Downtime over: count the restart now (the same
                 # downtime-end convention as thread/virtual).
                 coord.restarts += 1
                 rejoin_owed.discard(w)
+                if tel is not None:
+                    tel.instant("restart", f"w{w}",
+                                time.perf_counter() - t0)
                 continue
             with coord.busy():
                 prof = _fault_for(cfg, w)
@@ -845,6 +963,8 @@ class ProcessPoolExecutor(Executor):
                 redispatch = True
                 if kind == "crash":
                     coord.crashes += 1
+                    if tel is not None:
+                        tel.task_close(w, disp="crash")
                     if w in dev_workers:
                         # The resident block advanced past the lost
                         # return; it no longer mirrors x.
@@ -858,10 +978,21 @@ class ProcessPoolExecutor(Executor):
                         # waits out the downtime in its queue.
                         rejoin_owed.add(w)
                 else:
+                    if kind == "okd":  # device arrival: data carries the
+                        vlen, dnorm = data  # fused block-local norm too
+                        coord.device_local_norms[w] = float(dnorm)
+                    else:
+                        vlen = data
                     staleness = coord.wu - snap_wu
                     applied = coord.apply_return(
-                        idx, pool.slot_views[w][:data], prof,
+                        idx, pool.slot_views[w][:vlen], prof,
                         staleness=staleness, worker=w)
+                    if tel is not None:
+                        # Close before any inline fire below, so its
+                        # open-task count covers only the *other* workers.
+                        tel.task_close(
+                            w, disp="applied" if applied else "filtered",
+                            staleness=staleness)
                     if w in dev_workers:
                         # Freshness granted before any commit below: a
                         # fire bumps commit_version and invalidates.
@@ -905,8 +1036,9 @@ class ProcessPoolExecutor(Executor):
     def _run_sync_chaos(
         self, cfg: RunConfig, coord: Coordinator, pool: _WorkerPool
     ) -> RunResult:
-        """BSP loop under a chaos scenario (events at round boundaries; see
-        the thread backend's ``_run_sync_chaos`` for the semantics)."""
+        """BSP loop under a chaos scenario and/or a controller (events at
+        round boundaries; see the thread backend's ``_run_sync_chaos`` for
+        the semantics)."""
         from ...chaos.scenario import ScenarioClock
 
         clock = ScenarioClock(cfg.scenario)
@@ -917,25 +1049,43 @@ class ProcessPoolExecutor(Executor):
         def elapsed() -> float:
             return time.perf_counter() - t0
 
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(elapsed)
         coord.record(0.0)
+        idle_since = 0.0
         while (coord.wu < cfg.max_updates and alive
                and coord.arrivals < coord.max_arrivals):
             now = elapsed()
             for ev in clock.due(now):
                 coord.apply_scenario_event(ev, now)
                 _forward_profile(pool, cfg, ev)
+            for cev in coord.controller_tick(now):
+                _forward_profile(pool, cfg, cev)
             parts = [w for w in coord.round_participants() if w in alive]
             if not parts:
                 nt = clock.next_time()
                 if nt is None:
-                    break  # membership can never recover
+                    if cfg.controller is None:
+                        break  # membership can never recover
+                    # A controller may still rejoin workers: a bounded
+                    # stall window of timed ticks.
+                    now = elapsed()
+                    if now - idle_since > _CTL_STALL_S:
+                        break
+                    if cfg.max_wall is not None and now > cfg.max_wall:
+                        break
+                    time.sleep(0.01)
+                    continue
                 time.sleep(max(0.0, nt - elapsed()))
                 continue
+            idle_since = elapsed()
             rounds += 1
             pool.write_x(coord)
             round_idx = {w: coord.round_assignment(w) for w in parts}
             plans = coord.plan_round(set(parts), round_idx)
             by_worker: Dict[int, Tuple] = {}
+            rs = elapsed()  # round dispatch time
             for w, prof, idx, delay, crashed in plans:
                 by_worker[w] = (prof, idx, crashed)
                 wire_idx = None if idx is coord.blocks[w] else idx
@@ -946,14 +1096,26 @@ class ProcessPoolExecutor(Executor):
                 w, kind, data, _snap = pool.get_result(deadline)
                 if kind == "error":
                     raise RuntimeError(f"worker {w} failed: {data}")
+                if kind == "tel":
+                    if tel is not None:
+                        tel.merge_worker_batch(w, data, elapsed())
+                    continue
                 remaining -= 1
                 coord.arrivals += 1
                 prof, idx, crashed = by_worker[w]
                 if crashed:
                     coord.note_sync_crash(prof, w, alive)
+                    if tel is not None:
+                        tel.task_open(w, rs, gen=coord.preempt_gen[w])
+                        tel.task_close(w, disp="crash",
+                                       gen=coord.preempt_gen[w])
                     continue
                 coord.apply_return(idx, pool.slot_views[w][:data], prof,
                                    staleness=0, worker=w)
+                if tel is not None:
+                    tel.task_open(w, rs, gen=coord.preempt_gen[w])
+                    tel.task_close(w, disp="applied",
+                                   gen=coord.preempt_gen[w])
             t, verdict = coord.sync_round_tick(rounds, elapsed)
             if verdict in ("diverged", "converged"):
                 return coord.result(t, rounds, verdict == "converged")
@@ -966,7 +1128,8 @@ class ProcessPoolExecutor(Executor):
     def _run_async_chaos(
         self, cfg: RunConfig, coord: Coordinator, pool: _WorkerPool
     ) -> RunResult:
-        """Async loop with chaos scenarios and/or trace capture.
+        """Async loop with chaos scenarios, trace capture and/or an
+        autoscale controller.
 
         The parent's result wait is bounded by the next scripted event
         time (``get_result_wake``), so events apply on schedule even with
@@ -978,7 +1141,9 @@ class ProcessPoolExecutor(Executor):
         never serve evals), and a fire whose begin -> commit window spans
         a membership change commits only to the blocks that did not move.
         A ``coordinator_crash`` stops the loop, drains every in-flight
-        result and then raises.
+        result and then raises.  A controller ticks at each arrival and at
+        least every 50 ms (the result wait is bounded), and an empty
+        membership waits at most ``_CTL_STALL_S`` for it to rebuild.
         """
         from ...chaos.scenario import ScenarioClock
 
@@ -997,6 +1162,9 @@ class ProcessPoolExecutor(Executor):
         def elapsed() -> float:
             return time.perf_counter() - t0
 
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(elapsed)
         evq = (_EvalQueue(coord, pool, elapsed)
                if cfg.accel_eval == "worker" else None)
 
@@ -1013,6 +1181,8 @@ class ProcessPoolExecutor(Executor):
             wire_idx = None if idx is coord.blocks[w] else idx
             if coord.tracer is not None:
                 coord.tracer.dispatch(elapsed(), w, bid, gen)
+            if tel is not None:
+                tel.task_open(w, elapsed(), gen=gen, block=bid)
             pool.task_qs[w].put(("async", wire_idx))
 
         def idle_or_park(w: int, allow_eval: bool = True) -> None:
@@ -1026,8 +1196,7 @@ class ProcessPoolExecutor(Executor):
                 parked.add(w)
 
         def apply_event(ev, now: float) -> None:
-            """Apply one scripted event, then its backend-side effects
-            (dispatching, parking, profile forwarding)."""
+            """Apply one scripted event, then its backend-side effects."""
             try:
                 coord.apply_scenario_event(ev, now)
             except CoordinatorCrash as e:
@@ -1035,6 +1204,21 @@ class ProcessPoolExecutor(Executor):
                 # must be empty before the kept-warm pool serves again.
                 crash_box.append(e)
                 return
+            plumb(ev)
+
+        def ctl_tick(now: float) -> bool:
+            """Controller tick: ``controller_tick`` applies any admissible
+            actions to the coordinator; the backend plumbing happens
+            here."""
+            actions = coord.controller_tick(now)
+            for cev in actions:
+                plumb(cev)
+            return bool(actions)
+
+        def plumb(ev) -> None:
+            """Backend-side effects of a membership event (dispatching,
+            parking, profile forwarding): the coordinator-side state was
+            already updated by ``apply_scenario_event``."""
             _forward_profile(pool, cfg, ev)
             if ev.kind == "join":
                 parked.discard(ev.worker)
@@ -1067,6 +1251,7 @@ class ProcessPoolExecutor(Executor):
         for ev in clock.due(0.0):
             apply_event(ev, 0.0)
         if not crash_box:
+            ctl_tick(0.0)  # tick 0: fleet shaping before first dispatch
             for w in sorted(alive):
                 if w in pending:
                     continue  # a t=0 join event already dispatched it
@@ -1074,27 +1259,50 @@ class ProcessPoolExecutor(Executor):
                     dispatch(w)
                 elif w in coord.active:
                     parked.add(w)  # paused before first dispatch: resumable
+        idle_since = 0.0
         while alive and not stop and not crash_box:
             now = elapsed()
             for ev in clock.due(now):
                 apply_event(ev, now)
             if crash_box:
                 break
+            ctl_tick(now)
             nt = clock.next_time()
             if (not pending and not rejoin_owed
                     and (evq is None or evq.worker is None)):
                 if nt is None:
-                    break  # nothing in flight, no event can revive us
+                    if cfg.controller is None:
+                        break  # nothing in flight, no event can revive us
+                    # A controller can still rejoin workers: a bounded
+                    # stall window of timed ticks, then give up.
+                    now = elapsed()
+                    if now - idle_since > _CTL_STALL_S:
+                        break
+                    if cfg.max_wall is not None and now > cfg.max_wall:
+                        break
+                    time.sleep(0.02)
+                    if ctl_tick(elapsed()):
+                        idle_since = elapsed()
+                    continue
                 time.sleep(max(0.0, nt - elapsed()))
                 continue
+            idle_since = elapsed()
             deadline = time.monotonic() + _READY_TIMEOUT_S
             wake = None if nt is None else nt - elapsed()
+            if cfg.controller is not None:
+                # Bound the wait so timed controller ticks (tick_dt) fire
+                # even while every worker is mid-compute.
+                wake = 0.05 if wake is None else min(wake, 0.05)
             res = pool.get_result_wake(deadline, wake)
             if res is None:
-                continue  # an event came due; handle it at the loop top
+                continue  # an event/tick came due; handle at the loop top
             w, kind, data, snap_wu = res
             if kind == "error":
                 raise RuntimeError(f"worker {w} failed: {data}")
+            if kind == "tel":
+                if tel is not None:
+                    tel.merge_worker_batch(w, data, elapsed())
+                continue
             if kind == "rejoin":
                 rejoin_owed.discard(w)
                 if rejoin_gen.pop(w, -1) == coord.preempt_gen[w]:
@@ -1104,6 +1312,11 @@ class ProcessPoolExecutor(Executor):
                     coord.restarts += 1
                     if coord.tracer is not None:
                         coord.tracer.restart(elapsed(), w)
+                    if tel is not None:
+                        g = coord.preempt_gen[w]
+                        tel.instant(
+                            "restart",
+                            f"w{w}" if g == 0 else f"w{w}#r{g}", elapsed())
                 continue
             if kind in ("eval_ok", "eval_crash"):
                 with coord.busy():
@@ -1123,6 +1336,9 @@ class ProcessPoolExecutor(Executor):
                         if coord.tracer is not None:
                             coord.tracer.arrival(elapsed(), w,
                                                  "preempt_discard", gen=gen)
+                        if tel is not None:
+                            tel.task_close(w, disp="preempt_discard",
+                                           gen=gen)
                         # A rejoined worker must get fresh work even though
                         # this (doomed) result was a crash report.
                         idle_or_park(w, allow_eval=False)
@@ -1130,6 +1346,8 @@ class ProcessPoolExecutor(Executor):
                     coord.crashes += 1
                     if coord.tracer is not None:
                         coord.tracer.arrival(elapsed(), w, "crash", gen=gen)
+                    if tel is not None:
+                        tel.task_close(w, disp="crash", gen=gen)
                     stop = arrival_tick_either()
                     if not data:
                         alive.discard(w)
@@ -1147,6 +1365,8 @@ class ProcessPoolExecutor(Executor):
                     if coord.tracer is not None:
                         coord.tracer.arrival(elapsed(), w, "preempt_discard",
                                              gen=gen)
+                    if tel is not None:
+                        tel.task_close(w, disp="preempt_discard", gen=gen)
                     idle_or_park(w)
                     continue
                 staleness = coord.wu - snap_wu
@@ -1158,6 +1378,12 @@ class ProcessPoolExecutor(Executor):
                         elapsed(), w,
                         "applied" if applied else "filtered", staleness,
                         gen=gen)
+                if tel is not None:
+                    # Close before any fire below: the open-task count then
+                    # covers only the *other* workers' in-flight work.
+                    tel.task_close(
+                        w, disp="applied" if applied else "filtered",
+                        staleness=staleness, gen=gen)
                 if applied:
                     since_fire += 1
                     if (coord.accel is not None
@@ -1206,6 +1432,9 @@ class ProcessPoolExecutor(Executor):
         def elapsed() -> float:
             return time.perf_counter() - t0
 
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(elapsed)
         evq = _EvalQueue(coord, pool, elapsed)
 
         def dispatch(w: int) -> None:
@@ -1214,6 +1443,8 @@ class ProcessPoolExecutor(Executor):
             wire_idx = None if idx is coord.blocks[w] else idx
             if coord.tracer is not None:
                 coord.tracer.dispatch(elapsed(), w, bid)
+            if tel is not None:
+                tel.task_open(w, elapsed(), block=bid)
             pool.task_qs[w].put(("async", wire_idx))
 
         for w in sorted(alive):
@@ -1223,11 +1454,17 @@ class ProcessPoolExecutor(Executor):
             w, kind, data, snap_wu = pool.get_result(deadline)
             if kind == "error":
                 raise RuntimeError(f"worker {w} failed: {data}")
+            if kind == "tel":
+                if tel is not None:
+                    tel.merge_worker_batch(w, data, elapsed())
+                continue
             if kind == "rejoin":
                 coord.restarts += 1
                 rejoin_owed.discard(w)
                 if coord.tracer is not None:
                     coord.tracer.restart(elapsed(), w)
+                if tel is not None:
+                    tel.instant("restart", f"w{w}", elapsed())
                 continue
             if kind in ("eval_ok", "eval_crash"):
                 with coord.busy():
@@ -1243,6 +1480,8 @@ class ProcessPoolExecutor(Executor):
                     coord.crashes += 1
                     if coord.tracer is not None:
                         coord.tracer.arrival(elapsed(), w, "crash")
+                    if tel is not None:
+                        tel.task_close(w, disp="crash")
                     if not data:  # data=True iff the worker will rejoin
                         alive.discard(w)
                         redispatch = False
@@ -1257,6 +1496,10 @@ class ProcessPoolExecutor(Executor):
                         coord.tracer.arrival(
                             elapsed(), w,
                             "applied" if applied else "filtered", staleness)
+                    if tel is not None:
+                        tel.task_close(
+                            w, disp="applied" if applied else "filtered",
+                            staleness=staleness)
                     if applied:
                         since_fire += 1
                         if (coord.accel is not None

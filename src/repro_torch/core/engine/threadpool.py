@@ -24,11 +24,13 @@ on a dedicated eval thread instead of inline under the lock.  A simulated
 eval-service fault (``FaultProfile.eval_crash_prob``) makes the pipeline
 fall back to coordinator-side evaluation for that item.
 
-Chaos scenarios and trace capture take their own loops: a driver thread
-applies scripted events on the wall clock, workers park while preempted
-or paused, and a result computed across its worker's preemption is
-discarded (``preempt_gen``).  Those runs take the host path (the device
-plane cannot follow a reassigned block).  A worker thread that raises (a
+Chaos scenarios, trace capture and autoscale controllers take their own
+loops: a driver thread applies scripted events on the wall clock (and
+ticks the controller on a timer), workers park while preempted or paused,
+and a result computed across its worker's preemption is discarded
+(``preempt_gen``).  Those runs take the host path (the device plane
+cannot follow a reassigned block).  Telemetry spans read the loop's
+``elapsed()`` clock.  A worker thread that raises (a
 failed kernel launch) stops the run and the error re-raises on the caller.
 """
 
@@ -59,6 +61,13 @@ from .types import (
 )
 
 __all__ = ["ThreadPoolExecutor"]
+
+# With an autoscale controller and the script drained, an empty/paused
+# membership is not necessarily final: the controller may join a spare or
+# resume a pause at a later timed tick.  This is how long the loops wait
+# for it before declaring the run wedged and stopping; without a
+# controller they stop immediately.
+_CTL_STALL_S = 2.0
 
 
 def _run_threads(worker_loop, n: int, errors: list,
@@ -136,9 +145,14 @@ class _EvalThread:
         self.pool.submit(job)
 
     def _eval_one(self, item, prof: FaultProfile):
+        e0 = self.elapsed()
         offloaded = not (prof.eval_crash_prob > 0.0
                          and self.rng.random() < prof.eval_crash_prob)
-        return self.coord.eval_item(item), offloaded
+        val = self.coord.eval_item(item)
+        tel = self.coord.telemetry
+        if tel is not None:
+            tel.span("eval", "eval", e0, self.elapsed(), offload=offloaded)
+        return val, offloaded
 
     def _run_fire(self, plan, prof: FaultProfile) -> None:
         coord, lock = self.coord, self.lock
@@ -199,13 +213,15 @@ class ThreadPoolExecutor(Executor):
 
             coord.tracer = TraceRecorder(cfg, self.name, problem)
         if cfg.mode == "sync":
-            if cfg.scenario is not None:
+            if cfg.scenario is not None or cfg.controller is not None:
                 return self._run_sync_chaos(problem, cfg, coord)
             return self._run_sync(problem, cfg, coord)
         if cfg.mode == "async":
-            if cfg.scenario is not None:
+            if cfg.scenario is not None or cfg.controller is not None:
                 # Hosts both eval placements; offloaded fires commit only
-                # to blocks whose ownership did not move.
+                # to blocks whose ownership did not move.  Controller runs
+                # land here too (an empty ScenarioClock without a script):
+                # only this loop handles a membership that changes mid-run.
                 return self._run_async_chaos(problem, cfg, coord)
             if cfg.accel_eval == "worker":
                 return self._run_async_offload(problem, cfg, coord)
@@ -238,12 +254,16 @@ class ThreadPoolExecutor(Executor):
         t0 = time.perf_counter()
         rounds = 0
         alive = set(range(cfg.n_workers))
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(lambda: time.perf_counter() - t0)
         coord.record(0.0)
         with _Pool(max_workers=cfg.n_workers) as pool:
             while (coord.wu < cfg.max_updates and alive
                    and coord.arrivals < coord.max_arrivals):
                 rounds += 1
                 x_snap = coord.x.copy()
+                rs = time.perf_counter() - t0
                 plans = coord.plan_round(alive, coord.select_round_indices())
                 futs = [
                     pool.submit(self._sync_task, problem, cfg, x_snap, idx,
@@ -253,6 +273,10 @@ class ThreadPoolExecutor(Executor):
                 for (w, prof, idx, _, crashed), fut in zip(plans, futs):
                     vals = fut.result()
                     coord.arrivals += 1
+                    if tel is not None:
+                        tel.task_open(w, rs)
+                        tel.task_close(
+                            w, disp="crash" if crashed else "applied")
                     if crashed:
                         coord.note_sync_crash(prof, w, alive)
                         continue
@@ -316,6 +340,10 @@ class ThreadPoolExecutor(Executor):
         def elapsed() -> float:
             return time.perf_counter() - t0
 
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(elapsed)
+
         def _loop_state():
             return ({"kind": "thread_async",
                      "since_fire": state["since_fire"]}, {})
@@ -336,6 +364,8 @@ class ThreadPoolExecutor(Executor):
                         return
                     launch_wu = coord.wu
                     idx = coord.select_indices(w)
+                    if tel is not None:
+                        tel.task_open(w, elapsed())
                     if dp is not None:
                         # Fresh resident block: ship only the halo slices
                         # (O(needs)); stale: re-ship the block (O(block)).
@@ -349,7 +379,7 @@ class ThreadPoolExecutor(Executor):
                 if dp is not None:
                     if blk_vals is not None:
                         dp.refresh(blk_vals)
-                    vals, _ = dp.step(*need_vals)
+                    vals, dev_norm = dp.step(*need_vals)
                 else:
                     vals = worker_eval(problem, cfg, x_snap, idx)
                 if cfg.async_overhead > 0.0:
@@ -364,6 +394,8 @@ class ThreadPoolExecutor(Executor):
                     dev_fresh = False
                     with lock:
                         coord.crashes += 1
+                        if tel is not None:
+                            tel.task_close(w, disp="crash")
                         if coord.arrival_tick(elapsed()):
                             stop.set()
                     if prof.restart_after is None or stop.is_set():
@@ -373,6 +405,8 @@ class ThreadPoolExecutor(Executor):
                         if stop.is_set():
                             return  # run ended mid-downtime: never rejoined
                         coord.restarts += 1
+                        if tel is not None:
+                            tel.instant("restart", f"w{w}")
                     continue
                 with lock, coord.busy():
                     if stop.is_set():
@@ -381,8 +415,15 @@ class ThreadPoolExecutor(Executor):
                     applied = coord.apply_return(
                         idx, vals, prof, staleness=staleness, worker=w
                     )
+                    if tel is not None:
+                        # Before any inline fire below: its open-task count
+                        # must cover only the *other* workers in flight.
+                        tel.task_close(
+                            w, disp="applied" if applied else "filtered",
+                            staleness=staleness)
                     if dp is not None:
                         coord.device_dispatches += 1
+                        coord.device_local_norms[w] = dev_norm
                         if blk_vals is not None:
                             coord.device_refreshes += 1
                         # Fresh iff our values landed verbatim; any commit
@@ -411,20 +452,26 @@ class ThreadPoolExecutor(Executor):
     def _run_sync_chaos(
         self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator
     ) -> RunResult:
-        """BSP loop under a chaos scenario: events apply at round
-        boundaries; preempted workers leave the round set with their
-        blocks served by survivors, paused workers idle, and when nobody
-        can take a round the loop sleeps to the next scripted event."""
+        """BSP loop under a chaos scenario and/or a controller: events apply
+        at round boundaries; preempted workers leave the round set with
+        their blocks served by survivors, paused workers idle, and when
+        nobody can take a round the loop sleeps to the next scripted event
+        (or, with a controller, gives it ``_CTL_STALL_S`` of timed ticks to
+        rebuild the membership)."""
         from ...chaos.scenario import ScenarioClock
 
         clock = ScenarioClock(cfg.scenario)
         t0 = time.perf_counter()
         rounds = 0
+        idle_since = 0.0  # last time a round actually ran (stall window)
         alive = set(range(cfg.n_workers))
 
         def elapsed() -> float:
             return time.perf_counter() - t0
 
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(elapsed)
         coord.record(0.0)
         with _Pool(max_workers=cfg.n_workers) as pool:
             while (coord.wu < cfg.max_updates and alive
@@ -432,15 +479,30 @@ class ThreadPoolExecutor(Executor):
                 now = elapsed()
                 for ev in clock.due(now):
                     coord.apply_scenario_event(ev, now)
+                # Controller decisions land at round boundaries; the round
+                # set below is re-derived from the membership.
+                coord.controller_tick(now)
                 parts = [w for w in coord.round_participants() if w in alive]
                 if not parts:
                     nt = clock.next_time()
                     if nt is None:
-                        break  # membership can never recover
+                        if cfg.controller is None:
+                            break  # membership can never recover
+                        # A controller may still rebuild the membership:
+                        # a bounded stall window of timed ticks.
+                        if now - idle_since > _CTL_STALL_S:
+                            break
+                        if (cfg.max_wall is not None
+                                and elapsed() > cfg.max_wall):
+                            break
+                        time.sleep(0.01)
+                        continue
                     time.sleep(max(0.0, nt - elapsed()))
                     continue
+                idle_since = elapsed()
                 rounds += 1
                 x_snap = coord.x.copy()
+                rs = elapsed()
                 round_idx = {w: coord.round_assignment(w) for w in parts}
                 plans = coord.plan_round(set(parts), round_idx)
                 futs = [
@@ -451,6 +513,11 @@ class ThreadPoolExecutor(Executor):
                 for (w, prof, idx, _, crashed), fut in zip(plans, futs):
                     vals = fut.result()
                     coord.arrivals += 1
+                    if tel is not None:
+                        tel.task_open(w, rs, gen=coord.preempt_gen[w])
+                        tel.task_close(
+                            w, disp="crash" if crashed else "applied",
+                            gen=coord.preempt_gen[w])
                     if crashed:
                         coord.note_sync_crash(prof, w, alive)
                         continue
@@ -467,7 +534,8 @@ class ThreadPoolExecutor(Executor):
     def _run_async_chaos(
         self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator
     ) -> RunResult:
-        """Async loop with chaos scenarios and/or trace capture.
+        """Async loop with chaos scenarios, trace capture and/or an
+        autoscale controller.
 
         A chaos-driver thread wakes at each scripted event time and
         applies it under the coordinator lock; worker threads park on a
@@ -483,6 +551,11 @@ class ThreadPoolExecutor(Executor):
         in :meth:`_run_async_offload`); a fire whose begin -> commit
         window spans a membership change commits only to the blocks that
         did not move.
+
+        With ``cfg.controller`` the driver doubles as the controller's timed
+        ticker (arrivals stall while every member is down), and workers
+        tick it at each arrival; an empty membership waits at most
+        ``_CTL_STALL_S`` for the controller to rebuild it.
         """
         from ...chaos.scenario import ScenarioClock
 
@@ -498,10 +571,18 @@ class ThreadPoolExecutor(Executor):
         with cond:
             for ev in clock.due(0.0):
                 coord.apply_scenario_event(ev, 0.0)
+            # Initial controller decision (tick 0) shapes the membership
+            # before worker threads take their first dispatch; threads
+            # park/dispatch off coord.dispatchable, so no plumbing.
+            coord.controller_tick(0.0)
         coord.record(0.0)
 
         def elapsed() -> float:
             return time.perf_counter() - t0
+
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(elapsed)
 
         evals = (_EvalThread(coord, cond, stop, errors,
                              np.random.default_rng(seeds[-1]), elapsed)
@@ -514,9 +595,16 @@ class ThreadPoolExecutor(Executor):
             return evals.tick(prof)
 
         def chaos_driver() -> None:
+            # With a controller the driver doubles as its timed ticker:
+            # arrivals normally drive decisions, but when every member is
+            # down arrivals stall, and only these timed ticks let the
+            # controller rebuild the membership (bounded by _CTL_STALL_S
+            # once the script is drained and nothing is live).
+            ctl = cfg.controller is not None
+            idle_since: Optional[float] = None
             while not stop.is_set():
                 nt = clock.next_time()
-                if nt is None:
+                if nt is None and not ctl:
                     with cond:
                         if not (coord.active - coord.paused):
                             # Nobody can ever take work again: the script
@@ -524,9 +612,37 @@ class ThreadPoolExecutor(Executor):
                             stop.set()
                             cond.notify_all()
                     return
-                wait = nt - elapsed()
-                if wait > 0 and stop.wait(wait):
-                    return
+                if nt is None and ctl:
+                    if stop.wait(0.02):
+                        return
+                    with cond:
+                        now = elapsed()
+                        acted = bool(coord.controller_tick(now))
+                        if acted:
+                            cond.notify_all()
+                        if (coord.active - coord.paused) or acted:
+                            idle_since = None
+                        elif idle_since is None:
+                            idle_since = now
+                        elif now - idle_since > _CTL_STALL_S:
+                            stop.set()
+                            cond.notify_all()
+                            return
+                        if cfg.max_wall is not None and now > cfg.max_wall:
+                            stop.set()
+                            cond.notify_all()
+                            return
+                    continue
+                while True:
+                    wait = nt - elapsed()
+                    if wait <= 0:
+                        break
+                    if stop.wait(min(wait, 0.02) if ctl else wait):
+                        return
+                    if ctl:
+                        with cond:
+                            if coord.controller_tick(elapsed()):
+                                cond.notify_all()
                 with cond:
                     now = elapsed()
                     try:
@@ -540,6 +656,8 @@ class ThreadPoolExecutor(Executor):
                         stop.set()
                         cond.notify_all()
                         return
+                    if ctl:
+                        coord.controller_tick(now)
                     cond.notify_all()
 
         def worker_loop(w: int) -> None:
@@ -547,10 +665,12 @@ class ThreadPoolExecutor(Executor):
             while not stop.is_set():
                 with cond:
                     while not stop.is_set() and not coord.dispatchable(w):
-                        if clock.exhausted:
+                        if clock.exhausted and cfg.controller is None:
                             # join/resume only come from the script: an
                             # undispatchable worker with the script drained
-                            # can never work again.
+                            # can never work again.  (A controller can
+                            # revive it at any later tick, so keep parking;
+                            # the driver's stall window bounds the wait.)
                             return
                         cond.wait(0.05)
                     if stop.is_set():
@@ -562,6 +682,8 @@ class ThreadPoolExecutor(Executor):
                     prof = coord.fault_for(w)
                     if coord.tracer is not None:
                         coord.tracer.dispatch(elapsed(), w, bid, gen)
+                    if tel is not None:
+                        tel.task_open(w, elapsed(), gen=gen, block=bid)
                 vals = worker_eval(problem, cfg, x_snap, idx)
                 if cfg.async_overhead > 0.0:
                     time.sleep(cfg.async_overhead)
@@ -578,14 +700,21 @@ class ThreadPoolExecutor(Executor):
                                 coord.tracer.arrival(elapsed(), w,
                                                      "preempt_discard",
                                                      gen=gen)
+                            if tel is not None:
+                                tel.task_close(w, disp="preempt_discard",
+                                               gen=gen)
                             continue  # park at loop top until join
                         coord.crashes += 1
                         if coord.tracer is not None:
                             coord.tracer.arrival(elapsed(), w, "crash",
                                                  gen=gen)
+                        if tel is not None:
+                            tel.task_close(w, disp="crash", gen=gen)
                         if tick(prof):
                             stop.set()
                             cond.notify_all()
+                        elif coord.controller_tick(elapsed()):
+                            cond.notify_all()  # wake workers a join freed
                     if prof.restart_after is None or stop.is_set():
                         return  # permanent crash (or run over): thread exits
                     time.sleep(prof.restart_after)
@@ -598,6 +727,10 @@ class ThreadPoolExecutor(Executor):
                             coord.restarts += 1
                             if coord.tracer is not None:
                                 coord.tracer.restart(elapsed(), w)
+                            if tel is not None:
+                                tel.instant(
+                                    "restart",
+                                    f"w{w}" if gen == 0 else f"w{w}#r{gen}")
                     continue
                 with cond, coord.busy():
                     if stop.is_set():
@@ -607,6 +740,9 @@ class ThreadPoolExecutor(Executor):
                         if coord.tracer is not None:
                             coord.tracer.arrival(elapsed(), w,
                                                  "preempt_discard", gen=gen)
+                        if tel is not None:
+                            tel.task_close(w, disp="preempt_discard",
+                                           gen=gen)
                         continue
                     staleness = coord.wu - launch_wu
                     applied = coord.apply_return(
@@ -617,6 +753,10 @@ class ThreadPoolExecutor(Executor):
                             elapsed(), w,
                             "applied" if applied else "filtered", staleness,
                             gen=gen)
+                    if tel is not None:
+                        tel.task_close(
+                            w, disp="applied" if applied else "filtered",
+                            staleness=staleness, gen=gen)
                     if applied:
                         state["since_fire"] += 1
                         if (coord.accel is not None
@@ -628,6 +768,11 @@ class ThreadPoolExecutor(Executor):
                                 coord.maybe_fire_accel()
                     if tick(prof):
                         stop.set()
+                        cond.notify_all()
+                    elif coord.controller_tick(elapsed()):
+                        # The controller acted at this arrival: a preempt
+                        # of this very worker parks it at the loop top (its
+                        # gen is stale now); a join frees a parked worker.
                         cond.notify_all()
                     coord.maybe_checkpoint(
                         elapsed(),
@@ -676,6 +821,9 @@ class ThreadPoolExecutor(Executor):
         def elapsed() -> float:
             return time.perf_counter() - t0
 
+        tel = coord.telemetry
+        if tel is not None:
+            tel.install_clock(elapsed)
         evals = _EvalThread(coord, lock, stop, errors,
                             np.random.default_rng(seeds[-1]), elapsed)
 
@@ -693,6 +841,8 @@ class ThreadPoolExecutor(Executor):
                     bid, idx = coord.next_dispatch(w)
                     if coord.tracer is not None:
                         coord.tracer.dispatch(elapsed(), w, bid)
+                    if tel is not None:
+                        tel.task_open(w, elapsed(), block=bid)
                 vals = worker_eval(problem, cfg, x_snap, idx)
                 if cfg.async_overhead > 0.0:
                     time.sleep(cfg.async_overhead)
@@ -704,6 +854,8 @@ class ThreadPoolExecutor(Executor):
                         coord.crashes += 1
                         if coord.tracer is not None:
                             coord.tracer.arrival(elapsed(), w, "crash")
+                        if tel is not None:
+                            tel.task_close(w, disp="crash")
                         if evals.tick(prof):
                             stop.set()
                     if prof.restart_after is None or stop.is_set():
@@ -715,6 +867,8 @@ class ThreadPoolExecutor(Executor):
                         coord.restarts += 1
                         if coord.tracer is not None:
                             coord.tracer.restart(elapsed(), w)
+                        if tel is not None:
+                            tel.instant("restart", f"w{w}")
                     continue
                 with lock, coord.busy():
                     if stop.is_set():
@@ -727,6 +881,10 @@ class ThreadPoolExecutor(Executor):
                         coord.tracer.arrival(
                             elapsed(), w,
                             "applied" if applied else "filtered", staleness)
+                    if tel is not None:
+                        tel.task_close(
+                            w, disp="applied" if applied else "filtered",
+                            staleness=staleness)
                     if applied:
                         state["since_fire"] += 1
                         if (coord.accel is not None

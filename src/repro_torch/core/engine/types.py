@@ -6,9 +6,9 @@ process backends (``cfg.executor`` selects which — see
 :mod:`repro_torch.core.engine.base`).
 
 The port's engine carries the reference engine's fields so a config reads
-the same in both packages.  Chaos scenarios, trace capture and checkpoints
-are ported; autoscale controllers, telemetry and the Ray backend are not:
-setting any of those raises ``NotImplementedError`` naming the ROADMAP.md
+the same in both packages.  Chaos scenarios, trace capture, checkpoints,
+autoscale controllers and telemetry are ported; the Ray backend is not:
+``executor="ray"`` raises ``NotImplementedError`` naming the ROADMAP.md
 item that ports it.
 """
 
@@ -24,8 +24,6 @@ from ..anderson import AndersonConfig
 
 __all__ = ["FaultProfile", "RunConfig", "RunResult", "CoordinatorCrash"]
 
-_LAYERS_ITEM = ("ROADMAP.md queue 1, item 10 (telemetry/, autoscale/, "
-                "serve/, launch/solver_serve.py, launch/run_report.py)")
 _UNPORTED_EXECUTORS = {
     "ray": "ROADMAP.md queue 1, item 5 (the Ray backend)",
 }
@@ -112,9 +110,7 @@ class RunConfig:
     """One (a)synchronous run of a fixed-point problem.
 
     Field meanings follow the reference engine's ``RunConfig``.  The
-    knobs of layers the port does not carry yet (``controller``,
-    ``telemetry`` and the ``"ray"`` executor) raise
-    ``NotImplementedError``.
+    ``"ray"`` executor, not ported yet, raises ``NotImplementedError``.
     """
 
     n_workers: int = 4
@@ -168,6 +164,15 @@ class RunConfig:
     # backends (a fire whose begin->commit window crossed a membership
     # change commits only to the blocks whose ownership did not move).
     scenario: Optional[object] = None  # repro_torch.chaos.FaultScenario
+    # --- closed-loop autoscaling (repro_torch.autoscale) ------------------ #
+    # A Controller policy observing ControlSignals at arrival ticks and
+    # emitting the same join/preempt/pause/set_profile events scenarios
+    # script, actuated through apply_scenario_event on every backend; it
+    # composes with a scripted scenario (the coordinator's safety rails stop
+    # a policy from resurrecting workers the script reclaimed or wedging
+    # the membership).  Requires selection="fixed".  None keeps every
+    # default loop untouched.
+    controller: Optional[object] = None  # repro_torch.autoscale.Controller
     # Record the run's event trace into RunResult.trace for deterministic
     # replay (repro_torch.chaos.replay_trace).  Async, selection="fixed".
     capture_trace: bool = False
@@ -179,9 +184,6 @@ class RunConfig:
     # Resume handle: a SolveCheckpoint (or a path to one); use
     # repro_torch.recover.resume_fixed_point rather than setting it.
     resume_from: Optional[object] = None
-    # --- layers not ported yet (raise NotImplementedError when set) ------- #
-    controller: Optional[object] = None
-    telemetry: Optional[object] = None
     # --- SDC quarantine (coordinator-side guard) --------------------------- #
     # Screen every arriving block for NaN/Inf and for update norms that
     # diverge from a windowed baseline of recently accepted update norms; a
@@ -201,13 +203,15 @@ class RunConfig:
     #   "ref"  — force the numpy oracle on the resident block (tests)
     # The virtual backend always ignores this knob.
     device_plane: str = "auto"
+    # --- telemetry plane (repro_torch.telemetry) -------------------------- #
+    # None (default: no recorder is ever constructed), True, or a
+    # TelemetryConfig.  When set, the coordinator owns a TelemetryRecorder
+    # collecting typed spans + metric series; the capture lands on
+    # RunResult.telemetry and a digest on RunResult.telemetry_summary.  The
+    # recorder consumes no rng and touches no iterate floats.
+    telemetry: Optional[object] = None
 
     def __post_init__(self) -> None:
-        for name in ("controller", "telemetry"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"RunConfig.{name} is not ported to repro_torch yet: "
-                    f"{_LAYERS_ITEM}")
         if self.executor in _UNPORTED_EXECUTORS:
             raise NotImplementedError(
                 f"executor {self.executor!r} is not ported to repro_torch "
@@ -251,6 +255,11 @@ class RunResult:
     preempt_discards: int = 0  # in-flight results discarded by a preemption
     # Fraction of applied worker updates each worker served.
     service_fractions: Dict[int, float] = field(default_factory=dict)
+    # --- closed-loop autoscaling (repro_torch.autoscale) ------------------ #
+    # Integral of |active - paused| over the run (the capacity actually
+    # provisioned), metered only when a controller is configured.
+    worker_seconds: float = 0.0
+    controller_actions: int = 0  # applied controller decisions
     # --- durable solves (repro_torch.recover) ------------------------------ #
     sdc_rejects: int = 0  # corrupted arrivals rejected by the SDC guard
     quarantined: int = 0  # workers quarantined by the k-strikes policy
@@ -263,12 +272,18 @@ class RunResult:
     device_refreshes: int = 0  # device blocks re-synced from the host iterate
     # --- trace capture (cfg.capture_trace) -------------------------------- #
     trace: Optional[object] = None  # repro_torch.chaos.RunTrace
+    # --- telemetry plane (cfg.telemetry) ----------------------------------- #
+    telemetry: Optional[object] = None  # repro_torch.telemetry.TelemetryCapture
+    # Compact digest (staleness p50/p95, busy-frac series tail, span
+    # counts, fire ledger).
+    telemetry_summary: Optional[dict] = None
 
     def to_dict(self, include_history: bool = True,
                 include_x: bool = False) -> dict:
         """JSON-safe dict of this result.  ``x`` is omitted unless
-        ``include_x`` (it is O(n)); a captured trace serializes through its
-        own ``to_dict``.  Round-trips through :meth:`from_dict`."""
+        ``include_x`` (it is O(n)); the trace and telemetry capture, when
+        present, serialize through their own ``to_dict``.  Round-trips
+        through :meth:`from_dict`."""
         out: dict = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -279,9 +294,12 @@ class RunResult:
                 if include_history:
                     out["history"] = [[float(t), int(wu), float(r)]
                                       for t, wu, r in v]
-            elif f.name == "trace":
+            elif f.name in ("trace", "telemetry"):
                 if v is not None:
-                    out["trace"] = v.to_dict() if hasattr(v, "to_dict") else v
+                    out[f.name] = v.to_dict() if hasattr(v, "to_dict") else v
+            elif f.name == "telemetry_summary":
+                if v is not None:
+                    out["telemetry_summary"] = dict(v)
             elif f.name == "service_fractions":
                 out["service_fractions"] = {
                     str(k): float(sv) for k, sv in (v or {}).items()}
@@ -298,7 +316,9 @@ class RunResult:
         """Rebuild a result from :meth:`to_dict` output (the reference's
         too: keys this port does not carry are ignored).  Absent payloads
         come back empty: ``x`` as a zero-length array, ``history`` as
-        ``[]``, the trace as the raw dict it was serialized to."""
+        ``[]``, the trace and the telemetry capture as the raw dicts they
+        were serialized to (``TelemetryCapture.from_dict`` reads the
+        latter)."""
         kw = dict(d)
         kw["x"] = np.asarray(kw.pop("x", []), dtype=np.float64)
         kw["history"] = [(float(t), int(wu), float(r))

@@ -10,11 +10,12 @@ The event loops are the reference engine's, so a fixed-seed run consumes
 the random streams in the same order and, given the same block-update
 values, applies the same updates at the same virtual times.  That is what
 lets the port's tests hold whole trajectories against the JAX package's
-golden runs.  Chaos scenarios and trace capture take their own event
-loops (:meth:`VirtualTimeExecutor._run_async_chaos`,
+golden runs.  Chaos scenarios, trace capture and autoscale controllers
+take their own event loops (:meth:`VirtualTimeExecutor._run_async_chaos`,
 :meth:`~VirtualTimeExecutor._run_sync_chaos`); runs without them never
 enter those loops.  Checkpoints carry the default loop's event heap, so a
-resumed run continues bit-identically.
+resumed run continues bit-identically.  Telemetry hooks read the virtual
+clock and change nothing the loops compute.
 
 Evaluation-cost model (opt-in)
 ------------------------------
@@ -68,10 +69,13 @@ class VirtualTimeExecutor(Executor):
             else measure_compute(problem, coord.blocks)  # memoized partition
         )
         if cfg.mode == "sync":
-            if cfg.scenario is not None:
+            if cfg.scenario is not None or cfg.controller is not None:
                 return self._run_sync_chaos(problem, cfg, coord, compute)
             return self._run_sync(problem, cfg, coord, compute)
-        if cfg.scenario is not None or cfg.capture_trace:
+        if (cfg.scenario is not None or cfg.capture_trace
+                or cfg.controller is not None):
+            # Scenarios, trace capture and controllers take their own
+            # event loop; runs without them never enter it.
             return self._run_async_chaos(problem, cfg, coord, compute)
         if cfg.accel_eval == "worker" or cfg.eval_time is not None:
             return self._run_async_evalmodel(problem, cfg, coord, compute)
@@ -86,6 +90,7 @@ class VirtualTimeExecutor(Executor):
         rounds = 0
         arrivals = 0
         alive = set(range(cfg.n_workers))
+        tel = coord.telemetry  # None by default: loop below is untouched
         coord.record(t)
         while (coord.wu < cfg.max_updates and alive
                and arrivals < coord.max_arrivals):
@@ -109,10 +114,18 @@ class VirtualTimeExecutor(Executor):
                         coord.restarts += 1
                         cost += prof.restart_after
                     round_time = max(round_time, cost)
+                    if tel is not None:
+                        tel.task_open(w, t)
+                        tel.task_close(w, t + cost, disp="crash")
                     continue
                 round_time = max(round_time, cost)
                 updates.append((idx, vals, prof))
+                if tel is not None:
+                    tel.task_open(w, t)
+                    tel.task_close(w, t + cost)
             t += round_time + cfg.sync_overhead
+            if tel is not None:
+                tel.set_time(t)
             for idx, vals, prof in updates:  # barrier: all computed on same x
                 coord.apply_return(idx, vals, prof, staleness=0)
             if coord.accel is not None and rounds % cfg.fire_every == 0:
@@ -137,6 +150,7 @@ class VirtualTimeExecutor(Executor):
         # the restarted worker snapshots x after its downtime.
         heap: List[Tuple[float, int, int, int, object, object]] = []
         seq = 0
+        tel = coord.telemetry  # None by default: loop below is untouched
 
         def launch(worker: int, now: float) -> None:
             nonlocal seq
@@ -146,6 +160,8 @@ class VirtualTimeExecutor(Executor):
             done = now + compute + cfg.async_overhead + prof.sample_delay(coord.rng)
             heapq.heappush(heap, (done, seq, worker, coord.wu, idx, vals))
             seq += 1
+            if tel is not None:
+                tel.task_open(worker, now)
 
         def schedule_restart(worker: int, at: float) -> None:
             nonlocal seq
@@ -223,9 +239,13 @@ class VirtualTimeExecutor(Executor):
         while (heap and coord.wu < cfg.max_updates
                and arrivals < coord.max_arrivals):
             t, _, worker, launch_wu, idx, vals = heapq.heappop(heap)
+            if tel is not None:
+                tel.set_time(t)
             prof = _fault_for(cfg, worker)
             if idx is None:  # restart marker: worker rejoins now
                 coord.restarts += 1
+                if tel is not None:
+                    tel.instant("restart", f"w{worker}", t)
                 if coord.dispatchable(worker):
                     launch(worker, t)
                 continue
@@ -233,17 +253,27 @@ class VirtualTimeExecutor(Executor):
                 # In-flight result of a worker the k-strikes policy already
                 # quarantined: discard.
                 coord.preempt_discards += 1
+                if tel is not None:
+                    tel.task_close(worker, t, disp="preempt_discard")
                 continue
             arrivals += 1
             crashed = prof.sample_crash(coord.rng)
             if crashed:
                 coord.crashes += 1
+                if tel is not None:
+                    tel.task_close(worker, t, disp="crash")
             else:
                 staleness = coord.wu - launch_wu
                 applied = coord.apply_return(
                     idx, vals, prof, staleness=staleness,
                     worker=worker if cfg.sdc_guard else None,
                 )
+                if tel is not None:
+                    # Close before any fire below, so an inline fire's
+                    # open-task count covers only the *other* workers.
+                    tel.task_close(
+                        worker, t, disp="applied" if applied else "filtered",
+                        staleness=staleness)
                 if applied:
                     since_fire += 1
                     if coord.accel is not None and since_fire >= cfg.fire_every:
@@ -273,7 +303,8 @@ class VirtualTimeExecutor(Executor):
         self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator,
         compute: float
     ) -> RunResult:
-        """BSP loop under a chaos scenario (``cfg.scenario``).
+        """BSP loop under a chaos scenario (``cfg.scenario``) and/or an
+        autoscale controller (``cfg.controller``).
 
         Events apply at round boundaries: preempted workers leave the
         round set and their blocks are served by the survivors (a survivor
@@ -289,11 +320,18 @@ class VirtualTimeExecutor(Executor):
         rounds = 0
         arrivals = 0
         alive = set(range(cfg.n_workers))
+        tel = coord.telemetry
         coord.record(t)
         while (coord.wu < cfg.max_updates
                and arrivals < coord.max_arrivals):
+            if tel is not None:
+                tel.set_time(t)
             for ev in clock.due(t):
                 coord.apply_scenario_event(ev, t)
+            # Controller decisions land at round boundaries (the BSP
+            # granularity); the round set below is re-derived from the
+            # membership every round, so actions need no plumbing.
+            coord.controller_tick(t, arrivals)
             parts = [w for w in coord.round_participants() if w in alive]
             if not parts:
                 nt = clock.next_time()
@@ -320,10 +358,19 @@ class VirtualTimeExecutor(Executor):
                         coord.restarts += 1
                         cost += prof.restart_after
                     round_time = max(round_time, cost)
+                    if tel is not None:
+                        tel.task_open(w, t, gen=coord.preempt_gen[w])
+                        tel.task_close(w, t + cost, disp="crash",
+                                       gen=coord.preempt_gen[w])
                     continue
                 round_time = max(round_time, cost)
                 updates.append((w, idx, vals, prof))
+                if tel is not None:
+                    tel.task_open(w, t, gen=coord.preempt_gen[w])
+                    tel.task_close(w, t + cost, gen=coord.preempt_gen[w])
             t += round_time + cfg.sync_overhead
+            if tel is not None:
+                tel.set_time(t)
             for w, idx, vals, prof in updates:
                 coord.apply_return(idx, vals, prof, staleness=0, worker=w)
             if coord.accel is not None and rounds % cfg.fire_every == 0:
@@ -342,7 +389,8 @@ class VirtualTimeExecutor(Executor):
         self, problem: FixedPointProblem, cfg: RunConfig, coord: Coordinator,
         compute: float
     ) -> RunResult:
-        """Async event loop with chaos scenarios and/or trace capture.
+        """Async event loop with chaos scenarios, trace capture and/or an
+        autoscale controller.
 
         Scenario events are heap-scheduled alongside worker completions,
         so a ``join`` launches its worker at exactly the scripted virtual
@@ -359,6 +407,7 @@ class VirtualTimeExecutor(Executor):
             coord.tracer = TraceRecorder(cfg, self.name, problem)
         clock = ScenarioClock(cfg.scenario)
         t = 0.0
+        tel = coord.telemetry
         # Events before the first dispatch (flash_crowd's t=0 preempts)
         # shape the initial membership.
         for ev in clock.due(0.0):
@@ -383,8 +432,28 @@ class VirtualTimeExecutor(Executor):
                     + prof.sample_delay(coord.rng))
             if coord.tracer is not None:
                 coord.tracer.dispatch(now, worker, bid, gen)
+            if tel is not None:
+                tel.task_open(worker, now, gen=gen, block=bid)
             push(done, "work", (worker, gen, coord.wu, idx, vals))
 
+        def plumb_controller(actions, now: float) -> None:
+            """Backend plumbing for applied controller actions: launch
+            joined workers, relaunch parked ones a resume freed."""
+            for cev in actions:
+                if cev.kind == "join":
+                    if coord.dispatchable(cev.worker):
+                        launch(cev.worker, now)
+                    elif cev.worker in coord.active:
+                        parked.add(cev.worker)  # joined into a pause
+                elif cev.kind == "resume":
+                    for pw in sorted(parked):
+                        if coord.dispatchable(pw):
+                            launch(pw, now)
+
+        # Initial controller decision (tick 0) shapes the membership
+        # before the first dispatches: joins/preempts here determine which
+        # workers the launch loop below starts.
+        coord.controller_tick(0.0)
         for ev in clock.drain():
             push(ev.t, "chaos", (ev,))
         for w in range(cfg.n_workers):
@@ -441,6 +510,8 @@ class VirtualTimeExecutor(Executor):
                and arrivals < coord.max_arrivals):
             t, _, tag, data = heapq.heappop(heap)
             t_now = t
+            if tel is not None:
+                tel.set_time(t)
             if tag == "chaos":
                 (ev,) = data
                 was_paused = set(coord.paused)
@@ -465,6 +536,9 @@ class VirtualTimeExecutor(Executor):
                 coord.restarts += 1
                 if coord.tracer is not None:
                     coord.tracer.restart(t, worker)
+                if tel is not None:
+                    tel.instant("restart", f"w{worker}" if gen == 0
+                                else f"w{worker}#r{gen}", t)
                 if coord.dispatchable(worker):
                     launch(worker, t)
                 elif worker in coord.active:  # rejoined into a pause
@@ -478,6 +552,9 @@ class VirtualTimeExecutor(Executor):
                 if coord.tracer is not None:
                     coord.tracer.arrival(t, worker, "preempt_discard",
                                          gen=gen)
+                if tel is not None:
+                    tel.task_close(worker, t, disp="preempt_discard",
+                                   gen=gen)
                 continue
             prof = coord.fault_for(worker)
             arrivals += 1
@@ -486,6 +563,8 @@ class VirtualTimeExecutor(Executor):
                 coord.crashes += 1
                 if coord.tracer is not None:
                     coord.tracer.arrival(t, worker, "crash", gen=gen)
+                if tel is not None:
+                    tel.task_close(worker, t, disp="crash", gen=gen)
             else:
                 staleness = coord.wu - launch_wu
                 applied = coord.apply_return(
@@ -495,6 +574,10 @@ class VirtualTimeExecutor(Executor):
                     coord.tracer.arrival(
                         t, worker, "applied" if applied else "filtered",
                         staleness, gen=gen)
+                if tel is not None:
+                    tel.task_close(
+                        worker, t, disp="applied" if applied else "filtered",
+                        staleness=staleness, gen=gen)
                 if applied:
                     since_fire += 1
                     if coord.accel is not None and since_fire >= cfg.fire_every:
@@ -510,6 +593,9 @@ class VirtualTimeExecutor(Executor):
                     return coord.result(t, coord.wu, True)
             if cfg.max_wall is not None and t > cfg.max_wall:
                 break
+            # Controller decision opportunity at the arrival tick: a
+            # preempt of this very worker suppresses its relaunch below.
+            plumb_controller(coord.controller_tick(t, arrivals), t)
             if crashed:
                 if prof.restart_after is not None:
                     push(t + prof.restart_after, "restart", (worker, gen))
@@ -543,6 +629,7 @@ class VirtualTimeExecutor(Executor):
         server_free = 0.0  # eval-server busy until (worker placement)
         plans: List = []  # in-flight/queued eval pipelines (worker mode)
         since_fire = 0
+        tel = coord.telemetry
 
         def push(done: float, tag: str, data: tuple) -> None:
             nonlocal seq
@@ -556,6 +643,8 @@ class VirtualTimeExecutor(Executor):
             done = (now + compute + cfg.async_overhead
                     + prof.sample_delay(coord.rng))
             push(done, "work", (worker, coord.wu, idx, vals))
+            if tel is not None:
+                tel.task_open(worker, now)
 
         def submit_next_eval(now: float) -> None:
             """Start the front plan's next item on the eval server."""
@@ -605,9 +694,14 @@ class VirtualTimeExecutor(Executor):
         while (heap and coord.wu < cfg.max_updates
                and arrivals < coord.max_arrivals):
             te, _, tag, data = heapq.heappop(heap)
+            if tel is not None:
+                tel.set_time(te)
             if tag == "eval":
                 # One eval-server item finished (worker placement only).
                 t = te
+                if tel is not None:
+                    tel.span("eval", "eval", te - eval_cost, te,
+                             offload=True)
                 plan = plans[0]
                 value = coord.eval_item(plan.next_item())
                 if isinstance(plan, AccelPlan):
@@ -632,6 +726,8 @@ class VirtualTimeExecutor(Executor):
                 (worker,) = data
                 t = te
                 coord.restarts += 1
+                if tel is not None:
+                    tel.instant("restart", f"w{worker}", te)
                 launch(worker, te)
                 continue
             worker, launch_wu, idx, vals = data
@@ -639,15 +735,24 @@ class VirtualTimeExecutor(Executor):
             # Coordinator-placement evals serialize arrival processing.
             t_eff = max(te, coord_free) if not worker_eval_mode else te
             t = t_eff
+            if tel is not None:
+                tel.set_time(t_eff)
             arrivals += 1
             crashed = prof.sample_crash(coord.rng)
             if crashed:
                 coord.crashes += 1
+                if tel is not None:
+                    tel.task_close(worker, t_eff, disp="crash")
             else:
                 staleness = coord.wu - launch_wu
                 applied = coord.apply_return(
                     idx, vals, prof, staleness=staleness
                 )
+                if tel is not None:
+                    tel.task_close(
+                        worker, t_eff,
+                        disp="applied" if applied else "filtered",
+                        staleness=staleness)
                 if applied:
                     since_fire += 1
                     if coord.accel is not None and since_fire >= cfg.fire_every:

@@ -331,3 +331,7 @@ def restore_coordinator(coord, ckpt: SolveCheckpoint) -> None:
     # from at the same wu.
     coord.resumed_from = ckpt.tag
     coord._last_ckpt_wu = int(meta["wu"])
+    tel = coord.telemetry
+    if tel is not None:
+        tel.instant("restore", "coord", float(ckpt.t),
+                    tag=str(ckpt.tag), wu=int(meta["wu"]))

@@ -14,9 +14,9 @@ contract mirrors :func:`repro_torch.core.engine.run_fixed_point`, plus:
   applied after the snapshot were never committed into it and are redone,
   never double-counted, and no accel fire replays;
 - control-plane attachments die with the control plane: a scenario
-  script or trace capture configured on the original run is stripped
-  from the resume config (their remaining events/state lived in the
-  crashed coordinator).
+  script, autoscale controller or trace capture configured on the
+  original run is stripped from the resume config (their remaining
+  events/state lived in the crashed coordinator).
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ def resume_config(cfg: RunConfig,
 
     Locates the newest checkpoint under ``cfg.checkpoint_dir`` when
     ``ckpt`` is not given, installs it as ``resume_from``, and strips the
-    control-plane attachments (scenario / capture_trace) that cannot
-    survive a coordinator loss.  Checkpointing itself stays
+    control-plane attachments (scenario / controller / capture_trace) that
+    cannot survive a coordinator loss.  Checkpointing itself stays
     on, so the resumed run keeps extending the same checkpoint chain.
     """
     if ckpt is None:
@@ -53,7 +53,8 @@ def resume_config(cfg: RunConfig,
     else:
         ckpt = resolve_checkpoint(ckpt)
     return dataclasses.replace(
-        cfg, resume_from=ckpt, scenario=None, capture_trace=False)
+        cfg, resume_from=ckpt, scenario=None, controller=None,
+        capture_trace=False)
 
 
 def resume_fixed_point(problem, cfg: RunConfig,

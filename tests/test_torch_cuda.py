@@ -516,6 +516,96 @@ class TestChaosAndRecoverOnTheCard:
         assert res.resumed_from == ck.tag
 
 
+class TestTelemetryAndServeOnTheCard:
+    def test_telemetry_device_plane_jacobi(self, dev):
+        """A telemetry-on device-plane Jacobi run on the card: eval spans
+        of the offloaded fires, one lane per worker, the kernels' fused
+        block-local norms kept per worker; with one worker the norm is the
+        CPU oracle's to 1e-12 relative."""
+        from repro_torch.core import RunConfig, run_fixed_point
+        from repro_torch.core.engine import coordinator
+        from repro_torch.telemetry.export import trace_lanes
+
+        seen = []
+        result0 = coordinator.Coordinator.result
+
+        def spy(self, *a, **k):
+            seen.append(dict(self.device_local_norms))
+            return result0(self, *a, **k)
+
+        prob = JacobiProblem(grid=256, sweeps=5, seed=0, device=dev)
+        coordinator.Coordinator.result = spy
+        try:
+            ops.reset_launch_counts()
+            r = run_fixed_point(prob, RunConfig(
+                mode="async", executor="thread", n_workers=4,
+                max_updates=200, tol=1e-300, device_plane="on",
+                accel=AndersonConfig(m=5), fire_every=4, telemetry=True))
+            launches = ops.launch_counts()
+            ones = [run_fixed_point(JacobiProblem(
+                grid=256, sweeps=5, seed=0, device=d), RunConfig(
+                    mode="async", executor="thread", n_workers=1,
+                    max_updates=20, tol=1e-300, device_plane=plane))
+                for d, plane in ((dev, "on"), ("cpu", "ref"))]
+        finally:
+            coordinator.Coordinator.result = result0
+        assert r.device_dispatches > 0
+        assert launches["jacobi_halo_sweeps"] >= r.device_dispatches
+        assert set(seen[0]) == {0, 1, 2, 3}
+        assert {"w0", "w1", "w2", "w3"} <= set(trace_lanes(r.telemetry))
+        fires = r.telemetry_summary["fires"]
+        assert sum(fires.values()) == r.accel_fires > 0
+        assert fires.get("accept", 0) == r.accel_accepts
+        np.testing.assert_allclose(ones[0].x, ones[1].x, rtol=1e-12, atol=0)
+        (gw,), (cw,) = seen[1].items(), seen[2].items()
+        assert gw[0] == cw[0] == 0
+        assert gw[1] == pytest.approx(cw[1], rel=1e-12)
+
+    def test_telemetry_eval_spans_on_the_card(self, dev):
+        from repro_torch.core import RunConfig, run_fixed_point
+
+        r = run_fixed_point(
+            JacobiProblem(grid=256, sweeps=5, seed=0, device=dev),
+            RunConfig(mode="async", executor="thread", n_workers=4,
+                      max_updates=200, tol=1e-300,
+                      accel=AndersonConfig(m=5), fire_every=4,
+                      accel_eval="worker", telemetry=True))
+        evals = [e for e in r.telemetry.events if e["k"] == "eval"]
+        assert evals and all(e["t1"] >= e["t0"] for e in evals)
+        assert r.offloaded_evals > 0
+
+    def test_two_request_service_on_the_card(self, dev):
+        """Two requests of two families through one SolverService at
+        ``max_active=2`` on ``cuda:0`` run concurrently and each equals
+        its solo run's result on the card."""
+        from repro_torch.core import FaultProfile, RunConfig, run_fixed_point
+        from repro_torch.serve import ServiceConfig, SolverService
+
+        jac = JacobiProblem(grid=256, sweeps=5, seed=0, device=dev)
+        vi = ValueIterationProblem(GarnetMDP(S=20000, A=4, b=5, gamma=0.95,
+                                             seed=0, device=dev))
+        cfg = RunConfig(mode="async", executor="virtual", n_workers=4,
+                        max_updates=200, tol=1e-300, compute_time=1e-3,
+                        accel=AndersonConfig(m=5, mix_kernel_n=1),
+                        fire_every=4, faults=FaultProfile(delay_mean=2e-3))
+        ops.reset_launch_counts()
+        with SolverService(ServiceConfig(max_active=2,
+                                         telemetry=True)) as svc:
+            tickets = [svc.submit(p, cfg, tenant=t)
+                       for p, t in ((jac, "a"), (vi, "b"))]
+            results = [t.result(timeout=300.0) for t in tickets]
+            stats = svc.stats()
+        launches = ops.launch_counts()
+        assert stats["served"] == {"a": 1, "b": 1} and stats["failed"] == 0
+        for k in ("jacobi_halo_sweeps", "jacobi_sweep", "bellman",
+                  "anderson_mix"):
+            assert launches[k] > 0, k
+        for p, r in zip((jac, vi), results):
+            solo = run_fixed_point(p, cfg)
+            assert r.x.tobytes() == solo.x.tobytes()
+            assert r.residual_norm < p.residual_norm(p.initial())
+
+
 #: B, Sq, Skv, nq, nkv, hd, causal, window, softcap, q_offset
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 64, True, None, None, 0),    # TestFlashAttention's
