@@ -18,11 +18,11 @@ and no result line is printed):
    one-worker block (the whole grid), with its device time and CUDA
    launches per call as ``torch.profiler`` records them (at most 2 at 10
    sweeps: one pass and the norm's combine); ``anderson_mix`` at every
-   beta at the Jacobi, VI and SCF windows (where the launcher must take
-   16-byte loads) and at an odd N through a misaligned window view (8-byte
-   loads), the two giving the same bits at SCF's window, timed at the
-   three windows by events and CUPTI beside ``a @ G``, VI's with the L2
-   flushed before every call;
+   beta at the Jacobi, VI, SCF and async-DP/DiLoCo windows (where the
+   launcher must take 16-byte loads) and at an odd N through a misaligned
+   window view (8-byte loads), the two giving the same bits at SCF's
+   window, timed at the four windows by events and CUPTI beside
+   ``a @ G``, VI's with the L2 flushed before every call;
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -89,7 +89,34 @@ and no result line is printed):
    on the thread backend (two families on the card at once): each
    ticket's wait and service ms, throughput, p50/p95 latency, served
    counts and the Prometheus round trip; then 3 VI requests through one
-   process pool, which spawns nothing after the first.
+   process pool, which spawns nothing after the first;
+17. train — ``[train]`` (after phase 9, before any process pool holds a
+   context): Gemma-2-2B at its published widths (26 layers, ~2.61 B
+   float32 parameters from a seeded generator, TF32 off) takes one
+   warm-up and 4 timed AdamW steps of ``SyntheticLM`` batches of 2 x 2048
+   tokens through ``make_train_step`` with ``accum=2`` (microbatches of
+   1 x 2048, each period recomputed in the backward pass); prints loss,
+   grad norm and seconds per step, tokens/s, peak memory and the step's
+   share of the float32 non-tensor peak (8 N tokens FLOP a step), and
+   checks finite losses, every parameter changed and no
+   ``flash_attention`` launch under grad; writes no checkpoint;
+18. train parity — ``[train-parity]``: Gemma-2-2B widths at depth 2,
+   window 128, vocab cut to 32768 (so the CPU side stays short), batch
+   2 x 256: two train steps on the card against the CPU on the same
+   weights: loss and every gradient leaf within 1e-4 relative; after
+   AdamW each parameter within lr / 10, but for at most 1e-4 of them,
+   each with a gradient within 100x of the card's difference from the
+   CPU's (a sign Adam may flip), within 2 lr a step;
+19. async data-parallel training — ``[async-dp]``: the experiment of
+   ``benchmarks/async_dp_lm.py`` (``repro_torch.launch.async_dp_lm``,
+   fast budget, virtual backend, worker 0 a 0.05 s straggler) at a
+   config grown so θ (n = 2,950,400) reaches ``anderson_mix``:
+   full-gradient and block-gradient workers, plain and with Anderson(5)
+   every 8 arrivals; checks ``anderson_mix`` launched and both plain runs
+   reduced the loss, prints the paper's prediction beside the outcome;
+20. DiLoCo — ``[diloco]``: the same config, 4 pods x 4 inner steps x 6
+   outer steps with Anderson(5), sync and then async with pod 0 a 3 s
+   straggler; checks the loss fell and ``anderson_mix`` launched.
 
 The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
 on the main paths (counts are reset right before each path and read right
@@ -107,6 +134,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -123,6 +151,10 @@ SCF_ATOMS, SCF_DIIS_M = 1024, 8
 
 #: LM serving main path: Gemma-2-2B, batch x prompt tokens, tokens generated
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma2_2b", 2, 8192, 32
+
+#: LM training main path (its shape is ``launch/train_profile.py``'s): timed
+#: steps, after one warm-up step
+TRAIN_STEPS = 4
 
 #: the Jacobi golden of tests/test_hotpath_goldens.py (jacobi_async_plain)
 _JACOBI_GOLDEN = (600, 0.4318607003352541,
@@ -294,23 +326,25 @@ def phase_kernels(torch, dev, name):
            source="src/repro_torch/csrc/bellman.cu",
            replaces="src/repro/kernels/bellman.py:62")
 
-    # anderson_mix: every beta path at the Jacobi fire's (6, n), VI's (6, S)
-    # and SCF's (9, 2^20) windows, where the launcher must take 16-byte
-    # loads, and at an odd N through a window view one row into a ring
-    # buffer, whose rows alternate between aligned and 8 bytes off, where
-    # it takes 8-byte loads.  Then beta = 1 (the main paths') timed at the
-    # three windows beside `a @ G`, VI's with the L2 flushed before every
-    # call (its 56 MB nearly fit the 50 MB L2; a fire finds its window
-    # cold).
+    # anderson_mix: every beta path at the Jacobi fire's (6, n), VI's (6, S),
+    # SCF's (9, 2^20) and the async-DP/DiLoCo fire's (6, θ size) windows,
+    # where the launcher must take 16-byte loads, and at an odd N through a
+    # window view one row into a ring buffer, whose rows alternate between
+    # aligned and 8 bytes off, where it takes 8-byte loads.  Then beta = 1
+    # (the main paths') timed at the four windows beside `a @ G`, VI's with
+    # the L2 flushed before every call (its 56 MB nearly fit the 50 MB L2;
+    # a fire finds its window cold).
     from repro_torch.kernels.anderson_mix import plan_of
     from repro_torch.launch.kernel_bench import l2_flush
 
     h = 6
     hs, Ns = SCF_DIIS_M + 1, SCF_ATOMS ** 2
+    n_dp = async_dp_theta_size()
     odd_buf = [randn(12, 1_000_001) for _ in range(2)]
     windows = {"jacobi": (randn(h, n), randn(h, n), "vector"),
                "vi": (randn(h, S), randn(h, S), "vector"),
                "scf": (randn(hs, Ns), randn(hs, Ns), "vector"),
+               "async_dp": (randn(h, n_dp), randn(h, n_dp), "vector"),
                "odd_view": (odd_buf[0][1:7], odd_buf[1][1:7], "scalar")}
     errs, mixes = {}, {}
     for label, (X, G, kernel) in windows.items():
@@ -340,7 +374,8 @@ def phase_kernels(torch, dev, name):
     del Go
     flush = l2_flush(torch, dev)
     timed = {}
-    for label, cold in (("jacobi", False), ("vi", True), ("scf", False)):
+    for label, cold in (("jacobi", False), ("vi", True), ("scf", False),
+                        ("async_dp", False)):
         X, G, a = mixes[label]
         between = flush if cold else None
 
@@ -403,6 +438,8 @@ FLASH_SWEEP = [
     (2, 64, 256, 4, 4, 64, True, None, None, 192),
     (2, 1000, 1000, 8, 4, 256, True, 300, 50.0, 0),
     (1, 131, 299, 4, 2, 16, True, 70, 50.0, 168),
+    # the no-grad held-out loss of [async-dp] and [diloco]
+    (4, 16, 16, 4, 1, 64, True, None, None, 0),
 ]
 
 
@@ -449,6 +486,10 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     qf = torch.randn(B, S, nq, hd, generator=gen, device=dev)
     kf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
     vf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
+    # SDPA: the same masks (boolean, True = attend), GQA, no softcap.
+    pos = torch.arange(S, device=dev)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    nocap = dict(causal=True, window=window)
     out = {}
     for dt in (torch.bfloat16, torch.float32):
         q, k, v = qf.to(dt), kf.to(dt), vf.to(dt)
@@ -469,19 +510,22 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
                            q, k, v, **kw)),
                        bf16_plain_ms=time_ms(torch, lambda: ref.flash_attention(
                            q, k, v, **kw), reps=5, warmup=1),
-                       bf16_bound_ms=b_ms, bf16_bound_by=b_by)
-            del q, k, v
+                       bf16_bound_ms=b_ms, bf16_bound_by=b_by,
+                       bf16_ms_softcap_off=time_ms(
+                           torch, lambda: ops.flash_attention(q, k, v,
+                                                              **nocap)))
+            qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
+            out["bf16_library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qb, kb, vb, attn_mask=mask, enable_gqa=True))
+            del q, k, v, qb, kb, vb
             torch.cuda.empty_cache()
-    # SDPA: the same masks (boolean, True = attend), GQA, no softcap.
-    pos = torch.arange(S, device=dev)
-    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
     qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
 
-    nocap = dict(causal=True, window=window)
     lib_err = err_of(sdpa().transpose(1, 2),
                      ops.flash_attention(qf, kf, vf, **nocap))
     out.update(ms_softcap_off=time_ms(torch, lambda: ops.flash_attention(
@@ -490,7 +534,9 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
                pairs=pairs, flops=flops, dtype="float32",
                sweep_max_abs_err=sweep_err)
     print(f"[kernels] flash_attention bf16 {[B, S, nq, nkv, hd]}: err "
-          f"{out['bf16_max_abs_err']:.2e}, kernel {out['bf16_ms']:.3f} ms, "
+          f"{out['bf16_max_abs_err']:.2e}, kernel {out['bf16_ms']:.3f} ms "
+          f"(softcap off {out['bf16_ms_softcap_off']:.3f} ms, SDPA bf16 "
+          f"softcap off {out['bf16_library_ms']:.3f} ms), "
           f"plain {out['bf16_plain_ms']:.3f} ms, bound "
           f"{out['bf16_bound_ms']:.4f} ms ({out['bf16_bound_by']}); f32 with "
           f"softcap off {out['ms_softcap_off']:.3f} ms (SDPA agrees to "
@@ -1372,6 +1418,237 @@ def phase_lm_parity(torch, dev):
     torch.cuda.empty_cache()
 
 
+def phase_train(torch, dev, name):
+    """Gemma-2-2B at its published widths: AdamW steps through
+    ``make_train_step`` with gradient accumulation."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_serve
+    from repro_torch.launch.kernel_bench import peaks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train_profile import ACCUM, ARCH, BATCH, SEQ
+    from repro_torch.models import make_trainable
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    cfg = lm_serve.make_config(ARCH)
+    t0 = time.perf_counter()
+    params = lm_serve.make_params(cfg, dev, seed=0)
+    flat = make_trainable(params)
+    opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=1,
+                          total_steps=TRAIN_STEPS + 1)
+    state = adamw_init(flat, opt_cfg)
+    torch.cuda.synchronize()
+    n, tokens = flat.n, BATCH * SEQ
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n / 1e9:.3f} B float32 "
+          f"parameters (flat buffer + gradient + AdamW m/v "
+          f"{4 * 4 * n / 2**30:.2f} GiB) ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    step_fn = make_train_step(cfg, opt_cfg, ACCUM)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  batch=BATCH, seq=SEQ, seed=7))
+    before = [p.detach().reshape(-1)[:1 << 16].clone() for p in flat.params]
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for i in range(TRAIN_STEPS + 1):  # step 0 warms up, not timed
+        batch = {"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                           device=dev)}
+        if i == 1:
+            ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"train: step {i} loss {m['loss']} grad norm {m['grad_norm']}")
+        print(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+              f"{m['loss']:.6f}, grad norm {m['grad_norm']:.6f}, lr "
+              f"{m['lr']:.3e}, {dt:.3f} s")
+        if i:
+            times.append(dt)
+            losses.append(m["loss"])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    unchanged = [i for i, (p, b) in enumerate(zip(flat.params, before))
+                 if torch.equal(p.detach().reshape(-1)[:1 << 16], b)]
+    check(not unchanged, f"train: {len(unchanged)} parameters never changed")
+    check(launches["flash_attention"] == 0,
+          f"train: flash_attention launched {launches['flash_attention']} "
+          f"times under grad")
+    s_step = sum(times) / len(times)
+    flop = 8 * n * tokens  # forward, recompute, backward (2 x forward)
+    fp32 = peaks(name)[2]
+    print(f"[train] {TRAIN_STEPS} steps of {BATCH} x {SEQ} "
+          f"tokens (accum {ACCUM}): {s_step:.3f} s/step "
+          f"(min {min(times):.3f}, max {max(times):.3f}), "
+          f"{tokens / s_step:.1f} tokens/s, {flop / s_step / 1e12:.2f} "
+          f"TFLOP/s = {100 * flop / s_step / fp32:.1f}% of the float32 "
+          f"non-tensor peak (bound {flop / fp32:.3f} s/step); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; every parameter "
+          f"changed; launches {json.dumps(launches)}")
+    del params, flat, state, step_fn, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_parity(torch, dev):
+    """Gemma-2-2B widths at depth 2 (vocab cut to 32768): two train steps
+    on the card against the CPU on the same weights."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, make_trainable
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2, window=128,
+                              vocab_size=32768)
+    cpu = torch.device("cpu")
+    base = init_params(cfg, torch.Generator().manual_seed(2),
+                       dtype=torch.float32, device=cpu)
+    models = {"cpu": copy.deepcopy(base), "card": base.to(dev)}
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+    states = {k: adamw_init(make_trainable(m), opt_cfg)
+              for k, m in models.items()}
+    step_fn = make_train_step(cfg, opt_cfg, 1)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                  seq=256, seed=11))
+    cpu_s, near, flip_cap = 0.0, None, 0.0
+    for i in range(2):
+        toks = data.batch(i)["tokens"]
+        metrics = {}
+        for key, d in (("cpu", cpu), ("card", dev)):
+            t0 = time.perf_counter()
+            models[key], states[key], metrics[key] = step_fn(
+                models[key], states[key],
+                {"tokens": torch.as_tensor(toks, device=d)})
+            if key == "cpu":
+                cpu_s += time.perf_counter() - t0
+        fc, fg = models["cpu"].flat, models["card"].flat
+        loss_rel = (abs(metrics["card"]["loss"] - metrics["cpu"]["loss"])
+                    / abs(metrics["cpu"]["loss"]))
+        g_cpu = fc.grad.to(dev)
+        grad_rel = max(
+            float((fg.grad[lf.start:lf.stop] - g_cpu[lf.start:lf.stop])
+                  .abs().max() / g_cpu[lf.start:lf.stop].abs().max())
+            for lf in fg.leaves)
+        # Adam moves an element by about lr whatever its gradient's size,
+        # so an element whose gradient is within 100x of the card's
+        # difference from the CPU's may move by up to 2 lr the other way;
+        # every other element stays within lr / 10 of the CPU's, and the
+        # exceptions are few.
+        lr = metrics["cpu"]["lr"]
+        close = g_cpu.abs() <= 100 * (fg.grad - g_cpu).abs()
+        near = close if near is None else near | close
+        flip_cap += 2 * lr
+        diff = (fg.theta - fc.theta.to(dev)).abs()
+        far = diff > lr / 10
+        n_far, n_stray = int(far.sum()), int((far & ~near).sum())
+        p_diff = float(diff.max())
+        del g_cpu, close, diff, far
+        print(f"[train-parity] step {i}: loss card "
+              f"{metrics['card']['loss']:.6f} CPU {metrics['cpu']['loss']:.6f}"
+              f" (rel {loss_rel:.2e}), max gradient leaf rel diff "
+              f"{grad_rel:.2e} (tol 1e-4), max |param diff| after AdamW "
+              f"{p_diff:.2e} (lr / 10 = {lr / 10:.2e}; {n_far} of {fg.n} "
+              f"beyond it, {n_stray} of them away from a near-zero "
+              f"gradient; cap {flip_cap:.2e})")
+        check(loss_rel <= 1e-4, f"train parity: loss differs by {loss_rel}")
+        check(grad_rel <= 1e-4,
+              f"train parity: a gradient differs by {grad_rel:.3e}")
+        check(n_stray == 0, f"train parity: {n_stray} parameters with a "
+              f"clear gradient differ by more than lr / 10")
+        check(n_far <= 1e-4 * fg.n and p_diff <= flip_cap,
+              f"train parity: {n_far} parameters beyond lr / 10, max "
+              f"{p_diff:.3e} (cap {flip_cap:.3e})")
+    print(f"[train-parity] depth 2, window 128, vocab 32768, 2 x 256 "
+          f"tokens: CPU steps {cpu_s:.1f} s")
+    del models, states, base
+    torch.cuda.empty_cache()
+
+
+def async_dp_theta_size() -> int:
+    """θ's size in [async-dp] and [diloco]: the width of their Anderson
+    window."""
+    from repro_torch.launch import async_dp_lm
+    from repro_torch.models import model_spec
+    from repro_torch.models.common import leaves
+
+    return sum(math.prod(s.shape) for _, s in
+               leaves(model_spec(async_dp_lm.make_config("card"))))
+
+
+def phase_async_dp(torch, dev):
+    """The coupling-density experiment of benchmarks/async_dp_lm.py at a
+    size whose θ reaches anderson_mix."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import async_dp_lm
+
+    cfg = async_dp_lm.make_config("card")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = async_dp_lm.run(cfg, fast=True, device=dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n = rows[0]["results"][0].x.size
+    check(n == async_dp_theta_size(), f"async-dp: θ holds {n} elements, "
+          f"the window checked in [kernels] {async_dp_theta_size()}")
+    for r in rows:
+        print(f"[async-dp] {r['name']}: loss0 {r['loss0']:.4f}, plain "
+              f"{r['plain']:.4f}, anderson {r['anderson']:.4f}, "
+              f"anderson_helps {'yes' if r['anderson_helps'] else 'no'}; "
+              f"fires {r['fires']}, accepts {r['accepts']}, worker_updates "
+              f"{r['worker_updates']}, virtual walls "
+              f"{[round(w, 4) for w in r['virtual_wall_s']]} s, host "
+              f"{[round(w, 2) for w in r['host_s']]} s")
+        check(r["plain"] < r["loss0"],
+              f"async-dp {r['name']}: plain run did not reduce the loss")
+    helps = {r["name"].split("/")[1]: r["anderson_helps"] for r in rows}
+    print(f"[async-dp] n = {n}; paper's prediction: Anderson survives "
+          f"full_grad (evaluation-level staleness) and degrades block_grad "
+          f"(iterate-level corruption); here anderson_helps = {helps}; "
+          f"{wall:.1f} s; launches {json.dumps(launches)}")
+    check(launches["anderson_mix"] > 0, "async-dp: anderson_mix never ran")
+    return launches
+
+
+def phase_diloco(torch, dev):
+    """DiLoCo sync and async (pod 0 a straggler) with Anderson(5)."""
+    from repro_torch import AndersonConfig, FaultProfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import async_dp_lm
+    from repro_torch.training.diloco import DiLoCoConfig, DiLoCoTrainer
+
+    cfg = async_dp_lm.make_config("card")
+    base = DiLoCoConfig(n_pods=4, inner_steps=4, outer_steps=6,
+                        accel=AndersonConfig(m=5))
+    total = {}
+    for dcfg in (base, dataclasses.replace(
+            base, mode="async", faults={0: FaultProfile(delay_mean=3.0)})):
+        trainer = DiLoCoTrainer(cfg, dcfg, batch=4, seq=16, device=dev)
+        l0 = trainer.eval_loss(trainer.theta)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = trainer.run()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        print(f"[diloco] {dcfg.mode}: loss {l0:.4f} -> "
+              f"{[round(x, 4) for x in res.losses]}, outer_updates "
+              f"{res.outer_updates}, accepts {res.accel_accepts}, rejects "
+              f"{res.accel_rejects}, virtual wall {res.wall_times[-1]:.2f} s,"
+              f" host {wall:.2f} s, launches {json.dumps(launches)}")
+        check(res.losses[-1] < l0, f"diloco {dcfg.mode}: the loss did not "
+              f"fall ({l0:.4f} -> {res.losses[-1]:.4f})")
+        check(launches["anderson_mix"] > 0,
+              f"diloco {dcfg.mode}: anderson_mix never ran")
+        add_counts(total, launches)
+        del trainer
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -1407,6 +1684,12 @@ def main() -> int:
     phase_scf_parity(dev)
     phase_recover_parity(dev)
     phase_lm_parity(torch, dev)
+    for k, c in phase_train(torch, dev, name).items():
+        launches[k] += c
+    phase_train_parity(torch, dev)
+    for path in (phase_async_dp, phase_diloco):
+        for k, c in path(torch, dev).items():
+            launches[k] += c
     from repro_torch.core import pool_stats, shutdown_pools
 
     try:

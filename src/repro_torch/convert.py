@@ -14,13 +14,15 @@ import torch
 from ._device import resolve_device
 from .configs.base import ModelConfig
 from .core.anderson import AndersonConfig, AndersonState
-from .models.common import tree_map
-from .models.transformer import DecoderLM, model_spec
+from .models.common import leaves, tree_map
+from .models.transformer import DecoderLM, make_trainable, model_spec
+from .training.optimizer import AdamWState
 from .problems.jacobi import JacobiProblem
 from .problems.value_iteration import GarnetMDP
 
 __all__ = ["jacobi_from_arrays", "garnet_from_arrays",
-           "anderson_from_snapshot", "lm_params_from_arrays"]
+           "anderson_from_snapshot", "lm_params_from_arrays",
+           "lm_params_from_theta", "adamw_state_from_arrays"]
 
 
 def jacobi_from_arrays(b, grid: int, sweeps: int, backend: str = "jnp",
@@ -62,8 +64,8 @@ def anderson_from_snapshot(snap: dict, config: AndersonConfig,
     return state
 
 
-def lm_params_from_arrays(cfg: ModelConfig, tree: dict,
-                          device=None) -> DecoderLM:
+def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device=None,
+                          trainable: bool = False) -> DecoderLM:
     """The port's :class:`~repro_torch.models.transformer.DecoderLM` holding
     exactly the arrays of a reference parameter tree (``init_params``'s
     output as nested dicts of numpy arrays).
@@ -73,7 +75,9 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict,
     stacked ``stack`` leaves ``(n_periods, ...)`` are split per layer, in
     order, followed by the ``rest`` layers.  Shapes are checked against
     the port's own :func:`~repro_torch.models.transformer.model_spec`.
-    The tensors land on ``device`` (None: the card).
+    The tensors land on ``device`` (None: the card).  With ``trainable``
+    the parameters are bound into their flat buffer
+    (:func:`~repro_torch.models.transformer.make_trainable`).
     """
     spec = model_spec(cfg)
     device = resolve_device(device)
@@ -96,5 +100,37 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict,
               for p in range(cfg.n_periods) for i in range(len(cfg.period))]
     layers += [tree_map(to_t, tree["rest"][str(i)])
                for i in range(len(cfg.remainder))]
-    return DecoderLM(cfg, tree_map(to_t, tree["embed"]), layers,
-                     tree_map(to_t, tree["final_norm"]))
+    model = DecoderLM(cfg, tree_map(to_t, tree["embed"]), layers,
+                      tree_map(to_t, tree["final_norm"]))
+    if trainable:
+        make_trainable(model)
+    return model
+
+
+def lm_params_from_theta(cfg: ModelConfig, theta, device=None) -> DecoderLM:
+    """A trainable :class:`DecoderLM` holding a reference flat vector
+    (``jax.flatten_util.ravel_pytree`` of a parameter tree; float64 is
+    rounded to float32 as the reference's ``unravel`` does)."""
+    theta = np.asarray(theta)
+    zeros = tree_map(lambda s: np.zeros(s.shape, np.float32),
+                     model_spec(cfg))
+    model = lm_params_from_arrays(cfg, zeros, device=device, trainable=True)
+    model.flat.unravel(theta)
+    return model
+
+
+def adamw_state_from_arrays(params: DecoderLM, step, m: dict,
+                            v: dict) -> AdamWState:
+    """The port's flat :class:`~repro_torch.training.optimizer.AdamWState`
+    from the reference's ``(step, m, v)``: the moment trees (numpy, any
+    float dtype, bfloat16 too) ravelled in the reference's order, in
+    their own dtype (float32 or bfloat16), on the model's device."""
+    flat = make_trainable(params)
+
+    def dtype_of(tree):
+        name = str(np.asarray(next(leaves(tree))[1]).dtype)
+        return getattr(torch, name)
+
+    return AdamWState(int(np.asarray(step)),
+                      flat.ravel_tree(m, dtype_of(m)),
+                      flat.ravel_tree(v, dtype_of(v)))

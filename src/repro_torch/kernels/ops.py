@@ -14,6 +14,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
+import torch
+
 from . import anderson_mix as _mix
 from . import bellman as _bellman
 from . import flash_attention as _flash
@@ -72,7 +74,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0):
     """GQA attention, q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), with the
-    causal, sliding-window, softcap and ``q_offset`` options."""
+    causal, sliding-window, softcap and ``q_offset`` options.  On CUDA it
+    refuses inputs that require grad while autograd records: the kernel
+    has no backward."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("expected (B, S, heads, head_dim) inputs")
     if k.shape != v.shape:
@@ -84,6 +88,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if _on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: its CUDA kernel's output is "
+            "invisible to autograd, so q, k and v must not require grad "
+            "(run under torch.no_grad(); training attention goes through "
+            "repro_torch.models.attention.train_attention)")
     out = _flash.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset)
     _counted("flash_attention")

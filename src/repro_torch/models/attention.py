@@ -3,12 +3,16 @@
 Counterpart of ``repro.models.attention`` for the dense decoders.  The
 reference's docstring says the stack can route prefill through the flash
 kernel, and that on the accelerator the kernel replaces its jnp path; the
-port does that: full-sequence attention (prefill) calls
+port does that: full-sequence attention without autograd (prefill) calls
 :func:`repro_torch.kernels.ops.flash_attention`, which launches the
 hand-written CUDA kernel on the card and takes its plain PyTorch version
 on the CPU.  That one call replaces the reference's ``_grouped_attn`` and
-``_chunked_attn`` for prefill.  One-token decode stays ordinary torch ops
-(:func:`_grouped_attn`), as it is jnp outside any kernel in the reference.
+``_chunked_attn`` for prefill.  The kernel has no backward (nor has the
+reference's Pallas kernel), so when autograd records (training) the
+reference's training math runs instead: :func:`_grouped_attn` under the
+causal/window mask, on the card too.  One-token decode stays ordinary
+torch ops (:func:`_grouped_attn`), as it is jnp outside any kernel in the
+reference.
 
 Sliding-window ("local") layers keep a ring-buffer KV cache of ``window``
 slots.  Decode writes the new token's K/V into the cache tensors in place
@@ -29,7 +33,7 @@ from .common import ParamSpec
 from .layers import apply_rope, rmsnorm
 
 __all__ = ["attn_spec", "KVCache", "init_cache", "project_qkv", "attend",
-           "attention", "decode_attention"]
+           "train_attention", "attention", "decode_attention"]
 
 f32 = torch.float32
 NEG_INF = -2.0e38
@@ -106,11 +110,37 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def attend(cfg: ModelConfig, params, q, k, v, *, causal: bool = True,
            window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence attention of projected q/k/v through the flash
-    kernel wrapper, then the output projection."""
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_softcap)
+    """Full-sequence attention of projected q/k/v, then the output
+    projection: through the flash kernel wrapper, or, when autograd
+    records a graph through q, k or v, through the reference's training
+    math (:func:`train_attention`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = train_attention(cfg, q, k, v, causal=causal, window=window)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cfg.attn_softcap)
     return _out_proj(out, params["wo"])
+
+
+def train_attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """The reference's differentiable full-sequence attention
+    (``repro.models.attention.attention`` without ``attn_chunk``):
+    :func:`_grouped_attn` under the causal and sliding-window mask."""
+    if cfg.attn_chunk is not None:
+        raise NotImplementedError(
+            "query-chunked training attention (attn_chunk) is not ported "
+            "yet: ROADMAP.md item 1.7i")
+    S, T = q.shape[1], k.shape[1]
+    if causal:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(T, device=q.device)[None, :]
+        mask = qp >= kp
+        if window is not None:
+            mask &= qp - kp < window
+    else:
+        mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    return _grouped_attn(cfg, q, k, v, mask)
 
 
 def attention(
@@ -123,7 +153,7 @@ def attention(
     window: Optional[int] = None,
     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill)."""
+    """Full-sequence self-attention (prefill and training)."""
     if kv is not None:
         raise NotImplementedError(
             "cross-attention is not ported yet: ROADMAP.md item 1.7e")

@@ -1,4 +1,4 @@
-"""The decoder stack and its serving passes (prefill, decode).
+"""The decoder stack: its training pass and its serving passes.
 
 Counterpart of the dense parts of ``repro.models.transformer``.  The
 reference scans a repeating *period* of (mixer, ffn) sublayers over
@@ -8,29 +8,38 @@ holding one :class:`Sublayer` module per layer, in order (period 0's
 sublayers, period 1's, ..., then the remainder), each with the reference's
 parameter shapes and keys, and the passes are a Python loop over them.
 
-Two entry modes share one sublayer implementation:
-  * ``prefill``     — full-sequence forward that also emits decode caches
+Three entry modes share one sublayer implementation:
+  * ``forward_train`` — full-sequence teacher forcing (float32 logits and
+    aux), each period recomputed in the backward pass as the reference's
+    ``jax.checkpoint(policy=nothing_saveable)`` does; :func:`lm_loss` on
+    top of it,
+  * ``prefill``       — full-sequence forward that also emits decode caches
     (attention through the flash kernel wrapper),
-  * ``decode_step`` — one token against the caches (updated in place).
+  * ``decode_step``   — one token against the caches (updated in place).
+
+:func:`make_trainable` binds a model's parameters into a
+:class:`~repro_torch.models.common.FlatParams` laid out in the order of
+the reference's ``ravel_pytree`` of its stacked parameter tree.
 
 Only the dense decoders are ported: attention/local mixers and mlp (or
 no) FFNs.  Mamba, mLSTM/sLSTM, MoE, encoder-decoder and vision configs
-raise ``NotImplementedError`` naming their ROADMAP.md item, and
-``forward_train``/``lm_loss`` wait for the training slice (item 1.7a).
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig, Sublayer as SublayerKind
 from . import attention as attn_mod
 from .attention import KVCache
-from .common import ParamTree, materialize, stack_specs
+from .common import FlatParams, ParamTree, leaves, materialize, stack_specs
 from .layers import (
     embed,
     embed_spec,
@@ -43,8 +52,8 @@ from .layers import (
 
 __all__ = ["check_ported", "sublayer_spec", "model_spec", "Sublayer",
            "DecoderLM", "layer_kinds", "init_params", "init_caches",
-           "apply_sublayer_full", "apply_sublayer_decode", "prefill",
-           "decode_step"]
+           "make_trainable", "apply_sublayer_full", "apply_sublayer_decode",
+           "forward_train", "lm_loss", "prefill", "decode_step"]
 
 #: the ROADMAP.md item of each mixer / ffn kind the port does not carry
 _UNPORTED_MIXERS = {"mamba": "1.7c (Mamba)", "mlstm": "1.7d (xLSTM)",
@@ -161,6 +170,46 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return DecoderLM(cfg, emb, layers, final)
 
 
+def _param_at(tree, path: Sequence[str]) -> nn.Parameter:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def make_trainable(params: DecoderLM) -> FlatParams:
+    """Bind every parameter of ``params`` into one flat buffer laid out as
+    the reference's ``ravel_pytree`` of its parameter tree: the leaves in
+    sorted-key order (``embed``, ``final_norm``, ``rest``, ``stack``), a
+    stacked leaf being the same parameter of every period, period by
+    period.  The parameters become trainable views (see
+    :class:`~repro_torch.models.common.FlatParams`); the result is kept as
+    ``params.flat``, and a second call returns it while its parameters
+    are still bound to it; a copy (``copy.deepcopy``, ``Module.to``) of a
+    trainable model gets a new flat buffer holding its current values."""
+    flat = getattr(params, "flat", None)
+    if flat is not None and flat.bound():
+        return flat
+    cfg = params.cfg
+    L, n_stacked = len(cfg.period), cfg.n_periods * len(cfg.period)
+    segments = []
+    for path, spec in leaves(model_spec(cfg)):
+        head, rest = path[0], path[1:]
+        if head == "embed":
+            parts = [_param_at(params.embed, rest)]
+        elif head == "final_norm":
+            parts = [_param_at(params.final_norm, rest)]
+        elif head == "stack":
+            i = int(rest[0])
+            parts = [_param_at(params.layers[p * L + i], rest[1:])
+                     for p in range(cfg.n_periods)]
+        else:  # "rest"
+            parts = [_param_at(params.layers[n_stacked + int(rest[0])],
+                               rest[1:])]
+        segments.append((path, spec.shape, parts))
+    params.flat = FlatParams(segments)
+    return params.flat
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device=None) -> List[KVCache]:
     """One empty KV cache per layer (ring buffers for local layers) on
@@ -262,6 +311,49 @@ def _run_stack(cfg, params: DecoderLM, x, positions, *, causal=True,
             cache_dtype=cache_dtype)
         caches.append(c)
     return x, (caches if collect_cache else None)
+
+
+#: the reference's auxiliary losses (MoE only; zero for dense decoders)
+ZERO_AUX = ("moe_load_balance", "moe_router_z")
+
+
+def _period(cfg, layers, positions, x):
+    for layer in layers:
+        x, _ = apply_sublayer_full(cfg, layer, layer.kind, x, positions)
+    return x
+
+
+def forward_train(cfg: ModelConfig, params: DecoderLM,
+                  batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Teacher-forced logits over the full sequence (float32) and the
+    auxiliary losses.  With autograd recording, each period runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass, as the reference's
+    ``jax.checkpoint(policy=nothing_saveable)`` over its scanned periods
+    does; the unstacked remainder is not recomputed, as there."""
+    x, positions = _input_embed(cfg, params, batch)
+    aux = {k: x.new_zeros((), dtype=torch.float32) for k in ZERO_AUX}
+    L = len(cfg.period)
+    recompute = torch.is_grad_enabled()
+    for p in range(cfg.n_periods):
+        fn = functools.partial(_period, cfg, params.layers[p * L:(p + 1) * L],
+                               positions)
+        x = checkpoint(fn, x, use_reentrant=False) if recompute else fn(x)
+    x = _period(cfg, params.layers[cfg.n_periods * L:], positions, x)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return compute_logits(params.embed, cfg, x).float(), aux
+
+
+def lm_loss(cfg: ModelConfig, params: DecoderLM,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy (mean over ``B x (S-1)``) plus the
+    auxiliary losses; returns ``(total, aux)`` with ``aux["ce_loss"]``."""
+    logits, aux = forward_train(cfg, params, batch)
+    tgt = batch["tokens"][:, 1:].long()
+    ll = torch.log_softmax(logits[:, :-1], dim=-1)
+    loss = -torch.gather(ll, -1, tgt[..., None])[..., 0].mean()
+    total = loss + sum(aux.values())
+    return total, dict(aux, ce_loss=loss)
 
 
 @torch.no_grad()

@@ -16,7 +16,10 @@ FMA); ``anderson_mix`` 1e-12 (FMAs over the window); norms 1e-12 relative (per-C
 version's one-shot softmax, as ``tests/test_kernels.py`` holds the Pallas
 kernel); the LM serving path on the card against the same weights on the
 CPU 1e-4 relative in the logits (float32 matmuls in other orders through
-a stack of layers) with identical greedy tokens.
+a stack of layers) with identical greedy tokens; a train step on the card
+against the CPU 1e-4 relative in the loss and every gradient leaf, and
+each parameter within 2 lr after AdamW (Adam's first step moves an
+element by ±lr whatever the size of its gradient).
 """
 
 import numpy as np
@@ -730,3 +733,90 @@ class TestLmOnTheCard:
                         [want.prefill_logits] + want.step_logits):
             rel = float((a.cpu() - b).abs().max() / b.abs().max())
             assert rel <= 1e-4
+
+
+class TestTrainingOnTheCard:
+    def test_flash_refuses_inputs_that_require_grad(self, dev):
+        q = torch.randn(1, 16, 2, 16, device=dev, requires_grad=True)
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention(q, q, q)
+        assert ops.launch_counts()["flash_attention"] == 0
+        with torch.no_grad():
+            ops.flash_attention(q, q, q)
+        assert ops.launch_counts()["flash_attention"] == 1
+
+    @pytest.mark.parametrize("accum", [1, 2])
+    def test_train_step_matches_cpu(self, dev, accum):
+        """Depth 2 (a local and a global layer), a window shorter than the
+        sequence: the card against the CPU on the same weights, with no
+        flash launch under grad."""
+        import copy
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import init_params, make_trainable
+        from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+        cfg = get_config("gemma2_2b").reduced(n_layers=2, window=16)
+        cpu = torch.device("cpu")
+        base = init_params(cfg, torch.Generator().manual_seed(0),
+                           dtype=torch.float32, device=cpu)
+        models = {"cpu": copy.deepcopy(base), "card": base.to(dev)}
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+        step = make_train_step(cfg, opt_cfg, accum)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 48)).astype(np.int32))
+        out = {}
+        ops.reset_launch_counts()
+        for key, d in (("cpu", cpu), ("card", dev)):
+            state = adamw_init(make_trainable(models[key]), opt_cfg)
+            out[key] = step(models[key], state, {"tokens": toks.to(d)})[2]
+        assert ops.launch_counts()["flash_attention"] == 0
+        fc, fg = models["cpu"].flat, models["card"].flat
+        assert abs(out["card"]["loss"] - out["cpu"]["loss"]) <= (
+            1e-4 * abs(out["cpu"]["loss"]))
+        for lf in fc.leaves:
+            want = fc.grad[lf.start:lf.stop]
+            got = fg.grad[lf.start:lf.stop].cpu()
+            assert float((got - want).abs().max()
+                         / want.abs().max()) <= 1e-4, lf.path
+        # Adam moves an element by about lr whatever its gradient's size:
+        # only an element whose gradient is within 100x of the card's
+        # difference from the CPU's may move up to 2 lr the other way, and
+        # those are few; the rest stay within lr / 10.
+        lr = out["cpu"]["lr"]
+        near = fc.grad.abs() <= 100 * (fg.grad.cpu() - fc.grad).abs()
+        diff = (fg.theta.cpu() - fc.theta).abs()
+        far = diff > lr / 10
+        assert not (far & ~near).any()
+        assert int(far.sum()) <= 1e-4 * fc.n
+        assert float(diff.max()) <= 2 * lr
+
+    def test_async_dp_on_the_card_matches_cpu(self, dev):
+        """The tiny async-dp problem's full map and a DiLoCo outer step
+        with Anderson, the window's combine through anderson_mix."""
+        from repro_torch.launch import async_dp_lm
+        from repro_torch.training.async_dp import GradientWorkersProblem
+        from repro_torch.training.diloco import DiLoCoConfig, DiLoCoTrainer
+
+        cfg = async_dp_lm.make_config("tiny")
+        cpu = GradientWorkersProblem(cfg, batch=4, seq=16, lr=0.25,
+                                     device="cpu")
+        card = GradientWorkersProblem(cfg, batch=4, seq=16, lr=0.25,
+                                      params=cpu.initial(), device=dev)
+        x0 = cpu.initial()
+        got, want = card.full_map(x0), cpu.full_map(x0)
+        assert np.max(np.abs(got - want)) <= 1e-4 * np.max(np.abs(want))
+        dcfg = DiLoCoConfig(n_pods=2, inner_steps=2, outer_steps=3,
+                            inner_lr=0.001, accel=AndersonConfig(
+                                m=3, mix_kernel_n=1))
+        runs = {}
+        ops.reset_launch_counts()
+        for key, d in (("cpu", "cpu"), ("card", dev)):
+            runs[key] = DiLoCoTrainer(cfg, dcfg, batch=4, seq=16,
+                                      params=x0, device=d).run()
+        assert ops.launch_counts()["anderson_mix"] > 0
+        assert runs["card"].accel_accepts == runs["cpu"].accel_accepts
+        a, b = np.array(runs["card"].losses), np.array(runs["cpu"].losses)
+        assert np.max(np.abs(a - b)) <= 1e-4 * np.max(np.abs(b))

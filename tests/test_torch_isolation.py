@@ -73,6 +73,11 @@ def test_every_submodule_is_importable_here():
                                                    "repro_torch.")]
     assert "repro_torch.kernels._build" in names
     assert "repro_torch.convert" in names
+    for mod in ("optimizer", "data", "checkpoint", "compression",
+                "train_loop", "async_dp", "diloco"):
+        assert f"repro_torch.training.{mod}" in names
+    assert {"repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.launch.async_dp_lm"} <= set(names)
 
 
 class TestDevices:
@@ -110,6 +115,14 @@ def _tiny_lm():
     return lm_serve.make_config("gemma2_2b", reduced=True)
 
 
+def _training():
+    import repro_torch.training.async_dp
+    import repro_torch.training.diloco
+    import repro_torch.training.train_loop  # noqa: F401
+
+    return repro_torch.training
+
+
 def _zeros_tree(cfg):
     import numpy as np
 
@@ -125,7 +138,15 @@ def _zeros_tree(cfg):
                                                      **kw),
     lambda cfg, **kw: repro_torch.convert.lm_params_from_arrays(
         cfg, _zeros_tree(cfg), **kw),
-], ids=["init_params", "init_caches", "lm_params_from_arrays"])
+    lambda cfg, **kw: _training().async_dp.GradientWorkersProblem(
+        cfg, **kw).model,
+    lambda cfg, **kw: _training().diloco.DiLoCoTrainer(
+        cfg, _training().diloco.DiLoCoConfig(), **kw).model,
+    lambda cfg, **kw: _training().train_loop.train(
+        cfg, _training().train_loop.TrainConfig(steps=1, batch=2, seq=4),
+        log=None, **kw)["params"],
+], ids=["init_params", "init_caches", "lm_params_from_arrays", "async_dp",
+        "diloco", "train"])
 def test_lm_entry_points_default_to_the_card(monkeypatch, call):
     """Without ``device=`` the LM entry points target the card (and raise
     without one); the CPU is taken only on request."""
@@ -146,11 +167,12 @@ class _CudaStub:
     """Stands in for a CUDA tensor (this host has none): only the device
     and shape, which is all a wrapper reads before it launches."""
 
-    def __init__(self, *shape):
+    def __init__(self, *shape, requires_grad=False):
         self.shape = torch.Size(shape)
         self.ndim = len(shape)
         self.device = torch.device("cuda", 0)
         self.dtype = torch.float32
+        self.requires_grad = requires_grad
 
     def stride(self, dim):
         return 1
@@ -182,6 +204,20 @@ def test_cuda_inputs_never_take_the_plain_version(no_plain, call):
     with pytest.raises(RuntimeError, match="CUDA"):
         call(_CudaStub)
     assert ops.launch_counts() == before  # nothing launched, nothing counted
+
+
+def test_flash_refuses_cuda_inputs_that_require_grad(no_plain):
+    """The kernel's output is invisible to autograd, so a CUDA call that
+    autograd would record raises before anything launches; under
+    ``no_grad`` the same inputs go on to the launcher."""
+    q = _CudaStub(1, 8, 4, 16, requires_grad=True)
+    kv = _CudaStub(1, 8, 2, 16)
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, kv, kv)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA"):
+        ops.flash_attention(q, kv, kv)
+    assert ops.launch_counts() == before
 
 
 def test_mixed_devices_are_refused():
