@@ -23,6 +23,15 @@ and no result line is printed):
    window view (8-byte loads), the two giving the same bits at SCF's
    window, timed at the four windows by events and CUPTI beside
    ``a @ G``, VI's with the L2 flushed before every call;
+   ``flash_attention`` at the Gemma-2-2B serve shape: float32 (the FFMA
+   kernel) at the local and global layers, every element within 2e-5 of
+   the plain version, and bfloat16 (the wgmma + TMA kernel) at both
+   layers, held to the JAX package's own bfloat16 attention math (the max
+   and the RMS of |kernel - plain| no larger than those of
+   ``train_attention`` on the same inputs), each timed by events and
+   CUPTI, with the softcap and without it beside
+   ``scaled_dot_product_attention`` (the local layer's mask;
+   ``is_causal`` at the global one);
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -42,9 +51,18 @@ and no result line is printed):
    (past the 4096 window, so the local layers' window mask and ring caches
    bind) and 32 greedy tokens; prefill attention must launch the flash
    kernel once per layer;
+8b. LM serving in bfloat16 — ``[lm-bf16]``: the same model and prompt in
+   the config's own bfloat16 (weights, and the prefill's caches after
+   them): 26 flash launches a prefill, all bfloat16 (the tensor-core
+   kernel), finite logits, tokens in the vocabulary; prefill seconds and
+   tokens/s, decode ms/step, peak memory, and one traced prefill's device
+   time by kernel group (``lm_profile.breakdown``) with the flash share;
 9. LM parity — Gemma-2-2B widths at depth 2 with window 128, prompt 512:
    prefill logits and 8 greedy decode steps on the card (kernel) against
-   the same weights on the CPU (plain version);
+   the same weights on the CPU (plain version); then ``[lm-bf16-parity]``:
+   the same in bfloat16 with the vocabulary cut to 32768, the decode
+   teacher-forced on the CPU's tokens (two bfloat16 runs may split at a
+   near-tie), logits within ``LM_BF16_PARITY_TOL`` of the CPU's;
 10. process backend — the Jacobi g = 2048 and SCF main paths on
    ``executor="process"`` (4 spawned workers, each with its own CUDA
    context on the card; without MPS their kernels time-slice): the Jacobi
@@ -445,10 +463,12 @@ FLASH_SWEEP = [
 
 def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     """flash_attention at the Gemma-2-2B serve shape (a local layer of the
-    LM main path) in float32 and bfloat16, plus the small sweep; timed
-    against its plain version and, with the softcap off (SDPA has none),
-    against ``scaled_dot_product_attention`` with an explicit mask.  The
-    global layer's shape (no window) is checked and timed beside it."""
+    LM main path) in float32 and, through the tensor-core kernel, bfloat16
+    at both layers (local and global), plus the small sweep; timed against
+    its plain version and, with the softcap off (SDPA has none), against
+    ``scaled_dot_product_attention``: with an explicit mask at the local
+    layer, ``is_causal`` (the flash backend) at the global one.  The
+    float32 global layer is checked and timed beside them."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -457,11 +477,6 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
 
     fp32, bf16 = peaks_fp
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-    # At the serve shape a row of 4096 keys gives outputs of ~0.03, so 2e-2
-    # would hide a bfloat16 fault; there both sides round the same float32
-    # result to bfloat16, so hold each element to the float32 tolerance
-    # plus two bfloat16 ulps of the plain value.
-    bf16_rtol = 2.0 ** -6
     gen = torch.Generator(device=dev).manual_seed(1)
     sweep_err = {}
     for case in FLASH_SWEEP:
@@ -491,35 +506,14 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
     nocap = dict(causal=True, window=window)
     out = {}
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v = qf.to(dt), kf.to(dt), vf.to(dt)
-        got = ops.flash_attention(q, k, v, **kw).float()
-        want = ref.flash_attention(q, k, v, **kw).float()
-        err = err_of(got, want)
-        rtol = bf16_rtol if dt == torch.bfloat16 else 0.0
-        excess = float(((got - want).abs() - rtol * want.abs()).max())
-        del got, want
-        check(excess <= tols[torch.float32],
-              f"flash_attention serve shape {dt}: |err| - {rtol:g}|ref| "
-              f"reaches {excess:.3e} > {tols[torch.float32]:.0e}")
-        if dt == torch.bfloat16:
-            b_ms, b_by = bound(nbytes // 2, flops, bf16)
-            out.update(bf16_max_abs_err=err,
-                       bf16_tol=f"{tols[torch.float32]:g} + {rtol:g}|ref|",
-                       bf16_ms=time_ms(torch, lambda: ops.flash_attention(
-                           q, k, v, **kw)),
-                       bf16_plain_ms=time_ms(torch, lambda: ref.flash_attention(
-                           q, k, v, **kw), reps=5, warmup=1),
-                       bf16_bound_ms=b_ms, bf16_bound_by=b_by,
-                       bf16_ms_softcap_off=time_ms(
-                           torch, lambda: ops.flash_attention(q, k, v,
-                                                              **nocap)))
-            qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
-            out["bf16_library_ms"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qb, kb, vb, attn_mask=mask, enable_gqa=True))
-            del q, k, v, qb, kb, vb
-            torch.cuda.empty_cache()
+    q, k, v = (t.to(torch.bfloat16) for t in (qf, kf, vf))
+    for label, win in (("local", window), ("global", None)):
+        out[f"bf16_{label}"] = flash_bf16_layer(torch, label, q, k, v, win,
+                                                cap, mask, bound, bf16)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # float32 (both sides compute in float32): every element within 2e-5,
+    # held by ``record`` below.
     qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
 
     def sdpa():
@@ -533,12 +527,7 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
                library_softcap="off", library_max_abs_err=lib_err,
                pairs=pairs, flops=flops, dtype="float32",
                sweep_max_abs_err=sweep_err)
-    print(f"[kernels] flash_attention bf16 {[B, S, nq, nkv, hd]}: err "
-          f"{out['bf16_max_abs_err']:.2e}, kernel {out['bf16_ms']:.3f} ms "
-          f"(softcap off {out['bf16_ms_softcap_off']:.3f} ms, SDPA bf16 "
-          f"softcap off {out['bf16_library_ms']:.3f} ms), "
-          f"plain {out['bf16_plain_ms']:.3f} ms, bound "
-          f"{out['bf16_bound_ms']:.4f} ms ({out['bf16_bound_by']}); f32 with "
+    print(f"[kernels] flash_attention f32 {[B, S, nq, nkv, hd]} local: "
           f"softcap off {out['ms_softcap_off']:.3f} ms (SDPA agrees to "
           f"{lib_err:.2e})")
     # The global layers (no window) of the same prefill.
@@ -577,6 +566,92 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
            peak=fp32)
     del q, k, v, qf, kf, vf, qt, kt, vt, mask
     torch.cuda.empty_cache()
+
+
+def flash_bf16_layer(torch, label, q, k, v, window, cap, mask, bound, peak):
+    """The bfloat16 tensor-core kernel at one serve layer.  The kernel
+    rounds P to bfloat16 before P V (as FlashAttention-2/3 do), so its
+    elements are not held to the float32 answer's 2e-5: the max and the
+    RMS of |kernel - plain| must not exceed those of the JAX package's own
+    bfloat16 attention math (``train_attention``, scores and weights
+    rounded to bfloat16, softcap on) on the same inputs against the same
+    plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_bench import (device_profile, flash_work,
+                                                 time_ms)
+    from repro_torch.models.attention import train_attention
+
+    B, S, nq, hd = q.shape
+    nkv = k.shape[2]
+    kw = dict(causal=True, window=window, softcap=cap)
+    nocap = dict(causal=True, window=window)
+    cfg = get_config(LM_ARCH)
+    check(cfg.attn_softcap == cap, "the reference math's softcap differs")
+
+    def dev_of(diff):
+        return float(diff.abs().max()), float(diff.pow(2).mean().sqrt())
+
+    want = ref.flash_attention(q, k, v, **kw).float()
+    k_max, k_rms = dev_of(ops.flash_attention(q, k, v, **kw).float() - want)
+    r_max, r_rms = dev_of(
+        train_attention(cfg, q, k, v, causal=True, window=window).float()
+        - want)
+    del want
+    want = ref.flash_attention(q, k, v, **nocap).float()
+    off_max, off_rms = dev_of(
+        ops.flash_attention(q, k, v, **nocap).float() - want)
+    del want
+    torch.cuda.empty_cache()
+    check(k_max <= r_max and k_rms <= r_rms,
+          f"flash_attention bf16 {label}: kernel max/RMS {k_max:.3e}/"
+          f"{k_rms:.3e} beyond the bfloat16 reference math's "
+          f"{r_max:.3e}/{r_rms:.3e}")
+    nbytes, flops = flash_work(B, S, nq, nkv, hd, window, 2)
+    b_ms, b_by = bound(nbytes, flops, peak)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+    row = dict(
+        source="src/repro_torch/csrc/flash_attention_bf16.cu",
+        window=window, max_abs_err=k_max, rms_err=k_rms,
+        ref_math_max_abs_err=r_max, ref_math_rms_err=r_rms,
+        softcap_off_max_abs_err=off_max, softcap_off_rms_err=off_rms,
+        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
+        device_ms=device_profile(
+            torch, lambda: ops.flash_attention(q, k, v, **kw))[0],
+        ms_softcap_off=time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, **nocap)),
+        device_ms_softcap_off=device_profile(
+            torch, lambda: ops.flash_attention(q, k, v, **nocap))[0],
+        plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v, **kw),
+                         reps=5, warmup=1),
+        library_ms=time_ms(torch, sdpa),
+        library=("SDPA is_causal" if window is None
+                 else "SDPA with the boolean mask"),
+        library_device_ms=device_profile(torch, sdpa)[0],
+        bound_ms=b_ms, bound_by=b_by, flops=flops)
+    row["bound_share"] = b_ms / row["ms_softcap_off"]
+    print(f"[kernels] flash_attention bf16 {label} {[B, S, nq, nkv, hd]} "
+          f"window {window}: |err| max {k_max:.3e} RMS {k_rms:.3e} (the "
+          f"reference's bf16 math {r_max:.3e} / {r_rms:.3e}; softcap off "
+          f"{off_max:.3e} / {off_rms:.3e}); kernel {row['ms']:.4f} ms "
+          f"(device {row['device_ms']:.4f}), softcap off "
+          f"{row['ms_softcap_off']:.4f} ms (device "
+          f"{row['device_ms_softcap_off']:.4f}) against "
+          f"{row['library']} {row['library_ms']:.4f} ms (device "
+          f"{row['library_device_ms']:.4f}); plain {row['plain_ms']:.3f} "
+          f"ms; bound {b_ms:.4f} ms ({b_by}, "
+          f"{100 * row['bound_share']:.1f}% with the softcap off)")
+    return row
 
 
 def run_path(label, problem, cfg, run=None):
@@ -1388,6 +1463,147 @@ def phase_lm(torch, dev):
     return launches
 
 
+def phase_lm_bf16(torch, dev):
+    """Gemma-2-2B at its published widths in the config's own bfloat16
+    (weights and, following them, the prefill's caches) through
+    lm_serve's ``serve``: every prefill attention launches the bfloat16
+    tensor-core kernel.  Then one traced prefill splits its device time by
+    kernel group (``lm_profile.breakdown``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_profile, lm_serve
+    from repro_torch.models import init_params
+
+    cfg = lm_serve.make_config(LM_ARCH)
+    check(cfg.param_dtype == "bfloat16", f"lm-bf16: {cfg.name} has "
+          f"param_dtype {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    dtypes = {p.dtype for p in params.parameters()}
+    check(dtypes == {torch.bfloat16}, f"lm-bf16: parameter types {dtypes}")
+    print(f"[lm-bf16] {cfg.name}: {cfg.n_layers} layers, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"bfloat16 parameters drawn in {time.perf_counter() - t0:.2f} s")
+    lm_serve.serve(cfg, params, lm_serve.make_prompt(cfg, LM_BATCH, 64, dev),
+                   2)  # warm-up, not measured
+    prompt = lm_serve.make_prompt(cfg, LM_BATCH, LM_PROMPT, dev)
+    seen = []
+    real = ops.flash_attention
+
+    def spy(q, k, v, **kw):  # records the types; launches and counts as is
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real(q, k, v, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.flash_attention = spy
+    try:
+        ops.reset_launch_counts()
+        res = lm_serve.serve(cfg, params, prompt, LM_GEN)
+        launches = ops.launch_counts()
+    finally:
+        ops.flash_attention = real
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(tuple(res.tokens.shape) == (LM_BATCH, LM_GEN),
+          f"lm-bf16: tokens shape {tuple(res.tokens.shape)}")
+    check(res.prefill_logits.dtype == torch.bfloat16,
+          f"lm-bf16: prefill logits are {res.prefill_logits.dtype}")
+    check(bool(torch.isfinite(res.prefill_logits).all()),
+          "lm-bf16: non-finite prefill logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "lm-bf16: token out of the vocabulary")
+    check(launches["flash_attention"] == cfg.n_layers == len(seen),
+          f"lm-bf16: flash_attention launched {launches['flash_attention']} "
+          f"times in one prefill, expected {cfg.n_layers}")
+    check(all(d == (torch.bfloat16,) * 3 for d in seen),
+          f"lm-bf16: flash_attention inputs {set(seen)}, expected bfloat16")
+    # One traced prefill (gen 1: no decode), split by kernel group.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm_serve.serve(cfg, params, prompt, 1)
+    events = prof.events()
+    wall = [e.time_range for e in events if e.name == lm_serve.PREFILL
+            and e.device_type == DeviceType.CPU]
+    split = lm_profile.breakdown(
+        "lm-bf16 traced prefill", wall[0].elapsed_us() / 1e3,
+        [e for e in events if e.device_type == DeviceType.CUDA
+         and e.name not in (lm_serve.PREFILL, lm_serve.DECODE)])
+    flash_ms = split["groups"].get("flash_attention", 0.0)
+    check(flash_ms > 0, "lm-bf16: the trace holds no flash-attention kernel")
+    print(f"[lm-bf16] prefill {LM_BATCH} x {LM_PROMPT} tokens: "
+          f"{res.prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / res.prefill_s:.0f}"
+          f" tokens/s); decode {res.decode_ms_per_step:.2f} ms/step "
+          f"({LM_BATCH * 1e3 / res.decode_ms_per_step:.1f} tokens/s); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; flash_attention "
+          f"launches {launches['flash_attention']}, all bfloat16; traced "
+          f"prefill: flash_attention {flash_ms:.3f} ms of "
+          f"{split['device_ms']:.3f} ms device time "
+          f"({flash_ms / split['device_ms']:.3f})")
+    print(f"[lm-bf16] row0: {res.tokens[0].tolist()}")
+    del params, res, prof, events
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the card against the CPU in bfloat16, max|delta| / max|ref| of the
+#: prefill logits and of 8 teacher-forced decode steps
+LM_BF16_PARITY_TOL = 3e-2
+
+
+def phase_lm_bf16_parity(torch, dev):
+    """Gemma-2-2B widths at depth 2, window 128, vocab cut to 32768,
+    bfloat16 weights, prompt 2 x 512: the card (the tensor-core kernel,
+    cuBLAS bfloat16 products) against the CPU (the plain version) on the
+    same weights.  The decode steps are teacher-forced on the CPU's
+    greedy tokens: two bfloat16 runs may split at a near-tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2, window=128,
+                              vocab_size=32768)
+    cpu = torch.device("cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(1), device=cpu)
+    check(all(p.dtype == torch.bfloat16 for p in params.parameters()),
+          "lm-bf16-parity: parameters are not bfloat16")
+    prompt = lm_serve.make_prompt(cfg, 2, 512, cpu, seed=1)
+    steps = 8
+
+    def run(p, toks, forced=None):
+        logits, caches = prefill(cfg, p, {"tokens": toks},
+                                 max_len=toks.shape[1] + steps)
+        out, tok = [logits], logits[:, -1].argmax(-1)[:, None]
+        fed = []
+        for t in range(steps):
+            tok = forced[t].to(toks.device) if forced is not None else tok
+            fed.append(tok.cpu())
+            step, caches = decode_step(cfg, p, caches, tok,
+                                       toks.shape[1] + t)
+            out.append(step)
+            tok = step[:, 0].argmax(-1)[:, None]
+        return [o.float().cpu() for o in out], fed
+
+    t0 = time.perf_counter()
+    want, fed = run(params, prompt)
+    cpu_s = time.perf_counter() - t0
+    got, _ = run(params.to(dev), prompt.to(dev), forced=fed)
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+    print(f"[lm-bf16-parity] depth 2, window 128, vocab 32768, prompt "
+          f"2 x 512, {steps} teacher-forced decode steps, bfloat16: logits "
+          f"max|delta|/max|ref| prefill {rels[0]:.3e}, decode max "
+          f"{max(rels[1:]):.3e} (tol {LM_BF16_PARITY_TOL:g}; CPU run "
+          f"{cpu_s:.1f} s)")
+    check(max(rels) <= LM_BF16_PARITY_TOL,
+          f"lm-bf16 parity: logits differ by {max(rels):.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_lm_parity(torch, dev):
     """Gemma-2-2B widths at depth 2, window 128, prompt 512: the card (flash
     kernel) against the CPU (plain version) on the same weights."""
@@ -1674,7 +1890,8 @@ def main() -> int:
     kernels = phase_kernels(torch, dev, name)
     launches = {k: 0 for k in kernels}
     for path in (phase_jacobi, phase_vi, lambda d: phase_scf(torch, d),
-                 lambda d: phase_lm(torch, d)):
+                 lambda d: phase_lm(torch, d),
+                 lambda d: phase_lm_bf16(torch, d)):
         for k, c in path(dev).items():
             launches[k] += c
     for path in (phase_chaos, lambda d: phase_recover(d, "thread")):
@@ -1684,6 +1901,7 @@ def main() -> int:
     phase_scf_parity(dev)
     phase_recover_parity(dev)
     phase_lm_parity(torch, dev)
+    phase_lm_bf16_parity(torch, dev)
     for k, c in phase_train(torch, dev, name).items():
         launches[k] += c
     phase_train_parity(torch, dev)

@@ -1,9 +1,10 @@
-// Hopper kernel for grouped-query flash attention (forward).
+// Hopper kernel for float32 grouped-query flash attention (forward).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel): out = softmax(mask(cap(q k^T / sqrt(hd))))
-// v for q (B, Sq, nq, hd) and k, v (B, Skv, nkv, hd), float32 or bfloat16,
-// accumulated in float32 and written in q's dtype.  Options: causal
+// flash_attention (_flash_kernel) for float32 inputs: out = softmax(mask(
+// cap(q k^T / sqrt(hd)))) v for q (B, Sq, nq, hd) and k, v (B, Skv, nkv,
+// hd).  bfloat16 inputs take the tensor-core kernel of
+// csrc/flash_attention_bf16.cu.  Options: causal
 // (qpos >= kpos), a sliding window (qpos - kpos < window), a softcap
 // c * tanh(s / c), and q_offset (query row i sits at position i +
 // q_offset).  Masked scores are -2e38, not -inf, and the masked
@@ -57,9 +58,6 @@
 //   tiles with V loaded into K's buffer were the alternative, but they
 //   would cut the register tile of S to 8 x 1.  Key tiles start at the
 //   first key the q tile can see, not at a multiple of 256.
-// * bfloat16 rides the same float32 template: its chunks are loaded into
-//   registers a chunk ahead, widened and stored after the products.  Its
-//   tensor-core path is later work.
 //
 // An earlier version (64 x 64 tiles, 4 x 4 scores a thread from scalar
 // shared-memory reads, synchronous staging, 209 KB of shared memory) ran
@@ -67,7 +65,6 @@
 
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -87,10 +84,10 @@ constexpr int kStages = 4;
 constexpr float kNeg = -2.0e38f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int64_t Sq, Skv, nq, group;
   int64_t sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;  // element strides
   int64_t q_offset, window;
@@ -117,35 +114,13 @@ struct Cfg {
   static constexpr int kVPer = (kVPieces + kThreads - 1) / kThreads;
 };
 
-// Four consecutive elements as float32 (the address is vector-aligned).
+// Four consecutive elements (the address is vector-aligned).
 __device__ __forceinline__ float4 load4(const float* src) {
   return *reinterpret_cast<const float4*>(src);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
-                     __high2float(hi));
-}
-
 __device__ __forceinline__ void store4(float* dst, float4 x) {
   *reinterpret_cast<float4*>(dst) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned*>(&lo);
-  raw.y = *reinterpret_cast<unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
-}
-
-__device__ __forceinline__ float store_as(float x, float*) { return x; }
-__device__ __forceinline__ __nv_bfloat16 store_as(float x, __nv_bfloat16*) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const void* src,
@@ -179,30 +154,24 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // One chunk of the ring: K chunk c < kNK (keys kv0 .. kv0 + kBK, d c*kDC ..
 // + kDC), stored d-major, or V chunk c - kNK (keys kv0 + (c - kNK) * kKC ..
-// + kKC, all d), stored as in memory.  float32 goes by cp.async straight
-// into the stage (K one element per copy, so that it lands transposed, 16
-// lanes reading one key's 64 contiguous bytes; V 16 bytes per copy);
-// bfloat16 is loaded into ``pre`` now and widened into the stage by
-// ``store`` later.
-template <typename T, int HD>
+// + kKC, all d), stored as in memory, by cp.async straight into the stage
+// (K one element per copy, so that it lands transposed, 16 lanes reading
+// one key's 64 contiguous bytes; V 16 bytes per copy).
+template <int HD>
 struct Chunk {
   using C = Cfg<HD>;
-  static constexpr bool kAsync = sizeof(T) == sizeof(float);
   // Thread t copies K elements (key kkey + r * kKStep, d kd) and V pieces
   // (key vkey + r * kVStep, columns vcol .. vcol + 3): all addresses of a
   // chunk are one base plus compile-time multiples of a stride.
   static constexpr int kKStep = kThreads / kDC;
   static constexpr int kVStep = kThreads / (HD / 4);
-  static constexpr int kPre = C::kKPer > 4 * C::kVPer ? C::kKPer
-                                                       : 4 * C::kVPer;
 
-  const T* k;
-  const T* v;
+  const float* k;
+  const float* v;
   int64_t Skv, sks, svs;
   int kkey, kd, vkey, vcol;
-  float pre[kAsync ? 1 : kPre];
 
-  __device__ __forceinline__ void init(const T* k_, const T* v_,
+  __device__ __forceinline__ void init(const float* k_, const float* v_,
                                        const Params& p) {
     k = k_;
     v = v_;
@@ -218,62 +187,32 @@ struct Chunk {
   __device__ __forceinline__ void load(float* stage, int c, int64_t kv0) {
     if (c < C::kNK) {
       const int64_t rem = Skv - kv0;  // keys of the tile that exist
-      const T* src = k + (kv0 + kkey) * sks + c * kDC + kd;
+      const float* src = k + (kv0 + kkey) * sks + c * kDC + kd;
       const int64_t step = kKStep * sks;
       float* dst = stage + kd * kKPitch + kkey;
 #pragma unroll
       for (int r = 0; r < C::kKPer; ++r) {
         const bool valid = kkey + r * kKStep < rem;
-        const T* sr = valid ? src + r * step : k;
-        if constexpr (kAsync) {
-          cp_async4(dst + r * kKStep, sr, valid);
-        } else {
-          pre[r] = valid ? static_cast<float>(*sr) : 0.f;
-        }
+        const float* sr = valid ? src + r * step : k;
+        cp_async4(dst + r * kKStep, sr, valid);
       }
     } else {
       const int64_t key0 = kv0 + (c - C::kNK) * kKC + vkey;
-      const T* src = v + key0 * svs + vcol;
+      const float* src = v + key0 * svs + vcol;
       const int64_t step = kVStep * svs;
       float* dst = stage + vkey * HD + vcol;
 #pragma unroll
       for (int r = 0; r < C::kVPer; ++r) {
         if (vkey + r * kVStep >= kKC) break;  // HD < 64: fewer pieces
         const bool valid = key0 + r * kVStep < Skv;
-        const T* sr = valid ? src + r * step : v;
-        if constexpr (kAsync) {
-          cp_async16(dst + r * kVStep * HD, sr, valid);
-        } else {
-          const float4 x =
-              valid ? load4(sr) : make_float4(0.f, 0.f, 0.f, 0.f);
-          pre[4 * r] = x.x; pre[4 * r + 1] = x.y;
-          pre[4 * r + 2] = x.z; pre[4 * r + 3] = x.w;
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* stage, int c) {
-    if constexpr (!kAsync) {
-      if (c < C::kNK) {
-        float* dst = stage + kd * kKPitch + kkey;
-#pragma unroll
-        for (int r = 0; r < C::kKPer; ++r) dst[r * kKStep] = pre[r];
-      } else {
-        float* dst = stage + vkey * HD + vcol;
-#pragma unroll
-        for (int r = 0; r < C::kVPer; ++r) {
-          if (vkey + r * kVStep >= kKC) break;
-          store4(dst + r * kVStep * HD,
-                 make_float4(pre[4 * r], pre[4 * r + 1], pre[4 * r + 2],
-                             pre[4 * r + 3]));
-        }
+        const float* sr = valid ? src + r * step : v;
+        cp_async16(dst + r * kVStep * HD, sr, valid);
       }
     }
   }
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const Params p) {
   using C = Cfg<HD>;
@@ -293,12 +232,12 @@ flash_fwd_kernel(const Params p) {
   const int64_t h = blockIdx.y;
   const int64_t b = blockIdx.z;
   const int64_t kvh = h / p.group;
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  T* o = static_cast<T*>(p.o) + (b * p.Sq * p.nq + h) * HD;  // contiguous
+  const float* q = p.q + b * p.sqb + h * p.sqh;
+  float* o = p.o + (b * p.Sq * p.nq + h) * HD;  // contiguous
 
-  Chunk<T, HD> chunk;
-  chunk.init(static_cast<const T*>(p.k) + b * p.skb + kvh * p.skh,
-             static_cast<const T*>(p.v) + b * p.svb + kvh * p.svh, p);
+  Chunk<HD> chunk;
+  chunk.init(p.k + b * p.skb + kvh * p.skh, p.v + b * p.svb + kvh * p.svh,
+             p);
 
   // The key range any row of this tile can see; key tiles start at its
   // first key (a row's 16-byte pieces need no alignment of the tile).
@@ -321,7 +260,6 @@ flash_fwd_kernel(const Params p) {
       float* stage = ring + s * C::kStage;
       const int64_t kv0 = kv_begin + (s / C::kNC) * int64_t(kBK);
       chunk.load(stage, s % C::kNC, kv0);
-      chunk.store(stage, s % C::kNC);
     }
     cp_async_commit();
   }
@@ -472,7 +410,6 @@ flash_fwd_kernel(const Params p) {
             acc[i][cc] = fmaf(pv[i], vv[cc], acc[i][cc]);
       }
     }
-    if (nn < total) chunk.store(next, nn % C::kNC);
   }
   cp_async_wait<0>();
 
@@ -481,7 +418,7 @@ flash_fwd_kernel(const Params p) {
     const int64_t row = q0 + row0 + i;
     if (row >= p.Sq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];  // fully-masked rows -> 0
-    T* orow = o + row * p.nq * HD;
+    float* orow = o + row * p.nq * HD;
 #pragma unroll
     for (int hh = 0; hh < C::kNVW; ++hh) {
       const int col = hh * 32 * C::kVW + cg * C::kVW;
@@ -494,15 +431,15 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < C::kVW; ++e)
           if (HD >= 32 || col + e < HD)
-            orow[col + e] = store_as(acc[i][hh * C::kVW + e] / li, orow);
+            orow[col + e] = acc[i][hh * C::kVW + e] / li;
       }
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const Params& p, int64_t B, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD>;
+  auto kernel = flash_fwd_kernel<HD>;
   const int bytes = Cfg<HD>::kSmemFloats * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -513,23 +450,23 @@ int launch(const Params& p, int64_t B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const T* q, const T* k, const T* v, T* o, int64_t B,
-             int64_t Sq, int64_t Skv, int64_t nq, int64_t nkv, int64_t hd,
-             int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
-             int64_t sks, int64_t skh, int64_t svb, int64_t svs,
-             int64_t svh, int64_t causal, int64_t has_window,
-             int64_t window, double softcap, int64_t q_offset,
-             void* stream_ptr) {
+}  // namespace
+
+extern "C" int rt_flash_attention_f32(
+    const float* q, const float* k, const float* v, float* o, int64_t B,
+    int64_t Sq, int64_t Skv, int64_t nq, int64_t nkv, int64_t hd,
+    int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
+    int64_t skh, int64_t svb, int64_t svs, int64_t svh, int64_t causal,
+    int64_t has_window, int64_t window, double softcap, int64_t q_offset,
+    void* stream_ptr) {
   if (B < 1 || Sq < 1 || Skv < 0 || nkv < 1 || nq % nkv != 0 ||
       nq > 65535 || B > 65535 || (Sq + kBQ - 1) / kBQ > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  // Every row start must be aligned for 16-byte copies (float32) or 8-byte
-  // loads (bfloat16); the wrapper copies inputs that are not.
-  const uintptr_t align = 4 * sizeof(T);
-  const bool ptrs = (reinterpret_cast<uintptr_t>(q) % align == 0) &&
-                    (reinterpret_cast<uintptr_t>(k) % align == 0) &&
-                    (reinterpret_cast<uintptr_t>(v) % align == 0);
+  // Every row start must be aligned for 16-byte copies; the wrapper copies
+  // inputs that are not.
+  const bool ptrs = (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
+                    (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
+                    (reinterpret_cast<uintptr_t>(v) % 16 == 0);
   const bool strides = ((sqb | sqs | sqh | skb | sks | skh | svb | svs |
                          svh) % 4) == 0;
   if (!ptrs || !strides) return static_cast<int>(cudaErrorMisalignedAddress);
@@ -545,29 +482,11 @@ int dispatch(const T* q, const T* k, const T* v, T* o, int64_t B,
   p.softcap = static_cast<float>(softcap);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (hd) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    case 256: return launch<T, 256>(p, B, stream);
+    case 16: return launch<16>(p, B, stream);
+    case 32: return launch<32>(p, B, stream);
+    case 64: return launch<64>(p, B, stream);
+    case 128: return launch<128>(p, B, stream);
+    case 256: return launch<256>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-}  // namespace
-
-#define RT_FLASH_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const T* q, const T* k, const T* v, T* o, int64_t B,   \
-                      int64_t Sq, int64_t Skv, int64_t nq, int64_t nkv,      \
-                      int64_t hd, int64_t sqb, int64_t sqs, int64_t sqh,     \
-                      int64_t skb, int64_t sks, int64_t skh, int64_t svb,    \
-                      int64_t svs, int64_t svh, int64_t causal,              \
-                      int64_t has_window, int64_t window, double softcap,    \
-                      int64_t q_offset, void* stream) {                      \
-    return dispatch<T>(q, k, v, o, B, Sq, Skv, nq, nkv, hd, sqb, sqs, sqh,   \
-                       skb, sks, skh, svb, svs, svh, causal, has_window,     \
-                       window, softcap, q_offset, stream);                   \
-  }
-
-RT_FLASH_ENTRY(rt_flash_attention_f32, float)
-RT_FLASH_ENTRY(rt_flash_attention_bf16, __nv_bfloat16)

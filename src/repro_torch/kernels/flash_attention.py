@@ -1,13 +1,17 @@
-"""Launcher of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Launchers of the CUDA flash-attention kernels.
 
 Counterpart of ``repro.kernels.flash_attention``.  CUDA tensors only; see
-:mod:`repro_torch.kernels.jacobi_stencil` for the launcher contract.  The
-inputs are read in place through their strides (the head dim must be
-unit-stride), so the GQA layout ``(B, S, heads, hd)`` needs no transpose;
-the output is a new contiguous ``(B, Sq, nq, hd)`` tensor in q's dtype.
-The kernel copies rows in 16-byte pieces, so an input whose start or
-strides are not a multiple of four elements is first copied to a fresh
-contiguous tensor (views of projections never are).
+:mod:`repro_torch.kernels.jacobi_stencil` for the launcher contract.
+float32 inputs launch the FFMA kernel of ``csrc/flash_attention.cu``,
+bfloat16 inputs the tensor-core (wgmma + TMA) kernel of
+``csrc/flash_attention_bf16.cu``; there is no other route.  The inputs are
+read in place through their strides (the head dim must be unit-stride),
+so the GQA layout ``(B, S, heads, hd)`` needs no transpose; the output is
+a new contiguous ``(B, Sq, nq, hd)`` tensor in q's dtype.  Both kernels
+read rows from 16-byte boundaries in steps of 16 bytes (float32: 16-byte
+copies; bfloat16: TMA's tensor maps), so an input that :func:`aligned`
+refuses is first copied to a fresh contiguous tensor (views of
+projections never are).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from . import _build
 from ._build import F64, I64, PTR
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "aligned", "HEAD_DIMS"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -26,10 +30,21 @@ _ENTRY = {torch.float32: "rt_flash_attention_f32",
           torch.bfloat16: "rt_flash_attention_bf16"}
 
 
+def aligned(data_ptr: int, shape, strides, itemsize: int) -> bool:
+    """Whether the kernels can read a ``(B, S, heads, hd)`` view in place:
+    its start on a 16-byte boundary, and batch, sequence and head strides
+    that are multiples of 16 bytes (4 float32 or 8 bfloat16 elements:
+    the float32 kernel's 16-byte copies, the bfloat16 kernel's TMA tensor
+    maps), and nonzero where the dimension has more than one entry (an
+    expanded view is copied rather than encoded in a tensor map).  A pure
+    function of the pointer, shape, strides and element size."""
+    return (data_ptr % 16 == 0
+            and all(s * itemsize % 16 == 0 for s in strides[:3])
+            and all(s != 0 for s, n in zip(strides[:3], shape[:3]) if n > 1))
+
+
 def _aligned(t: torch.Tensor) -> bool:
-    """Row starts on 16-byte boundaries: what the kernel's copies need."""
-    return (t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in t.stride()[:3]))
+    return aligned(t.data_ptr(), t.shape, t.stride(), t.element_size())
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -14,7 +14,11 @@ that tree's kernels there and times each kernel with CUDA events around
   and CUDA launches per call (:func:`device_profile`);
 * ``flash_attention`` at the Gemma-2-2B serve shape, q (2, 8192, 8, 256),
   k/v (2, 8192, 4, 256), causal, softcap 50: a local layer (window 4096)
-  and a global one (no window) in float32, the local one in bfloat16;
+  and a global one (no window), each in float32 and bfloat16, with CUPTI
+  device time and the SHA-256 of the output bytes (equal hashes across
+  two trees: equal bits); the bfloat16 rows also with the softcap off
+  beside ``scaled_dot_product_attention`` (the local layer's boolean mask;
+  ``is_causal`` at the global one);
 * ``bellman`` at (10^6, 4, 5) and ``bellman_block`` at (250000, 4, 5)
   gathering from a 10^6-state v (the value-iteration smoke shapes);
 * ``anderson_mix`` with beta = 1 at (6, 4,194,304), (6, 1,000,000) and
@@ -238,8 +242,12 @@ def l2_flush(torch, dev):
 
 
 def out_sha256(out) -> str:
-    """SHA-256 of a tensor's bytes (copied to the host)."""
-    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    """SHA-256 of a tensor's bytes (copied to the host; any dtype, so
+    bfloat16 too)."""
+    import torch
+
+    raw = out.detach().cpu().contiguous().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
 
 
 def mix_kernel_of(X, G, beta: float) -> str:
@@ -320,24 +328,58 @@ def bench_halo(torch, dev, ops, ref, row, fp64):
 
 
 def bench_flash(torch, dev, ops, ref, row, fp32, bf16):
+    import torch.nn.functional as F
+
     gen = torch.Generator(device=dev).manual_seed(1)
     B, S, nq, nkv, hd = 2, 8192, 8, 4, 256
     qf = torch.randn(B, S, nq, hd, generator=gen, device=dev)
     kf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
     vf = torch.randn(B, S, nkv, hd, generator=gen, device=dev)
+    pos = torch.arange(S, device=dev)
     for label, window, dt in (("local", 4096, torch.float32),
                               ("global", None, torch.float32),
-                              ("local", 4096, torch.bfloat16)):
+                              ("local", 4096, torch.bfloat16),
+                              ("global", None, torch.bfloat16)):
         q, k, v = qf.to(dt), kf.to(dt), vf.to(dt)
         kw = dict(causal=True, window=window, softcap=50.0)
-        err = float((ops.flash_attention(q, k, v, **kw).float()
-                     - ref.flash_attention(q, k, v, **kw).float()).abs().max())
+        out = ops.flash_attention(q, k, v, **kw)
+        err = float((out.float() - ref.flash_attention(q, k, v, **kw).float())
+                    .abs().max())
+        extra = dict(out_sha256=out_sha256(out))
+        del out
         torch.cuda.empty_cache()
+        if dt == torch.bfloat16:
+            # SDPA has no softcap: the kernel without it beside SDPA with
+            # the layer's mask (local) or is_causal (global, the flash
+            # backend)
+            nocap = dict(causal=True, window=window)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window is None:
+                sdpa_kw = dict(is_causal=True)
+            else:
+                sdpa_kw = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                               & (pos[:, None] - pos[None, :] < window))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True,
+                                                      **sdpa_kw)
+
+            extra.update(
+                ms_softcap_off=time_ms(torch, lambda: ops.flash_attention(
+                    q, k, v, **nocap)),
+                device_ms_softcap_off=device_profile(
+                    torch, lambda: ops.flash_attention(q, k, v, **nocap))[0],
+                library_ms=time_ms(torch, sdpa),
+                library_device_ms=device_profile(torch, sdpa)[0])
         row(f"flash_attention_{label}_{str(dt).split('.')[-1]}",
             [B, S, nq, nkv, hd, window], err,
             lambda: ops.flash_attention(q, k, v, **kw),
             *flash_work(B, S, nq, nkv, hd, window, q.element_size()),
-            fp32 if dt == torch.float32 else bf16)
+            fp32 if dt == torch.float32 else bf16,
+            device_ms=device_profile(
+                torch, lambda: ops.flash_attention(q, k, v, **kw))[0],
+            **extra)
     del q, k, v, qf, kf, vf
     torch.cuda.empty_cache()
 

@@ -6,7 +6,7 @@ Warms up, runs :func:`repro_torch.launch.lm_serve.serve` once untraced
 ranges (``lm_serve.PREFILL``, ``lm_serve.DECODE``):
 
   PYTHONPATH=src python -m repro_torch.launch.lm_profile --arch gemma2_2b \\
-      [--batch 2] [--prompt-len 8192] [--gen 9]
+      [--batch 2] [--prompt-len 8192] [--gen 9] [--dtype bfloat16]
 
 For each phase it prints the host wall time, the device time summed over
 the kernels and copies the profiler recorded (one stream, so they do not
@@ -15,8 +15,13 @@ to the phase it starts in), the device's busy share (that sum over the
 traced wall time; tracing slows the host, so for a host-bound phase the
 share is a lower bound), and the device time by group (the
 flash-attention kernel, cuBLAS products, copies, other PyTorch kernels)
-and by kernel, largest first.  ``--reduced --device cpu`` runs it without
-device times, for tests.
+and by kernel, largest first.  ``--dtype`` picks the parameters' type:
+float32 (the default, ``lm_serve``'s) or bfloat16 (the config's own
+``param_dtype``, as the JAX package's launchers serve it; the caches
+follow).  The parameters come from ``models.init_params`` and a seeded
+generator, so the script also runs unchanged against an earlier tree's
+package.  ``--reduced --device cpu`` runs it without device times, for
+tests.
 """
 
 from __future__ import annotations
@@ -25,17 +30,19 @@ import argparse
 import collections
 from typing import Dict, List, Optional
 
+import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .._device import resolve_device
+from ..models import init_params
 from . import lm_serve
 
 __all__ = ["kernel_group", "breakdown", "main"]
 
 #: (group, substrings of a kernel's name), first match wins
-_GROUPS = (("flash_attention", ("flash_fwd_kernel",)),
-           ("matmul", ("gemm", "gemv", "sm90_", "cutlass", "xmma")),
+_GROUPS = (("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
+           ("matmul", ("gemm", "gemv", "sm90_", "cutlass", "xmma", "nvjet")),
            ("copies", ("Memcpy", "Memset")))
 #: kernels listed per phase
 _TOP = 12
@@ -85,17 +92,20 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                          "decode steps")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (no device times; tests)")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32", help="the parameters' type")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = lm_serve.make_config(args.arch, args.reduced)
-    params = lm_serve.make_params(cfg, device)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         dtype=getattr(torch, args.dtype), device=device)
     prompt = lm_serve.make_prompt(cfg, args.batch, args.prompt_len, device)
     # warm-up: the kernel build on first use, cuBLAS handles and plans
     lm_serve.serve(cfg, params, prompt[:, :64], 2)
     res = lm_serve.serve(cfg, params, prompt, args.gen)
-    print(f"[serve] {cfg.name} batch {args.batch} x {args.prompt_len}: "
-          f"prefill {res.prefill_s:.3f} s, decode "
+    print(f"[serve] {cfg.name} {args.dtype} batch {args.batch} x "
+          f"{args.prompt_len}: prefill {res.prefill_s:.3f} s, decode "
           f"{res.decode_ms_per_step:.2f} ms/step (untraced)")
 
     acts = [ProfilerActivity.CPU]
@@ -115,7 +125,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     # (the profiler may mirror the two ranges on the device: not kernels)
     device_events = [e for e in events if e.device_type == DeviceType.CUDA
                      and e.name not in names]
-    out = dict(arch=cfg.name, batch=args.batch, prompt_len=args.prompt_len,
+    out = dict(arch=cfg.name, dtype=args.dtype, batch=args.batch,
+               prompt_len=args.prompt_len,
                decode_steps=args.gen - 1, prefill_s=res.prefill_s,
                decode_ms_per_step=res.decode_ms_per_step)
     out["prefill"] = breakdown(

@@ -28,10 +28,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.anderson import AndersonConfig, AndersonState  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import anderson_mix as mix  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import aligned  # noqa: E402
 from repro_torch.kernels.anderson_mix import MixPlan  # noqa: E402
 from repro_torch.launch import lm_serve  # noqa: E402
+from repro_torch.models.attention import train_attention  # noqa: E402
 from repro_torch.problems import (  # noqa: E402
     GarnetMDP,
     JacobiProblem,
@@ -677,6 +680,49 @@ class TestFlashAttentionKernel:
         torch.testing.assert_close(ops.flash_attention(q, q, q),
                                    ref.flash_attention(q, q, q),
                                    rtol=2e-5, atol=2e-5)
+
+    def test_bf16_views_with_8_byte_strides_are_copied(self, dev):
+        """bfloat16 heads 72 bytes apart (8-byte, not 16-byte, strides):
+        TMA cannot read them in place, so the wrapper copies them, and the
+        answer is the contiguous input's, bit for bit."""
+        r = np.random.default_rng(7)
+        base = torch.as_tensor(r.standard_normal((2, 70, 4, 36)),
+                               dtype=torch.bfloat16, device=dev)
+        q, k, v = base[..., :32], base[:, :, :2, 4:], base[:, :, 2:, 4:]
+        for t in (q, k, v):
+            assert t.stride(2) * 2 % 16 == 8
+            assert not aligned(t.data_ptr(), t.shape, t.stride(), 2)
+        kw = dict(causal=True, window=40, softcap=50.0)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+        assert torch.equal(got, want)
+        torch.testing.assert_close(got.float(),
+                                   ref.flash_attention(q, k, v, **kw).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+    @pytest.mark.parametrize("window", [512, None])
+    def test_bf16_no_further_from_float32_than_the_reference_math(
+            self, dev, window):
+        """Gemma-2-2B's heads at S = 2048: the max and the RMS of
+        |kernel - plain| are no larger than those of the JAX package's own
+        bfloat16 attention math (``train_attention``: scores and weights
+        rounded to bfloat16, softcap 50) against the same plain version."""
+        cfg = get_config("gemma2_2b")
+        r = np.random.default_rng(11)
+        B, S = 1, 2048
+        q = torch.as_tensor(r.standard_normal((B, S, cfg.n_heads, cfg.hd)),
+                            dtype=torch.bfloat16, device=dev)
+        k, v = (torch.as_tensor(
+            r.standard_normal((B, S, cfg.n_kv_heads, cfg.hd)),
+            dtype=torch.bfloat16, device=dev) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+        want = ref.flash_attention(q, k, v, **kw).float()
+        dk = ops.flash_attention(q, k, v, **kw).float() - want
+        dr = train_attention(cfg, q, k, v, causal=True,
+                             window=window).float() - want
+        assert float(dk.abs().max()) <= float(dr.abs().max())
+        assert float(dk.pow(2).mean()) <= float(dr.pow(2).mean())
 
     def test_strided_views_read_in_place(self, dev):
         """k and v as head slices of one fused (B, S, 2*nkv, hd) tensor."""
