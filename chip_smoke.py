@@ -31,7 +31,10 @@ and no result line is printed):
    ``train_attention`` on the same inputs), each timed by events and
    CUPTI, with the softcap and without it beside
    ``scaled_dot_product_attention`` (the local layer's mask;
-   ``is_causal`` at the global one);
+   ``is_causal`` at the global one); and bfloat16 at the MoE configs'
+   prefill shape, q/k/v (2, 8192, 16, 128), causal, no window, no softcap,
+   held to the reference's bfloat16 math for Qwen1.5-MoE's heads and timed
+   beside SDPA ``is_causal``;
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -63,6 +66,27 @@ and no result line is printed):
    the same in bfloat16 with the vocabulary cut to 32768, the decode
    teacher-forced on the CPU's tokens (two bfloat16 runs may split at a
    near-tie), logits within ``LM_BF16_PARITY_TOL`` of the CPU's;
+9b. MoE and xLSTM serving — ``[lm-moe]`` (Qwen1.5-MoE-A2.7B: 24 layers,
+   60 experts padded to 64, top-4, 4 shared) and ``[lm-olmoe]``
+   (OLMoE-1B-7B: 16 layers, 64 experts, top-8, QK-norm) at their published
+   widths in bfloat16, the same prompt and generation as phase 8: one
+   bfloat16 flash launch a layer a prefill, finite logits, tokens in the
+   vocabulary; prefill seconds and tokens/s, decode ms/step, peak memory,
+   the assignments the prefill dropped by capacity (factor 1.25) and one
+   traced prefill's device time by kernel group (``moe_dispatch`` among
+   them); ``[lm-xlstm]`` (xLSTM-125M, 12 layers [m, m, m, s], bfloat16):
+   no flash launch, finite logits, prefill and decode times, peak memory
+   and the sLSTM loops' share of the prefill.  Then ``[lm-moe-parity]``
+   (Qwen1.5-MoE widths at depth 2, vocab 32768, prompt 4 x 256, 8 decode
+   steps teacher-forced on the CPU's tokens; float32 to 1e-4, bfloat16 to
+   ``LM_BF16_PARITY_TOL``; the card takes the CPU's experts where its
+   top-k set differs, each such flip a near-tie on the CPU, ``MOE_TIE``)
+   and ``[lm-xlstm-parity]`` (xLSTM-125M widths at depth 4, float32, prompt
+   2 x 1024; the whole model amplifies rounding, so each piece runs on
+   the card from the CPU's inputs: each sLSTM step and each decode step
+   against the CPU's, each mLSTM layer, parallel and ``ssm_chunk=256``,
+   against the float64 answer, all to 1e-4); each model is freed before
+   the next;
 10. process backend — the Jacobi g = 2048 and SCF main paths on
    ``executor="process"`` (4 spawned workers, each with its own CUDA
    context on the card; without MPS their kernels time-slice): the Jacobi
@@ -169,6 +193,11 @@ SCF_ATOMS, SCF_DIIS_M = 1024, 8
 
 #: LM serving main path: Gemma-2-2B, batch x prompt tokens, tokens generated
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma2_2b", 2, 8192, 32
+
+#: the MoE and xLSTM serving cells (phase label, arch), served at the same
+#: batch, prompt and generation in each config's bfloat16
+LM_MOE = (("lm-moe", "qwen2_moe_a2p7b"), ("lm-olmoe", "olmoe_1b_7b"))
+LM_XLSTM = "xlstm_125m"
 
 #: LM training main path (its shape is ``launch/train_profile.py``'s): timed
 #: steps, after one warm-up step
@@ -512,6 +541,20 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
                                                 cap, mask, bound, bf16)
     del q, k, v
     torch.cuda.empty_cache()
+    # The MoE configs' prefill attention (both have 16 heads of 128, no GQA,
+    # no window, no softcap): q/k/v (2, 8192, 16, 128), causal.
+    from repro_torch.configs import get_config
+
+    moe_arch = LM_MOE[0][1]
+    mcfg = get_config(moe_arch)
+    mshape = (B, S, mcfg.n_heads, mcfg.hd)
+    q, k, v = (torch.randn(*mshape, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    out["bf16_moe_hd128"] = flash_bf16_layer(
+        torch, "moe hd128", q, k, v, None, None, None, bound, bf16,
+        arch=moe_arch)
+    del q, k, v
+    torch.cuda.empty_cache()
     # float32 (both sides compute in float32): every element within 2e-5,
     # held by ``record`` below.
     qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
@@ -568,8 +611,10 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     torch.cuda.empty_cache()
 
 
-def flash_bf16_layer(torch, label, q, k, v, window, cap, mask, bound, peak):
-    """The bfloat16 tensor-core kernel at one serve layer.  The kernel
+def flash_bf16_layer(torch, label, q, k, v, window, cap, mask, bound, peak,
+                     arch=LM_ARCH):
+    """The bfloat16 tensor-core kernel at one serve layer of ``arch``.  The
+    kernel
     rounds P to bfloat16 before P V (as FlashAttention-2/3 do), so its
     elements are not held to the float32 answer's 2e-5: the max and the
     RMS of |kernel - plain| must not exceed those of the JAX package's own
@@ -588,8 +633,11 @@ def flash_bf16_layer(torch, label, q, k, v, window, cap, mask, bound, peak):
     nkv = k.shape[2]
     kw = dict(causal=True, window=window, softcap=cap)
     nocap = dict(causal=True, window=window)
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     check(cfg.attn_softcap == cap, "the reference math's softcap differs")
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (q.shape[2], k.shape[2],
+                                                    q.shape[3]),
+          f"flash_attention bf16 {label}: q/k/v are not {cfg.name}'s heads")
 
     def dev_of(diff):
         return float(diff.abs().max()), float(diff.pow(2).mean().sqrt())
@@ -1604,6 +1652,459 @@ def phase_lm_bf16_parity(torch, dev):
     torch.cuda.empty_cache()
 
 
+def _bf16_cell(torch, dev, label, arch):
+    """Draw ``arch``'s weights at its published widths in its bfloat16 on
+    the card and warm ``lm_serve.serve`` up; returns (cfg, params,
+    prompt)."""
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import init_params
+
+    cfg = lm_serve.make_config(arch)
+    check(cfg.param_dtype == "bfloat16", f"{label}: {cfg.name} has "
+          f"param_dtype {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    dtypes = {p.dtype for p in params.parameters()}
+    check(dtypes == {torch.bfloat16}, f"{label}: parameter types {dtypes}")
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers {cfg.period}, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, vocab "
+          f"{cfg.vocab_size}; "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"bfloat16 parameters drawn in {time.perf_counter() - t0:.2f} s")
+    lm_serve.serve(cfg, params, lm_serve.make_prompt(cfg, LM_BATCH, 64, dev),
+                   2)  # warm-up, not measured
+    prompt = lm_serve.make_prompt(cfg, LM_BATCH, LM_PROMPT, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return cfg, params, prompt
+
+
+def _check_served(torch, label, cfg, res):
+    check(tuple(res.tokens.shape) == (LM_BATCH, LM_GEN),
+          f"{label}: tokens shape {tuple(res.tokens.shape)}")
+    check(res.prefill_logits.dtype == torch.bfloat16,
+          f"{label}: prefill logits are {res.prefill_logits.dtype}")
+    check(bool(torch.isfinite(res.prefill_logits).all()),
+          f"{label}: non-finite prefill logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"{label}: token out of the vocabulary")
+
+
+def _rates(res) -> str:
+    return (f"prefill {LM_BATCH} x {LM_PROMPT} tokens: {res.prefill_s:.3f} s "
+            f"({LM_BATCH * LM_PROMPT / res.prefill_s:.0f} tokens/s); decode "
+            f"{res.decode_ms_per_step:.2f} ms/step "
+            f"({LM_BATCH * 1e3 / res.decode_ms_per_step:.1f} tokens/s)")
+
+
+def phase_lm_moe(torch, dev, label, arch):
+    """An MoE config at its published widths in bfloat16 through lm_serve's
+    ``serve``: prefill attention through the bfloat16 flash kernel once per
+    layer, the experts through ``models.moe`` (capacity in the prefill,
+    dropless on the picked experts in decode).  Counts the assignments
+    the prefill dropped by capacity; then one traced prefill's device time
+    by kernel group (``lm_profile.breakdown``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_profile, lm_serve
+    from repro_torch.models import moe
+
+    cfg, params, prompt = _bf16_cell(torch, dev, label, arch)
+    m = cfg.moe
+    T = LM_BATCH * LM_PROMPT
+    C = moe.capacity(cfg, T)
+    print(f"[{label}] {m.n_experts} experts padded to {m.padded_experts}, "
+          f"top-{m.top_k}, {m.n_shared} shared, d_ff {cfg.d_ff}; prefill "
+          f"capacity {C} a expert (factor {m.capacity_factor:g})")
+    seen, dropped = [], []
+    real_flash, real_moe = ops.flash_attention, moe.moe_ffn
+
+    def flash_spy(q, k, v, **kw):  # records the types; launches as is
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real_flash(q, k, v, **kw)
+
+    def moe_spy(cfg_, p, x, dropless=False, **kw):
+        out, aux = real_moe(cfg_, p, x, dropless=dropless, **kw)
+        if not dropless:
+            dropped.append(aux["moe_dropped"])
+        return out, aux
+
+    ops.flash_attention, moe.moe_ffn = flash_spy, moe_spy
+    try:
+        ops.reset_launch_counts()
+        res = lm_serve.serve(cfg, params, prompt, LM_GEN)
+        launches = ops.launch_counts()
+    finally:
+        ops.flash_attention, moe.moe_ffn = real_flash, real_moe
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_served(torch, label, cfg, res)
+    check(launches["flash_attention"] == cfg.n_layers == len(seen),
+          f"{label}: flash_attention launched {launches['flash_attention']} "
+          f"times in one prefill, expected {cfg.n_layers}")
+    check(all(d == (torch.bfloat16,) * 3 for d in seen),
+          f"{label}: flash_attention inputs {set(seen)}, expected bfloat16")
+    check(len(dropped) == cfg.n_layers,
+          f"{label}: {len(dropped)} capacity-dispatched MoE layers in the "
+          f"prefill, expected {cfg.n_layers}")
+    n_drop = int(torch.stack(dropped).sum())
+    n_assign = T * m.top_k * cfg.n_layers
+    # One traced prefill (gen 1: no decode), split by kernel group.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm_serve.serve(cfg, params, prompt, 1)
+    events = prof.events()
+    wall = [e.time_range for e in events if e.name == lm_serve.PREFILL
+            and e.device_type == DeviceType.CPU]
+    split = lm_profile.breakdown(
+        f"{label} traced prefill", wall[0].elapsed_us() / 1e3,
+        [e for e in events if e.device_type == DeviceType.CUDA
+         and e.name not in (lm_serve.PREFILL, lm_serve.DECODE)])
+    groups = split["groups"]
+    check(groups.get("flash_attention", 0.0) > 0,
+          f"{label}: the trace holds no flash-attention kernel")
+    shares = ", ".join(f"{g} {ms:.3f} ms ({ms / split['device_ms']:.3f})"
+                       for g, ms in sorted(groups.items(),
+                                           key=lambda kv: -kv[1]))
+    print(f"[{label}] {_rates(res)}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; flash_attention launches "
+          f"{launches['flash_attention']}, all bfloat16; assignments dropped "
+          f"by capacity in the prefill {n_drop} of {n_assign} "
+          f"({n_drop / n_assign:.4f}); traced prefill device time "
+          f"{split['device_ms']:.3f} ms: {shares}")
+    print(f"[{label}] row0: {res.tokens[0].tolist()}")
+    del params, res, prof, events
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_xlstm(torch, dev):
+    """xLSTM-125M at its published widths in bfloat16 through lm_serve's
+    ``serve``: the parallel mLSTM and the sLSTM's Python loop over time in
+    the prefill, recurrent states in decode; no attention, so no flash
+    launch.  The sLSTM layers' prefill seconds are read by synchronising
+    around each."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import xlstm
+
+    label = "lm-xlstm"
+    cfg, params, prompt = _bf16_cell(torch, dev, label, LM_XLSTM)
+    slstm_s = []
+    real = xlstm.slstm_block_with_state
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t0)
+        return out
+
+    xlstm.slstm_block_with_state = timed
+    try:
+        ops.reset_launch_counts()
+        res = lm_serve.serve(cfg, params, prompt, LM_GEN)
+        launches = ops.launch_counts()
+    finally:
+        xlstm.slstm_block_with_state = real
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_served(torch, label, cfg, res)
+    check(launches["flash_attention"] == 0,
+          f"{label}: flash_attention launched {launches['flash_attention']} "
+          f"times, expected none")
+    n_s = sum(1 for mixer, _ in cfg.period if mixer == "slstm") * cfg.n_periods
+    check(len(slstm_s) == n_s, f"{label}: {len(slstm_s)} sLSTM prefills, "
+          f"expected {n_s}")
+    print(f"[{label}] {_rates(res)}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; flash_attention launches 0; the {n_s} "
+          f"sLSTM layers' loops over {LM_PROMPT} steps {sum(slstm_s):.3f} s "
+          f"({sum(slstm_s) / res.prefill_s:.3f} of the prefill)")
+    print(f"[{label}] row0: {res.tokens[0].tolist()}")
+    del params, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _forced_run(torch, cfg, params, toks, steps, forced=None):
+    """Prefill ``toks`` and ``steps`` decode steps, each fed the previous
+    greedy token or, with ``forced``, that list's; returns the logits
+    (float32, on the CPU) and the tokens fed."""
+    from repro_torch.models import decode_step, prefill
+
+    logits, caches = prefill(cfg, params, {"tokens": toks},
+                             max_len=toks.shape[1] + steps)
+    out, tok, fed = [logits], logits[:, -1].argmax(-1)[:, None], []
+    for t in range(steps):
+        tok = forced[t].to(toks.device) if forced is not None else tok
+        fed.append(tok.cpu())
+        step, caches = decode_step(cfg, params, caches, tok,
+                                   toks.shape[1] + t)
+        out.append(step)
+        tok = step[:, 0].argmax(-1)[:, None]
+    return [o.float().cpu() for o in out], fed
+
+
+def _rel_max(got, want) -> float:
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want))
+
+
+#: [lm-moe-parity]: the CPU's gap between the k-th and (k+1)-th router
+#: probability below which a routing decision may differ on the card
+MOE_TIE = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def phase_lm_moe_parity(torch, dev):
+    """Qwen1.5-MoE widths at depth 2 (all 64 experts; capacity factor
+    1.25, so experts overflow), vocab cut to 32768, prompt 4 x 256, 8
+    decode steps: the card against the CPU on the same weights, in
+    float32 (tol 1e-4) and bfloat16 (``LM_BF16_PARITY_TOL``), the decode
+    teacher-forced on the CPU's tokens.  Routing near-ties may flip
+    between the devices, and a flip at one token moves its row and, by
+    the shared capacity, other rows' drops: so each router call on the
+    card takes the CPU's experts where its top-k set differs, each such
+    flip must be a near-tie on the CPU (its gap between the k-th and
+    (k+1)-th probability below ``MOE_TIE``), and the logits of every row
+    are then held.  Prints the flips, their largest gap and the rows
+    without one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import init_params, moe
+
+    cfg = dataclasses.replace(get_config(LM_MOE[0][1]), n_layers=2,
+                              vocab_size=32768)
+    k, cpu = cfg.moe.top_k, torch.device("cpu")
+    B, S, steps = 4, 256, 8
+    prompt = lm_serve.make_prompt(cfg, B, S, cpu, seed=1)
+    real = moe.route
+    for dtype, tol in ((torch.float32, 1e-4),
+                       (torch.bfloat16, LM_BF16_PARITY_TOL)):
+        name = str(dtype).replace("torch.", "")
+        params = init_params(cfg, torch.Generator().manual_seed(1),
+                             dtype=dtype, device=cpu)
+        rec = []
+
+        def record(cfg_, p, xt):
+            r = real(cfg_, p, xt)
+            top = r.probs.topk(k + 1, dim=-1).values
+            rec.append((r.top_e, top[:, k - 1] - top[:, k]))
+            return r
+
+        moe.route = record
+        try:
+            t0 = time.perf_counter()
+            want, fed = _forced_run(torch, cfg, params, prompt, steps)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            moe.route = real
+        calls = iter(rec)
+        flips, gaps, rows = 0, [], set()
+
+        def force(cfg_, p, xt):
+            nonlocal flips
+            r = real(cfg_, p, xt)
+            want_e, gap = next(calls)
+            diff = (r.top_e.sort(-1).values.cpu()
+                    != want_e.sort(-1).values).any(-1)
+            idx = diff.nonzero()[:, 0]
+            if idx.numel() == 0:
+                return r
+            flips += idx.numel()
+            gaps.extend(gap[idx].tolist())
+            per_row = xt.shape[0] // B
+            rows.update(int(t) // per_row for t in idx)
+            check(float(gap[idx].max()) < MOE_TIE[name],
+                  f"lm-moe-parity {name}: routing differs at tokens "
+                  f"{idx.tolist()[:8]} whose CPU gap "
+                  f"{float(gap[idx].max()):.3e} is no near-tie")
+            top_e = torch.where(diff.to(xt.device)[:, None],
+                                want_e.to(xt.device), r.top_e)
+            top_p = r.probs.gather(-1, top_e)
+            return moe.Routing(r.logits, r.probs,
+                               top_p / top_p.sum(-1, keepdim=True), top_e)
+
+        moe.route = force
+        try:
+            got, _ = _forced_run(torch, cfg, params.to(dev), prompt.to(dev),
+                                 steps, forced=fed)
+        finally:
+            moe.route = real
+        check(next(calls, None) is None, "lm-moe-parity: the card made "
+              "fewer router calls than the CPU")
+        rel = _rel_max(got, want)
+        same = all(torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1))
+                   for g, w in zip(got, want))
+        print(f"[lm-moe-parity] {name}: depth 2, 64 experts, vocab 32768, "
+              f"prompt {B} x {S}, {steps} teacher-forced decode steps: "
+              f"logits max|delta|/max|ref| {rel:.3e} (tol {tol:g}); "
+              f"routing flips {flips} (largest CPU gap "
+              f"{max(gaps) if gaps else 0.0:.3e}, tie bound "
+              f"{MOE_TIE[name]:g}), rows without a flip "
+              f"{B - len(rows)} of {B}; greedy picks identical {same} "
+              f"(CPU run {cpu_s:.1f} s)")
+        check(rel <= tol, f"lm-moe-parity {name}: logits differ by "
+              f"{rel:.3e}")
+        del params
+        torch.cuda.empty_cache()
+
+
+#: [lm-xlstm-parity]: a layer's (or a step's) output on the card from the
+#: CPU's input, against the CPU's (the sLSTM and decode steps) or against
+#: the float64 answer (the mLSTM layers), float32
+XLSTM_TOL = 1e-4
+
+
+def phase_lm_xlstm_parity(torch, dev):
+    """xLSTM-125M widths at depth 4 (one [m, m, m, s] period), float32,
+    prompt 2 x 1024, 8 decode steps: the card against the CPU on the same
+    weights.  At these widths the model is ill-conditioned in float32:
+    on the CPU alone, 1e-7 relative noise on the weights moves the
+    logits by ~1e-1 (the JAX package's own model by ~1e-2), through the
+    mLSTM's normaliser and the sLSTM's recurrence over 1024 steps.  So
+    each piece gets the CPU's inputs and is held to ``XLSTM_TOL``: every
+    sLSTM step of the prefill from the CPU's state and input at that step
+    (all 1024 in one batched step) and every decode step from the CPU's
+    states and token, against the CPU's; every mLSTM layer's prefill
+    output and final state from the CPU's input to that layer, in the
+    parallel form and with ``ssm_chunk=256`` (the chunk-recurrent form),
+    against the float64 answer (the parallel form with the module's
+    float32 points in float64, on the CPU; the chunked form's float64
+    answer is the same to ~1e-13).  A single mLSTM layer at these widths
+    has a float32 error near 7e-5 against that answer on either device,
+    so card and CPU are held to it rather than to each other.  The whole
+    model's logits, card against CPU, are printed beside the CPU's own
+    1e-7 weight-noise spread."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import xlstm
+
+    cfg = dataclasses.replace(get_config(LM_XLSTM), n_layers=4)
+    cpu, steps, B, S = torch.device("cpu"), 8, 2, 1024
+    params = init_params(cfg, torch.Generator().manual_seed(1),
+                         dtype=torch.float32, device=cpu)
+    prompt = lm_serve.make_prompt(cfg, B, S, cpu, seed=1)
+    ins, outs, slstm_steps = [], [], []
+    real_full, real_step = tf.apply_sublayer_full, xlstm._slstm_step
+
+    def record_full(cfg_, p, sub, x, *a, **kw):
+        r = real_full(cfg_, p, sub, x, *a, **kw)
+        ins.append(x)
+        outs.append(r)
+        return r
+
+    def record_step(wr32, bias, xt, st):
+        nxt = real_step(wr32, bias, xt, st)
+        slstm_steps.append((xt, st, nxt))
+        return nxt
+
+    t0 = time.perf_counter()
+    tf.apply_sublayer_full, xlstm._slstm_step = record_full, record_step
+    try:
+        want, fed = _forced_run(torch, cfg, params, prompt, steps)
+    finally:
+        tf.apply_sublayer_full, xlstm._slstm_step = real_full, real_step
+    cpu_s = time.perf_counter() - t0
+    check(len(ins) == cfg.n_layers and len(slstm_steps) == S + steps,
+          f"lm-xlstm-parity: recorded {len(ins)} layers and "
+          f"{len(slstm_steps)} sLSTM steps")
+    # the CPU's own spread under 1e-7 relative weight noise
+    noisy = copy.deepcopy(params)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for q in noisy.parameters():
+            q.mul_(1 + 1e-7 * torch.randn(q.shape, generator=gen))
+    spread = _rel_max(_forced_run(torch, cfg, noisy, prompt, steps,
+                                  forced=fed)[0], want)
+    del noisy
+    # decode from the CPU's states: its prefill caches, then each step's
+    caches, states = [], None
+    with torch.no_grad():
+        from repro_torch.models import decode_step, prefill
+
+        _, states = prefill(cfg, params, {"tokens": prompt},
+                            max_len=S + steps)
+        for t in range(steps):
+            caches.append(states)
+            _, states = decode_step(cfg, params, states, fed[t], S + t)
+
+    def on(tree):
+        return type(tree)(*(a.to(dev) for a in tree))
+
+    params = params.to(dev)
+    got, _ = _forced_run(torch, cfg, params, prompt.to(dev), steps,
+                         forced=fed)
+    whole = _rel_max(got, want)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    ccfg = dataclasses.replace(cfg, ssm_chunk=256)
+
+    def err(res, want):  # output and final state, largest
+        return max(_rel_max([g.cpu().double()], [w.cpu().double()])
+                   for g, w in zip([res[0], *res[2]], [want[0], *want[2]]))
+
+    errs = {"card": [], "card ssm_chunk=256": [], "CPU": [],
+            "card vs CPU": [], "ssm_chunk=256 vs parallel": []}
+    with torch.no_grad():
+        for i, layer in enumerate(params.layers):
+            if layer.kind[0] != "mlstm":
+                continue
+            lay64 = copy.deepcopy(layer).to(cpu).double()
+            xlstm.f32 = torch.float64
+            try:
+                want64 = real_full(cfg, lay64, lay64.kind, ins[i].double(),
+                                   pos.cpu(), collect_cache=True,
+                                   max_len=S + steps)
+            finally:
+                xlstm.f32 = torch.float32
+            x = ins[i].to(dev)
+            res = real_full(cfg, layer, layer.kind, x, pos,
+                            collect_cache=True, max_len=S + steps)
+            cres = real_full(ccfg, layer, layer.kind, x, pos,
+                             collect_cache=True, max_len=S + steps)
+            errs["card"].append(err(res, want64))
+            errs["card ssm_chunk=256"].append(err(cres, want64))
+            errs["CPU"].append(err(outs[i], want64))
+            errs["card vs CPU"].append(err(res, outs[i]))
+            errs["ssm_chunk=256 vs parallel"].append(err(cres, res))
+        layer = [lyr for lyr in params.layers if lyr.kind[0] == "slstm"][0]
+        xt = torch.cat([x for x, _, _ in slstm_steps]).to(dev)
+        st = xlstm.SLSTMState(*(torch.cat(f).to(dev) for f in zip(
+            *(s for _, s, _ in slstm_steps))))
+        nxt = real_step(layer["mixer"]["wr"].float(), layer["mixer"]["bias"],
+                        xt, st)
+        step_err = max(_rel_max([g.cpu()], [torch.cat(f)]) for g, f in zip(
+            nxt, zip(*(n for _, _, n in slstm_steps))))
+        dec = [decode_step(cfg, params, [on(c) for c in caches[t]],
+                           fed[t].to(dev), S + t)[0].float().cpu()
+               for t in range(steps)]
+    dec_err = _rel_max(dec, want[1:])
+    mlstm = "; ".join(f"{k} {', '.join(f'{e:.3e}' for e in v)}"
+                      for k, v in errs.items())
+    print(f"[lm-xlstm-parity] depth 4, float32, prompt {B} x {S}, {steps} "
+          f"decode steps, each piece from the CPU's inputs, max|delta|/"
+          f"max|ref|: the {len(slstm_steps)} sLSTM steps card vs CPU "
+          f"{step_err:.3e}; decode steps card vs CPU {dec_err:.3e}; mLSTM "
+          f"layers' output and state against the float64 answer: {mlstm} "
+          f"(tol {XLSTM_TOL:g} for the card, both forms, and the steps); "
+          f"whole model card vs CPU {whole:.3e}, the CPU against itself "
+          f"under 1e-7 weight noise {spread:.3e} (CPU run {cpu_s:.1f} s)")
+    check(max([step_err, dec_err] + errs["card"]) <= XLSTM_TOL,
+          "lm-xlstm-parity: the card differs from the CPU or the float64 "
+          "answer")
+    check(max(errs["card ssm_chunk=256"]) <= XLSTM_TOL,
+          "lm-xlstm-parity: the chunked mLSTM differs from the float64 "
+          "answer")
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_lm_parity(torch, dev):
     """Gemma-2-2B widths at depth 2, window 128, prompt 512: the card (flash
     kernel) against the CPU (plain version) on the same weights."""
@@ -1902,6 +2403,13 @@ def main() -> int:
     phase_recover_parity(dev)
     phase_lm_parity(torch, dev)
     phase_lm_bf16_parity(torch, dev)
+    for label, arch in LM_MOE:
+        for k, c in phase_lm_moe(torch, dev, label, arch).items():
+            launches[k] += c
+    for k, c in phase_lm_xlstm(torch, dev).items():
+        launches[k] += c
+    phase_lm_moe_parity(torch, dev)
+    phase_lm_xlstm_parity(torch, dev)
     for k, c in phase_train(torch, dev, name).items():
         launches[k] += c
     phase_train_parity(torch, dev)

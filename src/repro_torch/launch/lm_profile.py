@@ -8,14 +8,22 @@ ranges (``lm_serve.PREFILL``, ``lm_serve.DECODE``):
   PYTHONPATH=src python -m repro_torch.launch.lm_profile --arch gemma2_2b \\
       [--batch 2] [--prompt-len 8192] [--gen 9] [--dtype bfloat16]
 
+``--arch`` takes any config the port carries (``configs.PORTED``), the
+MoE (``qwen2_moe_a2p7b``, ``olmoe_1b_7b``) and xLSTM (``xlstm_125m``) ones
+too.
+
 For each phase it prints the host wall time, the device time summed over
 the kernels and copies the profiler recorded (one stream, so they do not
 overlap; the serve synchronises between the phases, so a kernel belongs
 to the phase it starts in), the device's busy share (that sum over the
 traced wall time; tracing slows the host, so for a host-bound phase the
 share is a lower bound), and the device time by group (the
-flash-attention kernel, cuBLAS products, copies, other PyTorch kernels)
-and by kernel, largest first.  ``--dtype`` picks the parameters' type:
+flash-attention kernel, cuBLAS products, MoE routing and dispatch, copies,
+other PyTorch kernels) and by kernel, largest first.  The
+``moe_dispatch`` group is every top-k, sort, ``searchsorted``, gather,
+scatter, index and histogram kernel: an MoE layer's routing and token
+movement (in the other configs only the embedding lookup and the ring
+caches' writes land there).  ``--dtype`` picks the parameters' type:
 float32 (the default, ``lm_serve``'s) or bfloat16 (the config's own
 ``param_dtype``, as the JAX package's launchers serve it; the caches
 follow).  The parameters come from ``models.init_params`` and a seeded
@@ -40,15 +48,18 @@ from . import lm_serve
 
 __all__ = ["kernel_group", "breakdown", "main"]
 
-#: (group, substrings of a kernel's name), first match wins
+#: (group, substrings of a kernel's name in lower case), first match wins
 _GROUPS = (("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
            ("matmul", ("gemm", "gemv", "sm90_", "cutlass", "xmma", "nvjet")),
-           ("copies", ("Memcpy", "Memset")))
+           ("copies", ("memcpy", "memset")),
+           ("moe_dispatch", ("topk", "sort", "index", "scatter", "gather",
+                             "histogram")))
 #: kernels listed per phase
 _TOP = 12
 
 
 def kernel_group(name: str) -> str:
+    name = name.lower()
     for group, keys in _GROUPS:
         if any(k in name for k in keys):
             return group

@@ -1,6 +1,6 @@
-"""The port's LM substrate for the dense decoders: layers, attention (prefill
-through the flash kernel wrapper), and the stack with its training and
-serving passes."""
+"""The port's LM substrate: layers, attention (prefill through the flash
+kernel wrapper), MoE, xLSTM, and the stack with its training and serving
+passes."""
 
 from .transformer import (
     DecoderLM,

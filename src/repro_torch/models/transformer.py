@@ -1,6 +1,6 @@
 """The decoder stack: its training pass and its serving passes.
 
-Counterpart of the dense parts of ``repro.models.transformer``.  The
+Counterpart of the decoder parts of ``repro.models.transformer``.  The
 reference scans a repeating *period* of (mixer, ffn) sublayers over
 stacked parameters, plus an unscanned remainder; the scan, remat and the
 loop barrier exist for XLA.  Here the stack is a :class:`DecoderLM`
@@ -21,15 +21,17 @@ Three entry modes share one sublayer implementation:
 :class:`~repro_torch.models.common.FlatParams` laid out in the order of
 the reference's ``ravel_pytree`` of its stacked parameter tree.
 
-Only the dense decoders are ported: attention/local mixers and mlp (or
-no) FFNs.  Mamba, mLSTM/sLSTM, MoE, encoder-decoder and vision configs
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+Mixers: global attention, sliding-window attention (ring cache), mLSTM
+and sLSTM (recurrent states, :mod:`.xlstm`).  FFNs: dense (SwiGLU/GeGLU/
+GELU/ReLU²), MoE (:mod:`.moe`; its auxiliary losses are summed over the
+layers by ``forward_train``) or none.  Mamba, encoder-decoder and vision
+configs raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,6 +40,8 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelConfig, Sublayer as SublayerKind
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import xlstm as xlstm_mod
 from .attention import KVCache
 from .common import FlatParams, ParamTree, leaves, materialize, stack_specs
 from .layers import (
@@ -55,25 +59,24 @@ __all__ = ["check_ported", "sublayer_spec", "model_spec", "Sublayer",
            "make_trainable", "apply_sublayer_full", "apply_sublayer_decode",
            "forward_train", "lm_loss", "prefill", "decode_step"]
 
-#: the ROADMAP.md item of each mixer / ffn kind the port does not carry
-_UNPORTED_MIXERS = {"mamba": "1.7c (Mamba)", "mlstm": "1.7d (xLSTM)",
-                    "slstm": "1.7d (xLSTM)"}
-_UNPORTED_FFNS = {"moe": "1.7b (MoE)"}
+#: the ROADMAP.md item of each mixer kind the port does not carry
+_UNPORTED_MIXERS = {"mamba": "1.7c (Mamba)"}
+_MIXERS = ("attn", "local", "mlstm", "slstm")
+_FFNS = ("mlp", "moe", "none")
+
+#: one layer's decode cache: a KV cache, or an mLSTM / sLSTM state
+Cache = Union[KVCache, xlstm_mod.MLSTMState, xlstm_mod.SLSTMState]
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP.md item) unless
-    ``cfg`` is a dense decoder the port carries."""
+    ``cfg`` is a decoder the port carries."""
     for mixer, ffn in cfg.period:
         if mixer in _UNPORTED_MIXERS:
             raise NotImplementedError(
                 f"{mixer} mixers are not ported yet: ROADMAP.md item "
                 f"{_UNPORTED_MIXERS[mixer]}")
-        if ffn in _UNPORTED_FFNS:
-            raise NotImplementedError(
-                f"{ffn} FFNs are not ported yet: ROADMAP.md item "
-                f"{_UNPORTED_FFNS[ffn]}")
-        if mixer not in ("attn", "local") or ffn not in ("mlp", "none"):
+        if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"unknown sublayer {(mixer, ffn)}")
     if cfg.kind == "encdec" or cfg.pos_embed != "rope":
         raise NotImplementedError(
@@ -88,15 +91,26 @@ def check_ported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------- #
 # Parameter specs
 # --------------------------------------------------------------------- #
+def _mixer_spec(cfg: ModelConfig, mixer: str) -> Dict:
+    if mixer == "mlstm":
+        return xlstm_mod.mlstm_spec(cfg)
+    if mixer == "slstm":
+        return xlstm_mod.slstm_spec(cfg)
+    return attn_mod.attn_spec(cfg)
+
+
 def sublayer_spec(cfg: ModelConfig, sub: SublayerKind) -> Dict:
-    _, ffn = sub
+    mixer, ffn = sub
     s: Dict = {
         "norm1": rmsnorm_spec(cfg.d_model),
-        "mixer": attn_mod.attn_spec(cfg),
+        "mixer": _mixer_spec(cfg, mixer),
     }
     if ffn == "mlp":
         s["norm2"] = rmsnorm_spec(cfg.d_model)
         s["ffn"] = mlp_spec(cfg)
+    elif ffn == "moe":
+        s["norm2"] = rmsnorm_spec(cfg.d_model)
+        s["ffn"] = moe_mod.moe_spec(cfg)
     return s
 
 
@@ -125,8 +139,9 @@ def layer_kinds(cfg: ModelConfig) -> List[SublayerKind]:
 # Modules
 # --------------------------------------------------------------------- #
 class Sublayer(ParamTree):
-    """One (mixer, ffn) layer: ``norm1``, ``mixer`` (wq, wk, wv, wo and
-    the optional q/k norms), and for mlp layers ``norm2`` and ``ffn``."""
+    """One (mixer, ffn) layer: ``norm1``, ``mixer`` (attention's wq, wk,
+    wv, wo and the optional q/k norms, or an mLSTM / sLSTM block's
+    weights), and for mlp and moe layers ``norm2`` and ``ffn``."""
 
     def __init__(self, kind: SublayerKind, tree: Dict):
         super().__init__(tree)
@@ -134,7 +149,7 @@ class Sublayer(ParamTree):
 
 
 class DecoderLM(nn.Module):
-    """The parameters of a dense decoder: ``embed``, ``layers`` (one
+    """The parameters of a decoder: ``embed``, ``layers`` (one
     :class:`Sublayer` per layer, in order) and ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, embed_tree: Dict,
@@ -210,60 +225,107 @@ def make_trainable(params: DecoderLM) -> FlatParams:
     return params.flat
 
 
+def _sublayer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
+                    dtype, device) -> Cache:
+    if mixer == "mlstm":
+        return xlstm_mod.init_mlstm_state(cfg, batch, device)
+    if mixer == "slstm":
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
+    return attn_mod.init_cache(cfg, batch, max_len,
+                               cfg.window if mixer == "local" else None,
+                               dtype, device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                device=None) -> List[KVCache]:
-    """One empty KV cache per layer (ring buffers for local layers) on
-    ``device`` (None: the card)."""
+                device=None) -> List[Cache]:
+    """One empty decode cache per layer on ``device`` (None: the card): a
+    KV cache for attention (a ring buffer for local layers), a float32
+    mLSTM or sLSTM state for the recurrent mixers."""
     device = resolve_device(device)
-    return [attn_mod.init_cache(cfg, batch, max_len,
-                                cfg.window if mixer == "local" else None,
-                                dtype, device)
+    return [_sublayer_cache(cfg, mixer, batch, max_len, dtype, device)
             for mixer, _ in layer_kinds(cfg)]
 
 
 # --------------------------------------------------------------------- #
 # Sublayer application
 # --------------------------------------------------------------------- #
-def _apply_ffn(cfg, params, sub, x):
-    if sub[1] == "none":
-        return x
+def _apply_ffn(cfg, params, sub, x, aux: Optional[Dict], decode=False):
+    """The FFN sublayer.  MoE layers add their auxiliary losses to
+    ``aux`` (None: not computed) and decode dropless, as the reference
+    does.  ``cfg.moe.a2a`` needs a device mesh (ROADMAP.md item 1.6);
+    without one the reference runs ``moe_ffn`` too."""
+    ffn = sub[1]
+    if ffn == "none":
+        return x, aux
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h, cfg.ffn_act)
+    if ffn == "moe":
+        out, a = moe_mod.moe_ffn(cfg, params["ffn"], h, dropless=decode,
+                                 losses=aux is not None)
+        if aux is not None:
+            aux = {k: aux[k] + a[k] for k in aux}
+    else:
+        out = mlp(params["ffn"], h, cfg.ffn_act)
+    return x + out, aux
 
 
 def apply_sublayer_full(
     cfg: ModelConfig, params, sub: SublayerKind, x: torch.Tensor,
     positions: torch.Tensor, *, causal: bool = True,
     collect_cache: bool = False, max_len: int = 0, cache_dtype=None,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Full-sequence sublayer (prefill); the K/V it projects also fill the
-    decode cache, so they are computed once (the reference projects them
-    a second time for the cache, with the same result)."""
+    aux: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, Optional[Dict], Optional[Cache]]:
+    """Full-sequence sublayer (training and prefill): ``(x, aux, cache)``.
+    The K/V an attention layer projects also fill its decode cache, and a
+    recurrent mixer's projections also give its final state, so each is
+    computed once (the reference computes them a second time for the
+    cache, with the same result)."""
     mixer, _ = sub
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    window = cfg.window if mixer == "local" else None
-    q, k, v = attn_mod.project_qkv(cfg, params["mixer"], h, positions)
-    out = attn_mod.attend(cfg, params["mixer"], q, k, v, causal=causal,
-                          window=window)
     new_cache = None
-    if collect_cache:
-        new_cache = _prefill_kv_cache(cfg, k, v, window, max_len, cache_dtype)
+    if mixer == "mlstm":
+        if collect_cache:
+            out, new_cache = xlstm_mod.mlstm_block_with_state(
+                cfg, params["mixer"], h)
+        else:
+            out = xlstm_mod.mlstm_block(cfg, params["mixer"], h)
+    elif mixer == "slstm":
+        if collect_cache:
+            out, new_cache = xlstm_mod.slstm_block_with_state(
+                cfg, params["mixer"], h)
+        else:
+            out = xlstm_mod.slstm_block(cfg, params["mixer"], h)
+    else:
+        window = cfg.window if mixer == "local" else None
+        q, k, v = attn_mod.project_qkv(cfg, params["mixer"], h, positions)
+        out = attn_mod.attend(cfg, params["mixer"], q, k, v, causal=causal,
+                              window=window)
+        if collect_cache:
+            new_cache = _prefill_kv_cache(cfg, k, v, window, max_len,
+                                          cache_dtype)
     x = x + out
-    return _apply_ffn(cfg, params, sub, x), new_cache
+    x, aux = _apply_ffn(cfg, params, sub, x, aux)
+    return x, aux, new_cache
 
 
 def apply_sublayer_decode(
     cfg: ModelConfig, params, sub: SublayerKind, x: torch.Tensor,
-    cache: KVCache, pos: int,
-) -> Tuple[torch.Tensor, KVCache]:
-    """One-token sublayer against its cache."""
+    cache: Cache, pos: int,
+) -> Tuple[torch.Tensor, Cache]:
+    """One-token sublayer against its cache: a KV cache is updated in
+    place, a recurrent state is replaced."""
     mixer, _ = sub
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    window = cfg.window if mixer == "local" else None
-    out, new_cache = attn_mod.decode_attention(
-        cfg, params["mixer"], h, cache, pos, window=window)
+    if mixer == "mlstm":
+        out, new_cache = xlstm_mod.mlstm_decode(cfg, params["mixer"], h, cache)
+    elif mixer == "slstm":
+        out, new_cache = xlstm_mod.slstm_decode(cfg, params["mixer"], h, cache)
+    else:
+        window = cfg.window if mixer == "local" else None
+        out, new_cache = attn_mod.decode_attention(
+            cfg, params["mixer"], h, cache, pos, window=window)
     x = x + out
-    return _apply_ffn(cfg, params, sub, x), new_cache
+    x, _ = _apply_ffn(cfg, params, sub, x, None, decode=True)
+    return x, new_cache
 
 
 def _prefill_kv_cache(cfg, k, v, window, max_len, dtype) -> KVCache:
@@ -305,7 +367,7 @@ def _run_stack(cfg, params: DecoderLM, x, positions, *, causal=True,
     """Every layer in order.  Returns (x, caches or None)."""
     caches = []
     for layer in params.layers:
-        x, c = apply_sublayer_full(
+        x, _, c = apply_sublayer_full(
             cfg, layer, layer.kind, x, positions, causal=causal,
             collect_cache=collect_cache, max_len=max_len,
             cache_dtype=cache_dtype)
@@ -313,35 +375,44 @@ def _run_stack(cfg, params: DecoderLM, x, positions, *, causal=True,
     return x, (caches if collect_cache else None)
 
 
-#: the reference's auxiliary losses (MoE only; zero for dense decoders)
+#: the reference's auxiliary losses (MoE only; zero for other decoders)
 ZERO_AUX = ("moe_load_balance", "moe_router_z")
 
 
-def _period(cfg, layers, positions, x):
+def _period(cfg, layers, positions, x, *aux):
+    """``layers`` in order; ``aux`` (and the result after x) are the
+    running ``ZERO_AUX`` sums, as tensors so that a checkpoint carries
+    them."""
+    aux = dict(zip(ZERO_AUX, aux))
     for layer in layers:
-        x, _ = apply_sublayer_full(cfg, layer, layer.kind, x, positions)
-    return x
+        x, aux, _ = apply_sublayer_full(cfg, layer, layer.kind, x, positions,
+                                        aux=aux)
+    return (x, *aux.values())
 
 
 def forward_train(cfg: ModelConfig, params: DecoderLM,
                   batch: Dict) -> Tuple[torch.Tensor, Dict]:
     """Teacher-forced logits over the full sequence (float32) and the
-    auxiliary losses.  With autograd recording, each period runs under
+    auxiliary losses (each MoE layer's, summed in layer order).  With
+    autograd recording, each period runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
     recomputed in the backward pass, as the reference's
     ``jax.checkpoint(policy=nothing_saveable)`` over its scanned periods
     does; the unstacked remainder is not recomputed, as there."""
     x, positions = _input_embed(cfg, params, batch)
-    aux = {k: x.new_zeros((), dtype=torch.float32) for k in ZERO_AUX}
+    aux = tuple(x.new_zeros((), dtype=torch.float32) for _ in ZERO_AUX)
     L = len(cfg.period)
     recompute = torch.is_grad_enabled()
     for p in range(cfg.n_periods):
         fn = functools.partial(_period, cfg, params.layers[p * L:(p + 1) * L],
                                positions)
-        x = checkpoint(fn, x, use_reentrant=False) if recompute else fn(x)
-    x = _period(cfg, params.layers[cfg.n_periods * L:], positions, x)
+        x, *aux = (checkpoint(fn, x, *aux, use_reentrant=False) if recompute
+                   else fn(x, *aux))
+    x, *aux = _period(cfg, params.layers[cfg.n_periods * L:], positions, x,
+                      *aux)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return compute_logits(params.embed, cfg, x).float(), aux
+    return (compute_logits(params.embed, cfg, x).float(),
+            dict(zip(ZERO_AUX, aux)))
 
 
 def lm_loss(cfg: ModelConfig, params: DecoderLM,
@@ -360,7 +431,7 @@ def lm_loss(cfg: ModelConfig, params: DecoderLM,
 def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict, max_len: int,
             cache_dtype=None):
     """Full forward emitting the last position's logits (B, 1, vocab) and
-    one decode cache per layer."""
+    one decode cache per layer (:func:`init_caches`' kinds)."""
     x, positions = _input_embed(cfg, params, batch)
     x, caches = _run_stack(
         cfg, params, x, positions, causal=True, collect_cache=True,
@@ -370,10 +441,11 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict, max_len: int,
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: DecoderLM, caches: List[KVCache],
+def decode_step(cfg: ModelConfig, params: DecoderLM, caches: List[Cache],
                 tokens: torch.Tensor, pos: int):
-    """One-token step.  tokens: (B, 1); pos: the current index.  The caches
-    are updated in place and returned."""
+    """One-token step.  tokens: (B, 1); pos: the current index.  Returns
+    the logits and the caches: KV caches updated in place, recurrent
+    states replaced."""
     x = embed(params.embed, cfg, tokens)
     new_caches = []
     for layer, cache in zip(params.layers, caches):

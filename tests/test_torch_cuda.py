@@ -781,6 +781,67 @@ class TestLmOnTheCard:
             assert rel <= 1e-4
 
 
+class TestMoeAndXlstmOnTheCard:
+    """``moe_ffn`` and the MoE and xLSTM serving paths on the card against
+    the plain CPU run of the same weights (float32): the layer within
+    1e-5 relative with the same routing and the same drops; served logits
+    within 1e-4 with identical greedy tokens."""
+
+    @staticmethod
+    def _moe_cfg(capacity_factor):
+        import dataclasses
+
+        cfg = get_config("qwen2_moe_a2p7b").reduced()
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=6, pad_to=8, capacity_factor=capacity_factor))
+
+    @pytest.mark.parametrize("capacity_factor,dropless", [
+        (8.0, False), (0.5, False), (1.25, True)])
+    def test_moe_ffn_matches_cpu(self, dev, capacity_factor, dropless):
+        from repro_torch.models import moe
+        from repro_torch.models.common import materialize
+
+        cfg = self._moe_cfg(capacity_factor)
+        p = materialize(moe.moe_spec(cfg), torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+        pd = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.to(dev)) for k, v in p.items()}
+        x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator()
+                        .manual_seed(1))
+        want, waux = moe.moe_ffn(cfg, p, x, dropless=dropless)
+        got, gaux = moe.moe_ffn(cfg, pd, x.to(dev), dropless=dropless)
+        xt = x.reshape(-1, cfg.d_model)
+        assert torch.equal(moe.route(cfg, pd, xt.to(dev)).top_e.cpu(),
+                           moe.route(cfg, p, xt).top_e)
+        assert int(gaux["moe_dropped"]) == int(waux["moe_dropped"])
+        assert (int(waux["moe_dropped"]) > 0) == (capacity_factor == 0.5)
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert rel <= 1e-5
+        for k in ("moe_load_balance", "moe_router_z"):
+            assert abs(float(gaux[k]) - float(waux[k])) <= 1e-6 * max(
+                abs(float(waux[k])), 1.0)
+
+    @pytest.mark.parametrize("arch,flash", [("qwen2_moe_a2p7b", True),
+                                            ("olmoe_1b_7b", True),
+                                            ("xlstm_125m", False)])
+    def test_serve_matches_cpu(self, dev, arch, flash):
+        cfg = lm_serve.make_config(arch, reduced=True)
+        cpu = torch.device("cpu")
+        params = lm_serve.make_params(cfg, cpu, seed=1)
+        prompt = lm_serve.make_prompt(cfg, 2, 40, cpu)
+        want = lm_serve.serve(cfg, params, prompt, gen=6, keep_logits=True)
+        ops.reset_launch_counts()
+        got = lm_serve.serve(cfg, params.to(dev), prompt.to(dev), gen=6,
+                             keep_logits=True)
+        assert ops.launch_counts()["flash_attention"] == (
+            cfg.n_layers if flash else 0)
+        assert torch.equal(got.tokens.cpu(), want.tokens)
+        for a, b in zip([got.prefill_logits] + got.step_logits,
+                        [want.prefill_logits] + want.step_logits):
+            rel = float((a.cpu() - b).abs().max() / b.abs().max())
+            assert rel <= 1e-4
+
+
 class TestTrainingOnTheCard:
     def test_flash_refuses_inputs_that_require_grad(self, dev):
         q = torch.randn(1, 16, 2, 16, device=dev, requires_grad=True)

@@ -1,8 +1,11 @@
 """The port's LM serving path against the JAX package, on the CPU.
 
-The four dense decoder configs the port carries run at a reduced size
-(``reduced()`` of gemma2_2b, gemma_2b and minitron_8b, and gemma3_4b with
-``n_layers=10`` so that its 6-layer period leaves a 4-layer remainder).
+The configs the port carries run at a reduced size (``reduced()`` of each,
+and gemma3_4b with ``n_layers=10`` so that its 6-layer period leaves a
+4-layer remainder).  The serving-path tests take every config whose
+mixers are all attention (the dense ones and the two MoE ones); xLSTM's
+recurrent states are held to the reference in ``tests/test_torch_xlstm.py``
+and MoE's layer in ``tests/test_torch_moe.py``.
 Parameters are drawn by the reference's ``init_params`` (float32) and
 carried over with ``repro_torch.convert.lm_params_from_arrays``, so both
 packages compute on identical weights and prompts.
@@ -49,7 +52,10 @@ from repro_torch.models.transformer import (  # noqa: E402
 RTOL = 1e-5
 #: per-arch reduced overrides (gemma3_4b keeps a remainder)
 REDUCED = {"gemma2_2b": {}, "gemma_2b": {}, "minitron_8b": {},
-           "gemma3_4b": dict(n_layers=10)}
+           "gemma3_4b": dict(n_layers=10), "qwen2_moe_a2p7b": {},
+           "olmoe_1b_7b": {}, "xlstm_125m": {}}
+#: the configs whose every mixer is attention (one KV cache per layer)
+ATTN = [a for a in REDUCED if a != "xlstm_125m"]
 
 
 def _rel(a, b) -> float:
@@ -66,7 +72,8 @@ def _np(t) -> np.ndarray:
 def models():
     """arch -> (JAX cfg, JAX params, port cfg, port params)."""
     out = {}
-    for arch, kw in REDUCED.items():
+    for arch in ATTN:
+        kw = REDUCED[arch]
         jcfg = j_get_config(arch).reduced(**kw)
         tcfg = get_config(arch).reduced(**kw)
         jparams = j_init_params(jcfg, jax.random.PRNGKey(0),
@@ -129,10 +136,34 @@ class TestConfigs:
         with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.7"):
             get_config(arch)
 
+    @pytest.mark.parametrize("arch,change", [
+        ("qwen2_moe_a2p7b", None),
+        ("olmoe_1b_7b", None),
+        ("xlstm_125m", None),
+        ("gemma_2b", dict(period=(("mlstm", "none"),))),
+        ("gemma_2b", dict(period=(("attn", "moe"),))),
+    ])
+    def test_ported_families_resolve(self, arch, change):
+        """The MoE and xLSTM configs and layers (items 1.7b and 1.7d):
+        the config resolves and its ``model_spec`` equals the
+        reference's."""
+        cfg, jcfg = get_config(arch).reduced(), j_get_config(arch).reduced()
+        if change is not None:
+            moe = j_get_config("olmoe_1b_7b").reduced().moe
+            change = dict(change, moe=moe)
+            cfg = dataclasses.replace(cfg, **change)
+            jcfg = dataclasses.replace(jcfg, **change)
+
+        def shapes(tree):
+            if isinstance(tree, dict):
+                return {k: shapes(v) for k, v in tree.items()}
+            return (tuple(tree.shape), tuple(tree.axes), tree.init)
+
+        assert shapes(model_spec(cfg)) == shapes(j_model_spec(jcfg))
+        assert len(init_params(cfg, device="cpu").layers) == cfg.n_layers
+
     @pytest.mark.parametrize("change,item", [
         (dict(period=(("mamba", "mlp"),)), "1.7c"),
-        (dict(period=(("mlstm", "none"),)), "1.7d"),
-        (dict(period=(("attn", "moe"),)), "1.7b"),
         (dict(kind="encdec", n_enc_layers=2), "1.7e"),
         (dict(vision_stub=True), "1.7f"),
     ])
@@ -224,7 +255,7 @@ class TestLayers:
 
 
 class TestServingPath:
-    @pytest.mark.parametrize("arch", list(REDUCED))
+    @pytest.mark.parametrize("arch", ATTN)
     def test_attention_matches_reference(self, models, arch):
         """``attention`` (prefill, through the kernel wrapper) of every
         sublayer of the period against the reference's ``attention``."""
@@ -245,7 +276,7 @@ class TestServingPath:
                                      window=window)
             assert _rel(_np(got), want) <= RTOL
 
-    @pytest.mark.parametrize("arch", list(REDUCED))
+    @pytest.mark.parametrize("arch", ATTN)
     def test_init_caches_match_reference(self, models, arch):
         from repro.models.transformer import init_caches as j_init_caches
 
@@ -257,7 +288,7 @@ class TestServingPath:
             assert c.k.shape == jk.shape and c.v.shape == jv.shape
             assert not c.k.any() and not c.v.any()
 
-    @pytest.mark.parametrize("arch", list(REDUCED))
+    @pytest.mark.parametrize("arch", ATTN)
     def test_prefill_logits_and_caches(self, models, arch):
         jcfg, jparams, tcfg, tparams = models[arch]
         B, S, max_len = 2, 16, 24  # S > window 8: the ring path
@@ -274,7 +305,7 @@ class TestServingPath:
             assert _rel(_np(c.k), jk) <= RTOL
             assert _rel(_np(c.v), jv) <= RTOL
 
-    @pytest.mark.parametrize("arch", list(REDUCED))
+    @pytest.mark.parametrize("arch", ATTN)
     def test_greedy_decode(self, models, arch):
         jcfg, jparams, tcfg, tparams = models[arch]
         B, S0, steps = 2, 12, 8
@@ -389,6 +420,19 @@ class TestLmServe:
         ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x16", "matmul"),
         ("Memcpy HtoD (Pageable -> Device)", "copies"),
         ("void at::native::vectorized_elementwise_kernel<4>", "other"),
+        ("void at::native::sbtopk::gatherTopK<float, unsigned int, 2, false>",
+         "moe_dispatch"),
+        ("void at::native::mbtopk::radixFindKthValues<float, unsigned int>",
+         "moe_dispatch"),
+        ("void cub::CUB_200200_900_NS::DeviceRadixSortOnesweepKernel<>",
+         "moe_dispatch"),
+        ("void at::native::index_elementwise_kernel<128, 4>", "moe_dispatch"),
+        ("void at::native::_scatter_gather_elementwise_kernel<128, 4>",
+         "moe_dispatch"),
+        ("void at::native::searchsorted_cuda_kernel<long, long>",
+         "moe_dispatch"),
+        ("void at::cuda::kernelHistogram1D<long, long, long, 1, 2, -1>",
+         "moe_dispatch"),
     ])
     def test_profile_kernel_groups(self, name, group):
         from repro_torch.launch.lm_profile import kernel_group
