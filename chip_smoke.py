@@ -34,7 +34,14 @@ and no result line is printed):
    ``is_causal`` at the global one); and bfloat16 at the MoE configs'
    prefill shape, q/k/v (2, 8192, 16, 128), causal, no window, no softcap,
    held to the reference's bfloat16 math for Qwen1.5-MoE's heads and timed
-   beside SDPA ``is_causal``;
+   beside SDPA ``is_causal``; and bfloat16 at the [lm-whisper] prefill's
+   three layers (the encoder's (8, 1500, 20, 64) non-causal, the
+   cross-attention's q (8, 224) against 1500 keys non-causal, the
+   decoder's self-attention (8, 224) causal) and the [lm-vl] prefill's
+   (q (2, 8192, 64, 128) against 8 KV heads, causal), each held to the
+   reference's bfloat16 math and timed by events and CUPTI beside SDPA;
+   the float32 local layer also beside SDPA with the window mask by
+   events and CUPTI;
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -87,6 +94,25 @@ and no result line is printed):
    against the CPU's, each mLSTM layer, parallel and ``ssm_chunk=256``,
    against the float64 answer, all to 1e-4); each model is freed before
    the next;
+9c. Encoder-decoder and vision-language serving — ``[lm-whisper]``
+   (Whisper-large-v3 whole: 32 encoder + 32 decoder layers, bfloat16, 8
+   clips of 1500 seeded frame embeddings, a 224-token prompt, 32 greedy
+   tokens, after a warm-up at the same shapes): 96 bfloat16 flash
+   launches a prefill, 32 each for the encoder, self- and
+   cross-attention (counted by role, with their host time, in one more
+   prefill); prefill and encoder seconds, decode ms/step, peak memory and
+   one traced prefill's split by kernel group; ``[lm-vl]`` (Qwen2-VL-72B's widths at depth 8
+   of 80, bfloat16, 2 x 8192 tokens whose first 2048 are a seeded vision
+   block on a 1 x 32 x 64 grid with M-RoPE ids, decode ids continuing
+   the text's apart from the cache index): 8 flash launches, the same
+   figures.  After ``[lm-xlstm-parity]``, ``[lm-whisper-parity]``
+   (Whisper's widths, 2 + 2 layers, 2 x 64 frames, prompt 2 x 32) and
+   ``[lm-vl-parity]`` (Qwen2-VL's widths at depth 2, vocab 32768, prompt
+   2 x 256 with a 64-position vision block) hold the card to the CPU on
+   the same weights (drawn on the card), float32 to 1e-4 and bfloat16 to
+   ``LM_BF16_PARITY_TOL``, 8 decode steps teacher-forced on the CPU's
+   tokens, and print each dtype's seconds by step (draw, copy to the
+   CPU, CPU run, card run);
 10. process backend — the Jacobi g = 2048 and SCF main paths on
    ``executor="process"`` (4 spawned workers, each with its own CUDA
    context on the card; without MPS their kernels time-slice): the Jacobi
@@ -160,7 +186,8 @@ and no result line is printed):
    outer steps with Anderson(5), sync and then async with pod 0 a 3 s
    straggler; checks the loss fell and ``anderson_mix`` launched.
 
-The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
+After each phase a ``[time]`` line gives its seconds and the total so
+far.  The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
 on the main paths (counts are reset right before each path and read right
 after), the largest deviation from the plain version, the mean time of
 20 back-to-back calls between two CUDA events and the least time the card
@@ -198,6 +225,16 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma2_2b", 2, 8192, 32
 #: batch, prompt and generation in each config's bfloat16
 LM_MOE = (("lm-moe", "qwen2_moe_a2p7b"), ("lm-olmoe", "olmoe_1b_7b"))
 LM_XLSTM = "xlstm_125m"
+
+#: the encoder-decoder serving cell: whisper-large-v3 at its published
+#: widths, batch 8 of 30-s clips (``inputs.WHISPER_FRAMES`` post-conv
+#: frames each), a 224-token decoder prompt (half Whisper's 448-token text
+#: context) and LM_GEN greedy tokens
+LM_WHISPER, WHISPER_BATCH, WHISPER_PROMPT = "whisper_large_v3", 8, 224
+#: the vision-language serving cell: qwen2-vl-72b's widths, depth cut from
+#: 80 to 8 layers (80 hold ~145 GB of bfloat16 weights), LM_BATCH x
+#: LM_PROMPT tokens whose first quarter is a vision block
+LM_VL, VL_LAYERS = "qwen2_vl_72b", 8
 
 #: LM training main path (its shape is ``launch/train_profile.py``'s): timed
 #: steps, after one warm-up step
@@ -487,6 +524,11 @@ FLASH_SWEEP = [
     (1, 131, 299, 4, 2, 16, True, 70, 50.0, 168),
     # the no-grad held-out loss of [async-dp] and [diloco]
     (4, 16, 16, 4, 1, 64, True, None, None, 0),
+    # Whisper: cross-attention (non-causal, 1500 keys: not a multiple of
+    # any key tile) and the encoder's self-attention; Qwen2-VL's 8:1 GQA
+    (1, 224, 1500, 20, 20, 64, False, None, None, 0),
+    (1, 1500, 1500, 20, 20, 64, False, None, None, 0),
+    (1, 320, 320, 64, 8, 128, True, None, None, 0),
 ]
 
 
@@ -501,7 +543,8 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.kernel_bench import (attention_pairs, flash_work,
+    from repro_torch.launch.kernel_bench import (attention_pairs,
+                                                 device_profile, flash_work,
                                                  time_ms)
 
     fp32, bf16 = peaks_fp
@@ -537,8 +580,8 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     out = {}
     q, k, v = (t.to(torch.bfloat16) for t in (qf, kf, vf))
     for label, win in (("local", window), ("global", None)):
-        out[f"bf16_{label}"] = flash_bf16_layer(torch, label, q, k, v, win,
-                                                cap, mask, bound, bf16)
+        out[f"bf16_{label}"] = flash_bf16_layer(
+            torch, label, q, k, v, bound, bf16, window=win, mask=mask)
     del q, k, v
     torch.cuda.empty_cache()
     # The MoE configs' prefill attention (both have 16 heads of 128, no GQA,
@@ -551,10 +594,20 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     q, k, v = (torch.randn(*mshape, generator=gen, device=dev).to(
         torch.bfloat16) for _ in range(3))
     out["bf16_moe_hd128"] = flash_bf16_layer(
-        torch, "moe hd128", q, k, v, None, None, None, bound, bf16,
-        arch=moe_arch)
+        torch, "moe hd128", q, k, v, bound, bf16, arch=moe_arch)
     del q, k, v
     torch.cuda.empty_cache()
+    # The encoder-decoder and vision-language serve cells' layers.
+    for key, label, arch, (B_, Sq, Skv), causal in FLASH_CELL_LAYERS:
+        ccfg = get_config(arch)
+        q = torch.randn(B_, Sq, ccfg.n_heads, ccfg.hd, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(B_, Skv, ccfg.n_kv_heads, ccfg.hd, generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        out[key] = flash_bf16_layer(torch, label, q, k, v, bound, bf16,
+                                    arch=arch, causal=causal)
+        del q, k, v
+        torch.cuda.empty_cache()
     # float32 (both sides compute in float32): every element within 2e-5,
     # held by ``record`` below.
     qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
@@ -567,12 +620,18 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
                      ops.flash_attention(qf, kf, vf, **nocap))
     out.update(ms_softcap_off=time_ms(torch, lambda: ops.flash_attention(
                    qf, kf, vf, **nocap)),
+               device_ms_softcap_off=device_profile(
+                   torch, lambda: ops.flash_attention(qf, kf, vf, **nocap))[0],
+               local_library_ms=time_ms(torch, sdpa),
+               local_library_device_ms=device_profile(torch, sdpa)[0],
                library_softcap="off", library_max_abs_err=lib_err,
                pairs=pairs, flops=flops, dtype="float32",
                sweep_max_abs_err=sweep_err)
     print(f"[kernels] flash_attention f32 {[B, S, nq, nkv, hd]} local: "
-          f"softcap off {out['ms_softcap_off']:.3f} ms (SDPA agrees to "
-          f"{lib_err:.2e})")
+          f"softcap off {out['ms_softcap_off']:.3f} ms (device "
+          f"{out['device_ms_softcap_off']:.3f}); SDPA with the window mask, "
+          f"softcap off, {out['local_library_ms']:.3f} ms (device "
+          f"{out['local_library_device_ms']:.3f}; agrees to {lib_err:.2e})")
     # The global layers (no window) of the same prefill.
     gkw = dict(causal=True, softcap=cap)
     _, gflops = flash_work(B, S, nq, nkv, hd, None, 4)
@@ -611,94 +670,152 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
     torch.cuda.empty_cache()
 
 
-def flash_bf16_layer(torch, label, q, k, v, window, cap, mask, bound, peak,
-                     arch=LM_ARCH):
-    """The bfloat16 tensor-core kernel at one serve layer of ``arch``.  The
-    kernel
+#: the bfloat16 flash layers of the [lm-whisper] and [lm-vl] prefills:
+#: (key, label, arch, (B, Sq, Skv), causal); heads from the config
+FLASH_CELL_LAYERS = [
+    ("bf16_whisper_encoder", "whisper encoder", "whisper_large_v3",
+     (8, 1500, 1500), False),
+    ("bf16_whisper_cross", "whisper cross", "whisper_large_v3",
+     (8, 224, 1500), False),
+    ("bf16_whisper_self", "whisper self", "whisper_large_v3",
+     (8, 224, 224), True),
+    ("bf16_vl_gqa", "qwen2-vl hd128 gqa 8:1", "qwen2_vl_72b",
+     (2, 8192, 8192), True),
+]
+
+
+def _by_kv_group(fn, q, k, v):
+    """``fn(q, k, v)`` one batch row and one KV head's query group at a
+    time (bounds the plain versions' (Sq, Skv) float32 scores at the
+    Qwen2-VL layer to ~2 GB), concatenated back."""
+    import torch
+
+    B, nkv = q.shape[0], k.shape[2]
+    g = q.shape[2] // nkv
+    return torch.cat([torch.cat([
+        fn(q[b:b + 1, :, j * g:(j + 1) * g], k[b:b + 1, :, j:j + 1],
+           v[b:b + 1, :, j:j + 1]) for j in range(nkv)], dim=2)
+        for b in range(B)], dim=0)
+
+
+def flash_bf16_layer(torch, label, q, k, v, bound, peak, arch=LM_ARCH,
+                     causal=True, window=None, mask=None):
+    """The bfloat16 tensor-core kernel at one prefill attention layer of
+    ``arch`` (its heads and softcap): q (B, Sq), k/v (B, Skv), ``causal``,
+    ``window`` and, for SDPA, the window's boolean ``mask``.  The kernel
     rounds P to bfloat16 before P V (as FlashAttention-2/3 do), so its
     elements are not held to the float32 answer's 2e-5: the max and the
     RMS of |kernel - plain| must not exceed those of the JAX package's own
     bfloat16 attention math (``train_attention``, scores and weights
-    rounded to bfloat16, softcap on) on the same inputs against the same
-    plain version."""
+    rounded to bfloat16, the config's softcap) on the same inputs against
+    the same plain version; both run by KV group (:func:`_by_kv_group`).
+    Timed by events and CUPTI beside the plain version and SDPA
+    (``is_causal``, the mask, or none; ``enable_gqa`` under GQA) and,
+    where the config has a softcap (SDPA has none), with it off too."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.kernel_bench import (device_profile, flash_work,
-                                                 time_ms)
+    from repro_torch.launch.kernel_bench import (attention_pairs,
+                                                 device_profile, time_ms)
     from repro_torch.models.attention import train_attention
 
-    B, S, nq, hd = q.shape
-    nkv = k.shape[2]
-    kw = dict(causal=True, window=window, softcap=cap)
-    nocap = dict(causal=True, window=window)
     cfg = get_config(arch)
-    check(cfg.attn_softcap == cap, "the reference math's softcap differs")
-    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (q.shape[2], k.shape[2],
-                                                    q.shape[3]),
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (nq, nkv, hd),
           f"flash_attention bf16 {label}: q/k/v are not {cfg.name}'s heads")
+    cap = cfg.attn_softcap
+    kw = dict(causal=causal, window=window, softcap=cap)
+    nocap = dict(causal=causal, window=window)
+    gcfg = dataclasses.replace(cfg, n_heads=nq // nkv, n_kv_heads=1,
+                               head_dim=hd)
 
     def dev_of(diff):
         return float(diff.abs().max()), float(diff.pow(2).mean().sqrt())
 
-    want = ref.flash_attention(q, k, v, **kw).float()
-    k_max, k_rms = dev_of(ops.flash_attention(q, k, v, **kw).float() - want)
-    r_max, r_rms = dev_of(
-        train_attention(cfg, q, k, v, causal=True, window=window).float()
-        - want)
-    del want
-    want = ref.flash_attention(q, k, v, **nocap).float()
-    off_max, off_rms = dev_of(
-        ops.flash_attention(q, k, v, **nocap).float() - want)
+    def plain(**kw_):
+        return lambda q_, k_, v_: ref.flash_attention(q_, k_, v_, **kw_)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, **kw)
+
+    def kernel_nocap():
+        return ops.flash_attention(q, k, v, **nocap)
+
+    want = _by_kv_group(plain(**kw), q, k, v).float()
+    k_max, k_rms = dev_of(kernel().float() - want)
+    r_max, r_rms = dev_of(_by_kv_group(
+        lambda q_, k_, v_: train_attention(gcfg, q_, k_, v_, causal=causal,
+                                           window=window),
+        q, k, v).float() - want)
     del want
     torch.cuda.empty_cache()
     check(k_max <= r_max and k_rms <= r_rms,
           f"flash_attention bf16 {label}: kernel max/RMS {k_max:.3e}/"
           f"{k_rms:.3e} beyond the bfloat16 reference math's "
           f"{r_max:.3e}/{r_rms:.3e}")
-    nbytes, flops = flash_work(B, S, nq, nkv, hd, window, 2)
+    nbytes = 2 * B * (2 * Sq * nq + 2 * Skv * nkv) * hd
+    flops = 4 * B * nq * hd * attention_pairs(Sq, Skv, causal, window)
     b_ms, b_by = bound(nbytes, flops, peak)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = nq != nkv
     if window is None:
+        library = "SDPA " + ("is_causal" if causal else "no mask")
+
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=gqa)
     else:
+        library = "SDPA with the boolean mask"
+
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
+                                                  enable_gqa=gqa)
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - kernel_nocap().float()).abs().max())
     row = dict(
-        source="src/repro_torch/csrc/flash_attention_bf16.cu",
-        window=window, max_abs_err=k_max, rms_err=k_rms,
-        ref_math_max_abs_err=r_max, ref_math_rms_err=r_rms,
-        softcap_off_max_abs_err=off_max, softcap_off_rms_err=off_rms,
-        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
-        device_ms=device_profile(
-            torch, lambda: ops.flash_attention(q, k, v, **kw))[0],
-        ms_softcap_off=time_ms(torch, lambda: ops.flash_attention(
-            q, k, v, **nocap)),
-        device_ms_softcap_off=device_profile(
-            torch, lambda: ops.flash_attention(q, k, v, **nocap))[0],
-        plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v, **kw),
-                         reps=5, warmup=1),
-        library_ms=time_ms(torch, sdpa),
-        library=("SDPA is_causal" if window is None
-                 else "SDPA with the boolean mask"),
+        source="src/repro_torch/csrc/flash_attention_bf16.cu", arch=arch,
+        shape=[B, Sq, Skv, nq, nkv, hd], causal=causal, window=window,
+        max_abs_err=k_max, rms_err=k_rms, ref_math_max_abs_err=r_max,
+        ref_math_rms_err=r_rms, ms=time_ms(torch, kernel),
+        device_ms=device_profile(torch, kernel)[0],
+        plain_ms=time_ms(torch, lambda: _by_kv_group(plain(**kw), q, k, v),
+                         reps=2, warmup=1),
+        library=library, library_ms=time_ms(torch, sdpa),
         library_device_ms=device_profile(torch, sdpa)[0],
-        bound_ms=b_ms, bound_by=b_by, flops=flops)
-    row["bound_share"] = b_ms / row["ms_softcap_off"]
-    print(f"[kernels] flash_attention bf16 {label} {[B, S, nq, nkv, hd]} "
-          f"window {window}: |err| max {k_max:.3e} RMS {k_rms:.3e} (the "
-          f"reference's bf16 math {r_max:.3e} / {r_rms:.3e}; softcap off "
-          f"{off_max:.3e} / {off_rms:.3e}); kernel {row['ms']:.4f} ms "
-          f"(device {row['device_ms']:.4f}), softcap off "
-          f"{row['ms_softcap_off']:.4f} ms (device "
-          f"{row['device_ms_softcap_off']:.4f}) against "
-          f"{row['library']} {row['library_ms']:.4f} ms (device "
-          f"{row['library_device_ms']:.4f}); plain {row['plain_ms']:.3f} "
-          f"ms; bound {b_ms:.4f} ms ({b_by}, "
-          f"{100 * row['bound_share']:.1f}% with the softcap off)")
+        library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by,
+        flops=flops, bytes=nbytes)
+    off = ""
+    if cap is not None:
+        want = _by_kv_group(plain(**nocap), q, k, v).float()
+        off_max, off_rms = dev_of(kernel_nocap().float() - want)
+        del want
+        torch.cuda.empty_cache()
+        row.update(softcap_off_max_abs_err=off_max,
+                   softcap_off_rms_err=off_rms,
+                   ms_softcap_off=time_ms(torch, kernel_nocap),
+                   device_ms_softcap_off=device_profile(torch,
+                                                        kernel_nocap)[0])
+        off = (f"; softcap off |err| {off_max:.3e} / {off_rms:.3e}, "
+               f"{row['ms_softcap_off']:.4f} ms (device "
+               f"{row['device_ms_softcap_off']:.4f})")
+    # the bound's share of the call that computes SDPA's function
+    row["bound_share"] = b_ms / row.get("ms_softcap_off", row["ms"])
+    row["device_bound_share"] = b_ms / row.get("device_ms_softcap_off",
+                                               row["device_ms"])
+    print(f"[kernels] flash_attention bf16 {label} q {[B, Sq, nq, hd]} k/v "
+          f"{[B, Skv, nkv, hd]} {'causal' if causal else 'non-causal'} "
+          f"window {window} softcap {cap}: |err| max {k_max:.3e} RMS "
+          f"{k_rms:.3e} (the reference's bf16 math {r_max:.3e} / "
+          f"{r_rms:.3e}); kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f}){off}; {library} {row['library_ms']:.4f} "
+          f"ms (device {row['library_device_ms']:.4f}; agrees to "
+          f"{lib_err:.2e}); plain by KV group {row['plain_ms']:.3f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}, {100 * row['bound_share']:.1f}% by "
+          f"events, {100 * row['device_bound_share']:.1f}% by device time"
+          f"{' with the softcap off' if cap is not None else ''})")
+    del qt, kt, vt
     return row
 
 
@@ -1517,11 +1634,8 @@ def phase_lm_bf16(torch, dev):
     lm_serve's ``serve``: every prefill attention launches the bfloat16
     tensor-core kernel.  Then one traced prefill splits its device time by
     kernel group (``lm_profile.breakdown``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import ops
-    from repro_torch.launch import lm_profile, lm_serve
+    from repro_torch.launch import lm_serve
     from repro_torch.models import init_params
 
     cfg = lm_serve.make_config(LM_ARCH)
@@ -1569,19 +1683,8 @@ def phase_lm_bf16(torch, dev):
           f"times in one prefill, expected {cfg.n_layers}")
     check(all(d == (torch.bfloat16,) * 3 for d in seen),
           f"lm-bf16: flash_attention inputs {set(seen)}, expected bfloat16")
-    # One traced prefill (gen 1: no decode), split by kernel group.
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        lm_serve.serve(cfg, params, prompt, 1)
-    events = prof.events()
-    wall = [e.time_range for e in events if e.name == lm_serve.PREFILL
-            and e.device_type == DeviceType.CPU]
-    split = lm_profile.breakdown(
-        "lm-bf16 traced prefill", wall[0].elapsed_us() / 1e3,
-        [e for e in events if e.device_type == DeviceType.CUDA
-         and e.name not in (lm_serve.PREFILL, lm_serve.DECODE)])
-    flash_ms = split["groups"].get("flash_attention", 0.0)
-    check(flash_ms > 0, "lm-bf16: the trace holds no flash-attention kernel")
+    split = _cell_prefill_split(torch, "lm-bf16", cfg, params, prompt, None)
+    flash_ms = split["groups"]["flash_attention"]
     print(f"[lm-bf16] prefill {LM_BATCH} x {LM_PROMPT} tokens: "
           f"{res.prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / res.prefill_s:.0f}"
           f" tokens/s); decode {res.decode_ms_per_step:.2f} ms/step "
@@ -1592,7 +1695,7 @@ def phase_lm_bf16(torch, dev):
           f"{split['device_ms']:.3f} ms device time "
           f"({flash_ms / split['device_ms']:.3f})")
     print(f"[lm-bf16] row0: {res.tokens[0].tolist()}")
-    del params, res, prof, events
+    del params, res
     torch.cuda.empty_cache()
     return launches
 
@@ -1681,8 +1784,8 @@ def _bf16_cell(torch, dev, label, arch):
     return cfg, params, prompt
 
 
-def _check_served(torch, label, cfg, res):
-    check(tuple(res.tokens.shape) == (LM_BATCH, LM_GEN),
+def _check_served(torch, label, cfg, res, batch=LM_BATCH):
+    check(tuple(res.tokens.shape) == (batch, LM_GEN),
           f"{label}: tokens shape {tuple(res.tokens.shape)}")
     check(res.prefill_logits.dtype == torch.bfloat16,
           f"{label}: prefill logits are {res.prefill_logits.dtype}")
@@ -1706,11 +1809,8 @@ def phase_lm_moe(torch, dev, label, arch):
     dropless on the picked experts in decode).  Counts the assignments
     the prefill dropped by capacity; then one traced prefill's device time
     by kernel group (``lm_profile.breakdown``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import ops
-    from repro_torch.launch import lm_profile, lm_serve
+    from repro_torch.launch import lm_serve
     from repro_torch.models import moe
 
     cfg, params, prompt = _bf16_cell(torch, dev, label, arch)
@@ -1752,31 +1852,15 @@ def phase_lm_moe(torch, dev, label, arch):
           f"prefill, expected {cfg.n_layers}")
     n_drop = int(torch.stack(dropped).sum())
     n_assign = T * m.top_k * cfg.n_layers
-    # One traced prefill (gen 1: no decode), split by kernel group.
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        lm_serve.serve(cfg, params, prompt, 1)
-    events = prof.events()
-    wall = [e.time_range for e in events if e.name == lm_serve.PREFILL
-            and e.device_type == DeviceType.CPU]
-    split = lm_profile.breakdown(
-        f"{label} traced prefill", wall[0].elapsed_us() / 1e3,
-        [e for e in events if e.device_type == DeviceType.CUDA
-         and e.name not in (lm_serve.PREFILL, lm_serve.DECODE)])
-    groups = split["groups"]
-    check(groups.get("flash_attention", 0.0) > 0,
-          f"{label}: the trace holds no flash-attention kernel")
-    shares = ", ".join(f"{g} {ms:.3f} ms ({ms / split['device_ms']:.3f})"
-                       for g, ms in sorted(groups.items(),
-                                           key=lambda kv: -kv[1]))
+    split = _cell_prefill_split(torch, label, cfg, params, prompt, None)
     print(f"[{label}] {_rates(res)}; max_memory_allocated "
           f"{peak / 2**30:.2f} GiB; flash_attention launches "
           f"{launches['flash_attention']}, all bfloat16; assignments dropped "
           f"by capacity in the prefill {n_drop} of {n_assign} "
           f"({n_drop / n_assign:.4f}); traced prefill device time "
-          f"{split['device_ms']:.3f} ms: {shares}")
+          f"{split['device_ms']:.3f} ms: {_shares(split)}")
     print(f"[{label}] row0: {res.tokens[0].tolist()}")
-    del params, res, prof, events
+    del params, res
     torch.cuda.empty_cache()
     return launches
 
@@ -1829,20 +1913,306 @@ def phase_lm_xlstm(torch, dev):
     return launches
 
 
-def _forced_run(torch, cfg, params, toks, steps, forced=None):
-    """Prefill ``toks`` and ``steps`` decode steps, each fed the previous
-    greedy token or, with ``forced``, that list's; returns the logits
-    (float32, on the CPU) and the tokens fed."""
+def _cell_prefill_split(torch, label, cfg, params, prompt, inputs):
+    """One traced prefill (gen 1: no decode) split by kernel group
+    (``lm_profile.breakdown``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import lm_profile, lm_serve
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm_serve.serve(cfg, params, prompt, 1, inputs=inputs)
+    events = prof.events()
+    wall = [e.time_range for e in events if e.name == lm_serve.PREFILL
+            and e.device_type == DeviceType.CPU]
+    split = lm_profile.breakdown(
+        f"{label} traced prefill", wall[0].elapsed_us() / 1e3,
+        [e for e in events if e.device_type == DeviceType.CUDA
+         and e.name not in (lm_serve.PREFILL, lm_serve.DECODE)])
+    check(split["groups"].get("flash_attention", 0.0) > 0,
+          f"{label}: the trace holds no flash-attention kernel")
+    return split
+
+
+def _prefill_roles(torch, label, cfg, params, prompt, inputs, want):
+    """The flash launches of one more prefill (untimed), by role
+    (``lm_profile.flash_roles``), with their host time; checks them
+    against ``want`` ({role: launches}), all bfloat16."""
+    from repro_torch.launch import lm_profile, lm_serve
+
+    with lm_profile.flash_roles() as calls:
+        lm_serve.serve(cfg, params, prompt, 1, inputs=inputs)
+    roles = lm_profile.role_summary(calls)
+    got = {role: r["launches"] for role, r in roles.items()}
+    check(got == want, f"{label}: flash launches by role {got}, expected "
+          f"{want}")
+    for role, r in roles.items():
+        check(r["dtypes"] == ["bfloat16"],
+              f"{label}: {role} flash inputs {r['dtypes']}")
+    return roles
+
+
+def _roles_line(roles) -> str:
+    return ", ".join(f"{role} {r['launches']} ({'/'.join(r['dtypes'])}, "
+                     f"host {r['host_us']:.1f} us a launch)"
+                     for role, r in roles.items())
+
+
+def _shares(split) -> str:
+    return ", ".join(f"{g} {ms:.3f} ms ({ms / split['device_ms']:.3f})"
+                     for g, ms in sorted(split["groups"].items(),
+                                         key=lambda kv: -kv[1]))
+
+
+def phase_lm_whisper(torch, dev):
+    """Whisper-large-v3 at its published widths (32 encoder + 32 decoder
+    layers) in its bfloat16 through lm_serve's ``serve``: 8 clips of 1500
+    seeded frame embeddings, a 224-token prompt, LM_GEN greedy tokens.
+    Each prefill launches the bfloat16 flash kernel 96 times: per layer
+    once in the encoder (non-causal), and once for self-attention
+    (causal) and once for cross-attention (non-causal, 1500 keys) in the
+    decoder.  A warm-up serves the same inputs with one decode step.
+    Prints the prefill, the encoder's share, decode, peak memory and a
+    traced prefill's split by kernel group."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import inputs as stub, lm_serve
+    from repro_torch.models import init_params, transformer
+
+    label = "lm-whisper"
+    cfg = lm_serve.make_config(LM_WHISPER)
+    check(WHISPER_PROMPT == stub.WHISPER_DEC_LEN // 2,
+          f"{label}: the prompt is not half Whisper's text context")
+    check(cfg.param_dtype == "bfloat16" and cfg.kind == "encdec",
+          f"{label}: {cfg.name} is {cfg.kind}, {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    dtypes = {p.dtype for p in params.parameters()}
+    check(dtypes == {torch.bfloat16}, f"{label}: parameter types {dtypes}")
+    print(f"[{label}] {cfg.name}: {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"bfloat16 parameters drawn in {time.perf_counter() - t0:.2f} s")
+    B, bf16, frames = WHISPER_BATCH, torch.bfloat16, stub.WHISPER_FRAMES
+    inputs = lm_serve.audio_inputs(cfg, B, frames, dev, bf16)
+    prompt = lm_serve.make_prompt(cfg, B, WHISPER_PROMPT, dev)
+    lm_serve.serve(cfg, params, prompt, 2, inputs=inputs)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, params, prompt, LM_GEN, inputs=inputs)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_served(torch, label, cfg, res, batch=B)
+    n = cfg.n_enc_layers + 2 * cfg.n_layers
+    check(launches["flash_attention"] == n,
+          f"{label}: flash_attention launched {launches['flash_attention']} "
+          f"times in one prefill, expected {n}")
+    roles = _prefill_roles(torch, label, cfg, params, prompt, inputs, {
+        "encoder": cfg.n_enc_layers, "self": cfg.n_layers,
+        "cross": cfg.n_layers})
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = transformer._encode(cfg, params, inputs)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(enc).all()), f"{label}: non-finite encoder "
+          f"output")
+    del enc
+    split = _cell_prefill_split(torch, label, cfg, params, prompt, inputs)
+    print(f"[{label}] prefill {B} clips x {frames} frames + {B} x "
+          f"{WHISPER_PROMPT} tokens: {res.prefill_s:.3f} s ({B / res.prefill_s:.1f}"
+          f" clips/s), of which the encoder alone {enc_s:.3f} s; decode "
+          f"{res.decode_ms_per_step:.2f} ms/step "
+          f"({B * 1e3 / res.decode_ms_per_step:.1f} tokens/s); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; flash_attention "
+          f"launches {launches['flash_attention']}: {_roles_line(roles)}; "
+          f"traced prefill device time {split['device_ms']:.3f} ms: "
+          f"{_shares(split)}")
+    print(f"[{label}] row0: {res.tokens[0].tolist()}")
+    del params, res, inputs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_vl(torch, dev):
+    """Qwen2-VL-72B's widths at depth VL_LAYERS in its bfloat16 through
+    lm_serve's ``serve``: LM_BATCH x LM_PROMPT tokens whose first quarter
+    is a seeded vision block on a 1 x 32 x 64 patch grid, M-RoPE ids
+    (t, h, w differ there; text at t = h = w from 64), and decode ids
+    that continue the text's apart from the cache index.  One bfloat16
+    flash launch a layer a prefill (hd 128, 8:1 GQA).  A warm-up serves
+    the same inputs with one decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import init_params
+
+    label = "lm-vl"
+    cfg = dataclasses.replace(lm_serve.make_config(LM_VL),
+                              n_layers=VL_LAYERS)
+    check(cfg.param_dtype == "bfloat16" and cfg.mrope_sections is not None,
+          f"{label}: {cfg.name} has no M-RoPE or is {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    print(f"[{label}] {cfg.name}: depth cut to {cfg.n_layers} of 80 layers,"
+          f" d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+          f"KV of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, M-RoPE "
+          f"{cfg.mrope_sections}; "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"bfloat16 parameters drawn in {time.perf_counter() - t0:.2f} s")
+    bf16 = torch.bfloat16
+    inputs, dec = lm_serve.vision_inputs(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
+                                         dev, bf16)
+    pos = inputs["positions"]
+    nv = inputs["vision_embeds"].shape[1]
+    check(bool((pos[:, 0, :nv] != pos[:, 1, :nv]).any()
+               and (pos[:, 1, :nv] != pos[:, 2, :nv]).any()),
+          f"{label}: the M-RoPE streams do not differ")
+    check(int(dec[0, 0, 0]) != LM_PROMPT,
+          f"{label}: the decode ids are the cache index")
+    prompt = lm_serve.make_prompt(cfg, LM_BATCH, LM_PROMPT, dev)
+    lm_serve.serve(cfg, params, prompt, 2, inputs=inputs,
+                   decode_positions=dec)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, params, prompt, LM_GEN, inputs=inputs,
+                         decode_positions=dec)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_served(torch, label, cfg, res)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"{label}: flash_attention launched {launches['flash_attention']} "
+          f"times in one prefill, expected {cfg.n_layers}")
+    roles = _prefill_roles(torch, label, cfg, params, prompt, inputs,
+                           {"self": cfg.n_layers})
+    split = _cell_prefill_split(torch, label, cfg, params, prompt, inputs)
+    print(f"[{label}] {_rates(res)}; vision block {nv} positions on grid "
+          f"{lm_serve.vision_grid(nv)}, text M-RoPE ids from "
+          f"{int(pos[0, 0, nv])}, decode ids from {int(dec[0, 0, 0])} (cache "
+          f"index {LM_PROMPT}); max_memory_allocated {peak / 2**30:.2f} GiB;"
+          f" flash_attention launches {launches['flash_attention']}: "
+          f"{_roles_line(roles)}; traced prefill device time "
+          f"{split['device_ms']:.3f} ms: {_shares(split)}")
+    print(f"[{label}] row0: {res.tokens[0].tolist()}")
+    del params, res, inputs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_cell_parity(torch, dev, label, cfg, B, S, steps, make_inputs):
+    """``cfg`` on the card against the CPU on the same weights, float32 to
+    1e-4 and bfloat16 to ``LM_BF16_PARITY_TOL``: prefill logits and
+    ``steps`` decode steps teacher-forced on the CPU's tokens.  The
+    weights are drawn on the card (one generator's draws on the CPU take
+    ~20 s at Qwen2-VL's 2.3 B) and copied to the CPU.
+    ``make_inputs(cfg, dtype)`` gives the prefill's other inputs and the
+    decode's M-RoPE ids, made on the CPU.  Prints each dtype's seconds
+    by step: the draw, the copy to the CPU, the CPU run and the card
+    run."""
+    import copy
+
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import init_params
+
+    cpu = torch.device("cpu")
+    prompt = lm_serve.make_prompt(cfg, B, S, cpu, seed=1)
+    for dtype, tol in ((torch.float32, 1e-4),
+                       (torch.bfloat16, LM_BF16_PARITY_TOL)):
+        name = str(dtype).replace("torch.", "")
+        secs = {}
+
+        def lap(step, t0):
+            torch.cuda.synchronize()
+            secs[step] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
+        on_card = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                              dtype=dtype, device=dev)
+        t0 = lap("draw", t0)
+        params = copy.deepcopy(on_card).to(cpu)
+        inputs, dec = make_inputs(cfg, dtype)
+        t0 = lap("copy", t0)
+        want, fed = _forced_run(torch, cfg, params, prompt, steps,
+                                inputs=inputs, dec_pos=dec)
+        t0 = lap("cpu run", t0)
+        to_dev = {k: t.to(dev) for k, t in inputs.items()}
+        got, _ = _forced_run(torch, cfg, on_card, prompt.to(dev),
+                             steps, forced=fed, inputs=to_dev,
+                             dec_pos=None if dec is None else dec.to(dev))
+        lap("card run", t0)
+        rel = _rel_max(got, want)
+        same = all(torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1))
+                   for g, w in zip(got, want))
+        print(f"[{label}] {name}: logits max|delta|/max|ref| {rel:.3e} "
+              f"(tol {tol:g}) over the prefill and {steps} teacher-forced "
+              f"decode steps; greedy picks identical {same}; seconds: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+        check(rel <= tol, f"{label} {name}: logits differ by {rel:.3e}")
+        del params, on_card, inputs, to_dev
+        torch.cuda.empty_cache()
+
+
+def phase_lm_whisper_parity(torch, dev):
+    """Whisper-large-v3 at its published widths, 2 encoder + 2 decoder
+    layers, 2 clips of 64 frames, prompt 2 x 32, 8 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_serve
+
+    cfg = dataclasses.replace(get_config(LM_WHISPER), n_layers=2,
+                              n_enc_layers=2)
+    print(f"[lm-whisper-parity] {cfg.name} widths, {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, 2 x 64 frames, prompt 2 x 32")
+    phase_lm_cell_parity(
+        torch, dev, "lm-whisper-parity", cfg, 2, 32, 8,
+        lambda c, dt: (lm_serve.audio_inputs(c, 2, 64, torch.device("cpu"),
+                                             dt, seed=1), None))
+
+
+def phase_lm_vl_parity(torch, dev):
+    """Qwen2-VL-72B widths at depth 2, vocab cut to 32768, prompt 2 x 256
+    with a 64-position vision block (1 x 8 x 8) and M-RoPE ids, 8 decode
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_serve
+
+    cfg = dataclasses.replace(get_config(LM_VL), n_layers=2,
+                              vocab_size=32768)
+    print(f"[lm-vl-parity] {cfg.name} widths, depth 2, vocab 32768, prompt "
+          f"2 x 256 with a 64-position vision block")
+    phase_lm_cell_parity(
+        torch, dev, "lm-vl-parity", cfg, 2, 256, 8,
+        lambda c, dt: lm_serve.vision_inputs(c, 2, 256, 9,
+                                             torch.device("cpu"), dt,
+                                             seed=1))
+
+
+def _forced_run(torch, cfg, params, toks, steps, forced=None, inputs=None,
+                dec_pos=None):
+    """Prefill ``toks`` (with the prefill's other ``inputs``) and ``steps``
+    decode steps (with M-RoPE ids ``dec_pos`` (B, 3, steps)), each fed the
+    previous greedy token or, with ``forced``, that list's; returns the
+    logits (float32, on the CPU) and the tokens fed."""
     from repro_torch.models import decode_step, prefill
 
-    logits, caches = prefill(cfg, params, {"tokens": toks},
+    logits, caches = prefill(cfg, params, {"tokens": toks, **(inputs or {})},
                              max_len=toks.shape[1] + steps)
     out, tok, fed = [logits], logits[:, -1].argmax(-1)[:, None], []
     for t in range(steps):
         tok = forced[t].to(toks.device) if forced is not None else tok
         fed.append(tok.cpu())
+        mrope = None if dec_pos is None else dec_pos[:, :, t:t + 1]
         step, caches = decode_step(cfg, params, caches, tok,
-                                   toks.shape[1] + t)
+                                   toks.shape[1] + t, mrope)
         out.append(step)
         tok = step[:, 0].argmax(-1)[:, None]
     return [o.float().cpu() for o in out], fed
@@ -2390,44 +2760,56 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch, dev, name)
     launches = {k: 0 for k in kernels}
-    for path in (phase_jacobi, phase_vi, lambda d: phase_scf(torch, d),
-                 lambda d: phase_lm(torch, d),
-                 lambda d: phase_lm_bf16(torch, d)):
-        for k, c in path(dev).items():
+
+    def run(label, fn):
+        """``fn()``, its main-path launches (where it returns counts) added
+        in, and its seconds printed beside the total so far."""
+        t0 = time.perf_counter()
+        for k, c in (fn() or {}).items():
             launches[k] += c
-    for path in (phase_chaos, lambda d: phase_recover(d, "thread")):
-        for k, c in path(dev).items():
-            launches[k] += c
-    phase_small_parity(dev)
-    phase_scf_parity(dev)
-    phase_recover_parity(dev)
-    phase_lm_parity(torch, dev)
-    phase_lm_bf16_parity(torch, dev)
-    for label, arch in LM_MOE:
-        for k, c in phase_lm_moe(torch, dev, label, arch).items():
-            launches[k] += c
-    for k, c in phase_lm_xlstm(torch, dev).items():
-        launches[k] += c
-    phase_lm_moe_parity(torch, dev)
-    phase_lm_xlstm_parity(torch, dev)
-    for k, c in phase_train(torch, dev, name).items():
-        launches[k] += c
-    phase_train_parity(torch, dev)
-    for path in (phase_async_dp, phase_diloco):
-        for k, c in path(torch, dev).items():
-            launches[k] += c
+        now = time.perf_counter()
+        print(f"[time] {label} {now - t0:.1f} s (total {now - t_start:.1f} "
+              f"s)")
+
+    print(f"[time] device, build and kernels "
+          f"{time.perf_counter() - t_start:.1f} s")
+    for label, fn in (
+            ("jacobi", lambda: phase_jacobi(dev)),
+            ("vi", lambda: phase_vi(dev)),
+            ("scf", lambda: phase_scf(torch, dev)),
+            ("lm", lambda: phase_lm(torch, dev)),
+            ("lm-bf16", lambda: phase_lm_bf16(torch, dev)),
+            ("chaos", lambda: phase_chaos(dev)),
+            ("recover thread", lambda: phase_recover(dev, "thread")),
+            ("small-parity", lambda: phase_small_parity(dev)),
+            ("scf-parity", lambda: phase_scf_parity(dev)),
+            ("recover-parity", lambda: phase_recover_parity(dev)),
+            ("lm-parity", lambda: phase_lm_parity(torch, dev)),
+            ("lm-bf16-parity", lambda: phase_lm_bf16_parity(torch, dev)),
+            *((moe, lambda arch=arch, moe=moe: phase_lm_moe(
+                torch, dev, moe, arch)) for moe, arch in LM_MOE),
+            ("lm-xlstm", lambda: phase_lm_xlstm(torch, dev)),
+            ("lm-whisper", lambda: phase_lm_whisper(torch, dev)),
+            ("lm-vl", lambda: phase_lm_vl(torch, dev)),
+            ("lm-moe-parity", lambda: phase_lm_moe_parity(torch, dev)),
+            ("lm-xlstm-parity", lambda: phase_lm_xlstm_parity(torch, dev)),
+            ("lm-whisper-parity",
+             lambda: phase_lm_whisper_parity(torch, dev)),
+            ("lm-vl-parity", lambda: phase_lm_vl_parity(torch, dev)),
+            ("train", lambda: phase_train(torch, dev, name)),
+            ("train-parity", lambda: phase_train_parity(torch, dev)),
+            ("async-dp", lambda: phase_async_dp(torch, dev)),
+            ("diloco", lambda: phase_diloco(torch, dev))):
+        run(label, fn)
     from repro_torch.core import pool_stats, shutdown_pools
 
     try:
-        for path in (phase_process, lambda d: phase_recover(d, "process")):
-            for k, c in path(dev).items():
-                launches[k] += c
+        run("process", lambda: phase_process(dev))
+        run("recover process", lambda: phase_recover(dev, "process"))
         jac, vi = jacobi_problem(dev), vi_problem(dev)
-        for path in (lambda d: phase_telemetry(d, jac, vi),
-                     lambda d: phase_autoscale(d, vi),
-                     lambda d: phase_serve(d, jac, vi)):
-            for k, c in path(dev).items():
-                launches[k] += c
+        run("telemetry", lambda: phase_telemetry(dev, jac, vi))
+        run("autoscale", lambda: phase_autoscale(dev, vi))
+        run("serve", lambda: phase_serve(dev, jac, vi))
     finally:
         shutdown_pools()
     check(pool_stats() == {}, "process: pools left after shutdown_pools()")

@@ -73,7 +73,10 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device=None,
     Both packages keep the reference's einsum layouts (``wq (d, nq, hd)``,
     ``wi (d, 2, f)``, ...), so this is a renaming, never a transpose: the
     stacked ``stack`` leaves ``(n_periods, ...)`` are split per layer, in
-    order, followed by the ``rest`` layers.  Shapes are checked against
+    order, followed by the ``rest`` layers (an encoder-decoder's carry
+    their ``norm_x`` and ``cross``), and an encoder-decoder's
+    ``encoder/stack`` leaves ``(n_enc_layers, ...)`` per encoder layer
+    beside ``encoder/final_norm``.  Shapes are checked against
     the port's own :func:`~repro_torch.models.transformer.model_spec`.
     The tensors land on ``device`` (None: the card).  With ``trainable``
     the parameters are bound into their flat buffer
@@ -100,8 +103,15 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device=None,
               for p in range(cfg.n_periods) for i in range(len(cfg.period))]
     layers += [tree_map(to_t, tree["rest"][str(i)])
                for i in range(len(cfg.remainder))]
+    encoder = None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        encoder = ([tree_map(lambda a, p=p: to_t(np.asarray(a)[p]),
+                             enc["stack"]["0"])
+                    for p in range(cfg.n_enc_layers)],
+                   tree_map(to_t, enc["final_norm"]))
     model = DecoderLM(cfg, tree_map(to_t, tree["embed"]), layers,
-                      tree_map(to_t, tree["final_norm"]))
+                      tree_map(to_t, tree["final_norm"]), encoder)
     if trainable:
         make_trainable(model)
     return model

@@ -9,8 +9,23 @@ ranges (``lm_serve.PREFILL``, ``lm_serve.DECODE``):
       [--batch 2] [--prompt-len 8192] [--gen 9] [--dtype bfloat16]
 
 ``--arch`` takes any config the port carries (``configs.PORTED``), the
-MoE (``qwen2_moe_a2p7b``, ``olmoe_1b_7b``) and xLSTM (``xlstm_125m``) ones
-too.
+MoE (``qwen2_moe_a2p7b``, ``olmoe_1b_7b``), xLSTM (``xlstm_125m``),
+encoder-decoder and vision-language ones too:
+
+  PYTHONPATH=src python -m repro_torch.launch.lm_profile \
+      --arch whisper_large_v3 --dtype bfloat16   # 8 x 1500 frames, 224 tokens
+  PYTHONPATH=src python -m repro_torch.launch.lm_profile \
+      --arch qwen2_vl_72b --layers 8 --dtype bfloat16
+
+Whisper gets seeded frame embeddings of a padded 30-s clip
+(``inputs.WHISPER_FRAMES``) and, by default, batch 8 and a 224-token
+prompt (half its 448-token text context); Qwen2-VL a seeded vision block
+of the prompt's first quarter with its M-RoPE ids
+(``lm_serve.vision_inputs``).  ``--layers`` cuts the depth (Qwen2-VL-72B's
+80 layers do not fit one card).  The warm-up serves the same inputs with
+one decode step, so the timed run is not the first at its shapes.
+Before the traced run one prefill counts the flash launches by role
+(encoder, self, cross) and their host time (:func:`flash_roles`).
 
 For each phase it prints the host wall time, the device time summed over
 the kernels and copies the profiler recorded (one stream, so they do not
@@ -36,17 +51,23 @@ from __future__ import annotations
 
 import argparse
 import collections
-from typing import Dict, List, Optional
+import contextlib
+import dataclasses
+import time
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .._device import resolve_device
+from ..kernels import ops
 from ..models import init_params
 from . import lm_serve
+from .inputs import WHISPER_DEC_LEN, WHISPER_FRAMES
 
-__all__ = ["kernel_group", "breakdown", "main"]
+__all__ = ["kernel_group", "breakdown", "FlashCall", "flash_role",
+           "flash_roles", "role_summary", "main"]
 
 #: (group, substrings of a kernel's name in lower case), first match wins
 _GROUPS = (("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
@@ -92,12 +113,73 @@ def breakdown(label: str, wall_ms: float, device_events) -> Dict:
                          for n, ms in kernels])
 
 
+class FlashCall(NamedTuple):
+    role: str  # "encoder", "self" or "cross"
+    dtype: torch.dtype  # q's (k and v are checked to match by the wrapper)
+    host_s: float  # the wrapper's host seconds, launch included
+
+
+def flash_role(q, k, causal: bool) -> str:
+    """A prefill attention's role from the kernel's own arguments:
+    ``self`` if causal; else ``encoder`` where the queries are the keys'
+    positions (an encoder's self-attention), ``cross`` where they are not
+    (a decoder's queries against the encoder's frames; a Whisper prompt,
+    at most ``WHISPER_DEC_LEN`` tokens, is never as long as its
+    ``WHISPER_FRAMES`` frames)."""
+    if causal:
+        return "self"
+    return "encoder" if q.shape[1] == k.shape[1] else "cross"
+
+
+@contextlib.contextmanager
+def flash_roles():
+    """Record every ``ops.flash_attention`` call made inside: its
+    :func:`flash_role`, q's dtype and the call's host seconds (no
+    synchronise: the time to build the launch and enqueue it).  Yields
+    the list the calls are appended to."""
+    calls: List[FlashCall] = []
+    real = ops.flash_attention
+
+    def flash(q, k, v, **kw):
+        t0 = time.perf_counter()
+        out = real(q, k, v, **kw)
+        calls.append(FlashCall(flash_role(q, k, kw.get("causal", True)),
+                               q.dtype, time.perf_counter() - t0))
+        return out
+
+    ops.flash_attention = flash
+    try:
+        yield calls
+    finally:
+        ops.flash_attention = real
+
+
+def role_summary(calls: List[FlashCall]) -> Dict[str, Dict]:
+    """Launches, dtypes and mean host microseconds by role."""
+    out: Dict[str, Dict] = {}
+    for c in calls:
+        r = out.setdefault(c.role, dict(launches=0, dtypes=set(),
+                                        host_us=0.0))
+        r["launches"] += 1
+        r["dtypes"].add(str(c.dtype).replace("torch.", ""))
+        r["host_us"] += c.host_s * 1e6
+    for r in out.values():
+        r["host_us"] /= r["launches"]
+        r["dtypes"] = sorted(r["dtypes"])
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gemma2_2b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--batch", type=int, default=2)
-    ap.add_argument("--prompt-len", type=int, default=8192)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 2 (8 for an encoder-decoder)")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help=f"default 8192 ({WHISPER_DEC_LEN // 2} for an "
+                         f"encoder-decoder)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--gen", type=int, default=9,
                     help="tokens generated: the prefill's and gen - 1 "
                          "decode steps")
@@ -109,21 +191,47 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     device = resolve_device(args.device)
     cfg = lm_serve.make_config(args.arch, args.reduced)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    encdec = cfg.kind == "encdec"
+    if args.batch is None:
+        args.batch = 8 if encdec else 2
+    if args.prompt_len is None:
+        args.prompt_len = WHISPER_DEC_LEN // 2 if encdec else 8192
+    dtype = getattr(torch, args.dtype)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         dtype=getattr(torch, args.dtype), device=device)
+                         dtype=dtype, device=device)
     prompt = lm_serve.make_prompt(cfg, args.batch, args.prompt_len, device)
-    # warm-up: the kernel build on first use, cuBLAS handles and plans
-    lm_serve.serve(cfg, params, prompt[:, :64], 2)
-    res = lm_serve.serve(cfg, params, prompt, args.gen)
-    print(f"[serve] {cfg.name} {args.dtype} batch {args.batch} x "
-          f"{args.prompt_len}: prefill {res.prefill_s:.3f} s, decode "
+    inputs, dec_pos = None, None
+    if encdec:
+        inputs = lm_serve.audio_inputs(cfg, args.batch, WHISPER_FRAMES,
+                                       device, dtype)
+    elif cfg.vision_stub:
+        inputs, dec_pos = lm_serve.vision_inputs(
+            cfg, args.batch, args.prompt_len, args.gen, device, dtype)
+    kw = dict(inputs=inputs, decode_positions=dec_pos)
+    # warm-up at the same shapes: the kernel build on first use, cuBLAS
+    # handles and plans, the allocator's blocks
+    lm_serve.serve(cfg, params, prompt, 2, **kw)
+    res = lm_serve.serve(cfg, params, prompt, args.gen, **kw)
+    print(f"[serve] {cfg.name} {args.dtype} {cfg.n_layers} layers, batch "
+          f"{args.batch} x {args.prompt_len}"
+          + (f" after {WHISPER_FRAMES} frames" if encdec else "")
+          + f": prefill {res.prefill_s:.3f} s, decode "
           f"{res.decode_ms_per_step:.2f} ms/step (untraced)")
+    with flash_roles() as calls:
+        lm_serve.serve(cfg, params, prompt, 1, **kw)
+    roles = role_summary(calls)
+    for role, r in roles.items():
+        print(f"[flash] {role:8s} {r['launches']:4d} launches a prefill "
+              f"({', '.join(r['dtypes'])}), host {r['host_us']:.1f} us "
+              f"a launch")
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        lm_serve.serve(cfg, params, prompt, args.gen)
+        lm_serve.serve(cfg, params, prompt, args.gen, **kw)
     events = prof.events()
     names = (lm_serve.PREFILL, lm_serve.DECODE)
     phases = {e.name: e.time_range for e in events
@@ -136,10 +244,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     # (the profiler may mirror the two ranges on the device: not kernels)
     device_events = [e for e in events if e.device_type == DeviceType.CUDA
                      and e.name not in names]
-    out = dict(arch=cfg.name, dtype=args.dtype, batch=args.batch,
-               prompt_len=args.prompt_len,
+    out = dict(arch=cfg.name, dtype=args.dtype, n_layers=cfg.n_layers,
+               batch=args.batch, prompt_len=args.prompt_len,
+               frames=WHISPER_FRAMES if encdec else None,
                decode_steps=args.gen - 1, prefill_s=res.prefill_s,
-               decode_ms_per_step=res.decode_ms_per_step)
+               decode_ms_per_step=res.decode_ms_per_step, flash_roles=roles)
     out["prefill"] = breakdown(
         "prefill", phases[lm_serve.PREFILL].elapsed_us() / 1e3,
         [e for e in device_events if e.time_range.start < split])

@@ -3,9 +3,11 @@
 Counterpart of ``repro.launch.lm_serve``, with the same flags and the same
 ``--reduced`` shrink, float32 parameters drawn from a seeded
 ``torch.Generator`` (no published weights are in the repository) and a
-prompt from ``numpy.random.default_rng(0)``.  It runs on the CUDA card,
-where prefill attention goes through the hand-written flash kernel;
-``--device cpu`` takes the plain PyTorch path (for tests):
+prompt from ``numpy.random.default_rng(0)``; an encoder-decoder (Whisper)
+gets the reference's zero frame embeddings (B, 32, d) for its stub
+frontend.  It runs on the CUDA card, where prefill attention (the
+encoder's and the cross-attention too) goes through the hand-written
+flash kernel; ``--device cpu`` takes the plain PyTorch path (for tests):
 
   PYTHONPATH=src python -m repro_torch.launch.lm_serve --arch gemma2_2b \\
       --reduced --batch 4 --prompt-len 24 --gen 16 [--device cpu]
@@ -14,9 +16,10 @@ where prefill attention goes through the hand-written flash kernel;
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,9 +28,11 @@ from torch.profiler import record_function
 from .._device import resolve_device
 from ..configs import ModelConfig, get_config
 from ..models import DecoderLM, decode_step, init_params, prefill
+from .inputs import STUB_DIV
 
 __all__ = ["ServeResult", "PREFILL", "DECODE", "make_config",
-           "make_params", "make_prompt", "serve", "main"]
+           "make_params", "make_prompt", "audio_inputs", "vision_grid",
+           "vision_inputs", "serve", "main"]
 
 #: names of the profiler ranges around the two phases of :func:`serve`
 PREFILL, DECODE = "lm_serve.prefill", "lm_serve.decode"
@@ -64,23 +69,76 @@ def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, device,
     return torch.as_tensor(prompt, device=device)
 
 
+def audio_inputs(cfg: ModelConfig, batch: int, frames: int, device,
+                 dtype, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Whisper's stub-frontend input: seeded standard-normal frame
+    embeddings ``audio_embeds`` (batch, frames, d) in ``dtype`` (the
+    parameters'), drawn on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"audio_embeds": torch.randn(batch, frames, cfg.d_model,
+                                        generator=gen, device=device,
+                                        dtype=dtype)}
+
+
+def vision_grid(n: int) -> Tuple[int, int, int]:
+    """A (t, h, w) patch grid of ``n`` patches, one frame: w the power of
+    two at or above sqrt(n) (2048 patches: 1 x 32 x 64)."""
+    w = 1 << max(math.ceil(math.log2(math.sqrt(n))), 0)
+    if n % w:
+        raise ValueError(f"{n} patches do not fill rows of {w}")
+    return 1, n // w, w
+
+
+def vision_inputs(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
+                  device, dtype, seed: int = 0
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Qwen2-VL's stub-frontend inputs and M-RoPE position ids: seeded
+    standard-normal ``vision_embeds`` for the first ``prompt_len //
+    STUB_DIV`` positions in ``dtype``, on the
+    :func:`vision_grid` (t = 0, h = i // w, w = i % w); the text after it
+    at t = h = w running on from the grid's largest id + 1, as Qwen2-VL
+    assigns them.  Returns ``({"vision_embeds", "positions" (B, 3, S)},
+    decode_positions (B, 3, gen - 1))``: the decode steps' ids continue
+    the text's, apart from the cache index."""
+    nv = prompt_len // STUB_DIV
+    t, h, w = vision_grid(nv)
+    i = torch.arange(nv, device=device)
+    vis = torch.stack([torch.zeros_like(i), i // w, i % w])  # (3, nv)
+    start = max(t, h, w)
+    text = start + torch.arange(prompt_len - nv + gen - 1, device=device)
+    ids = torch.cat([vis, text[None].expand(3, -1)], dim=1).to(torch.int32)
+    ids = ids[None].expand(batch, -1, -1).contiguous()
+    gen_ = torch.Generator(device=device).manual_seed(seed)
+    ve = torch.randn(batch, nv, cfg.d_model, generator=gen_, device=device,
+                     dtype=dtype)
+    return ({"vision_embeds": ve, "positions": ids[:, :, :prompt_len]},
+            ids[:, :, prompt_len:])
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def serve(cfg: ModelConfig, params: DecoderLM, prompt: torch.Tensor,
-          gen: int, keep_logits: bool = False) -> ServeResult:
+          gen: int, keep_logits: bool = False,
+          inputs: Optional[Dict[str, torch.Tensor]] = None,
+          decode_positions: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill the prompt, then ``gen - 1`` greedy decode steps: ``gen``
-    tokens in all.  Times are host clock around work that ends in a
-    device synchronise; a profiler sees the two phases as the ranges
-    ``PREFILL`` and ``DECODE``."""
+    tokens in all.  ``inputs`` are the prefill's other inputs
+    (``audio_embeds``; ``vision_embeds`` and M-RoPE ``positions``, as
+    :func:`audio_inputs` and :func:`vision_inputs` make them), and
+    ``decode_positions`` (B, 3, >= gen - 1) the decode steps' M-RoPE ids.
+    Times are host clock around work that ends in a device synchronise; a
+    profiler sees the two phases as the ranges ``PREFILL`` and
+    ``DECODE``."""
     device = prompt.device
     B, S0 = prompt.shape
     _sync(device)
     with record_function(PREFILL):
         t0 = time.perf_counter()
-        logits, caches = prefill(cfg, params, {"tokens": prompt},
+        logits, caches = prefill(cfg, params,
+                                 {"tokens": prompt, **(inputs or {})},
                                  max_len=S0 + gen)
         toks = logits[:, -1].argmax(-1)[:, None]
         _sync(device)
@@ -89,7 +147,10 @@ def serve(cfg: ModelConfig, params: DecoderLM, prompt: torch.Tensor,
     with record_function(DECODE):
         t0 = time.perf_counter()
         for t in range(gen - 1):
-            step, caches = decode_step(cfg, params, caches, toks, S0 + t)
+            mrope = (None if decode_positions is None
+                     else decode_positions[:, :, t:t + 1])
+            step, caches = decode_step(cfg, params, caches, toks, S0 + t,
+                                       mrope)
             toks = step[:, 0].argmax(-1)[:, None]
             out.append(toks)
             if keep_logits:
@@ -114,7 +175,11 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     cfg = make_config(args.arch, args.reduced)
     params = make_params(cfg, device)
     prompt = make_prompt(cfg, args.batch, args.prompt_len, device)
-    res = serve(cfg, params, prompt, args.gen)
+    inputs = None
+    if cfg.kind == "encdec":  # the reference's stub frames
+        inputs = {"audio_embeds": torch.zeros(args.batch, 32, cfg.d_model,
+                                              device=device)}
+    res = serve(cfg, params, prompt, args.gen, inputs=inputs)
     print(f"prefill {args.batch} x {args.prompt_len} tokens: "
           f"{res.prefill_s:.3f} s")
     print(f"decoded {res.tokens.shape[1]} tokens x batch {args.batch}: "

@@ -1,5 +1,6 @@
-"""The port's LM substrate: layers, attention (prefill through the flash
-kernel wrapper), MoE, xLSTM, and the stack with its training and serving
+"""The port's LM substrate: layers, attention (prefill, the encoder and
+cross-attention through the flash kernel wrapper), MoE, xLSTM, and the
+decoder and encoder-decoder stack with its training and serving
 passes."""
 
 from .transformer import (

@@ -1,18 +1,18 @@
-"""Shared layers: norms, MLPs (gated and 2-matrix), embeddings, RoPE.
+"""Shared layers: norms, MLPs (gated and 2-matrix), embeddings, RoPE,
+M-RoPE and sinusoidal positions.
 
 Counterpart of ``repro.models.layers``.  Pure functions of explicit
 params (a dict or :class:`~repro_torch.models.common.ParamTree` with the
 reference's keys and einsum layouts: ``wi (d, 2, f)`` for gated MLPs,
 ``embedding (vocab, d)``), so a parameter tree carried over from the JAX
-package needs no transposes.  M-RoPE and sinusoidal positions are not
-ported (ROADMAP.md items 1.7f and 1.7e).
+package needs no transposes.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,8 @@ from ..configs.base import ModelConfig
 from .common import ParamSpec
 
 __all__ = ["rmsnorm_spec", "rmsnorm", "mlp_spec", "mlp", "embed_spec",
-           "embed", "logits", "rope_freqs", "apply_rope"]
+           "embed", "logits", "rope_freqs", "apply_rope", "apply_mrope",
+           "sinusoidal_positions"]
 
 f32 = torch.float32
 
@@ -136,3 +137,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.to(f32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, heads, hd); positions: (B, 3, S),
+    the temporal, height and width position ids.  The hd/2 frequency slots
+    are split into ``sections`` (summing to hd/2), and each section rotates
+    with its own position stream: section 0 with t, 1 with h, 2 with w.
+    Angles and rotation in float32, as :func:`apply_rope`."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = _rope_freqs_on(hd, float(theta), x.device)  # (hd/2,)
+    sec_id = _section_ids(tuple(sections), x.device)  # (hd/2,)
+    pos = positions.to(f32).index_select(1, sec_id)  # (B, hd/2, S)
+    ang = pos.transpose(1, 2) * freqs  # (B, S, hd/2)
+    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+    x1, x2 = x.to(f32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: Tuple[int, int, int],
+                 device: torch.device) -> torch.Tensor:
+    """The position stream (0, 1, 2) of each frequency slot, made once per
+    device."""
+    return torch.as_tensor(np.repeat(np.arange(3), sections),
+                           device=device)
+
+
+def sinusoidal_positions(S: int, d: int, offset: int = 0) -> np.ndarray:
+    """Whisper's (S, d) sinusoidal table in float64: sin on the even
+    columns, cos on the odd ones."""
+    pos = np.arange(offset, offset + S, dtype=np.float64)[:, None]
+    dim = np.arange(0, d, 2, dtype=np.float64)[None, :]
+    ang = pos / (10000.0 ** (dim / d))
+    out = np.zeros((S, d))
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out

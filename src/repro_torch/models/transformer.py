@@ -1,12 +1,13 @@
-"""The decoder stack: its training pass and its serving passes.
+"""The decoder and encoder-decoder stack: its training pass and its
+serving passes.
 
-Counterpart of the decoder parts of ``repro.models.transformer``.  The
-reference scans a repeating *period* of (mixer, ffn) sublayers over
-stacked parameters, plus an unscanned remainder; the scan, remat and the
-loop barrier exist for XLA.  Here the stack is a :class:`DecoderLM`
-holding one :class:`Sublayer` module per layer, in order (period 0's
-sublayers, period 1's, ..., then the remainder), each with the reference's
-parameter shapes and keys, and the passes are a Python loop over them.
+Counterpart of ``repro.models.transformer``.  The reference scans a
+repeating *period* of (mixer, ffn) sublayers over stacked parameters, plus
+an unscanned remainder; the scan, remat and the loop barrier exist for
+XLA.  Here the stack is a :class:`DecoderLM` holding one :class:`Sublayer`
+module per layer, in order (period 0's sublayers, period 1's, ..., then
+the remainder), each with the reference's parameter shapes and keys, and
+the passes are a Python loop over them.
 
 Three entry modes share one sublayer implementation:
   * ``forward_train`` — full-sequence teacher forcing (float32 logits and
@@ -24,14 +25,25 @@ the reference's ``ravel_pytree`` of its stacked parameter tree.
 Mixers: global attention, sliding-window attention (ring cache), mLSTM
 and sLSTM (recurrent states, :mod:`.xlstm`).  FFNs: dense (SwiGLU/GeGLU/
 GELU/ReLU²), MoE (:mod:`.moe`; its auxiliary losses are summed over the
-layers by ``forward_train``) or none.  Mamba, encoder-decoder and vision
-configs raise ``NotImplementedError`` naming their ROADMAP.md item.
+layers by ``forward_train``) or none.  Mamba configs raise
+``NotImplementedError`` naming their ROADMAP.md item.
+
+Whisper (``kind="encdec"``) adds a bidirectional :class:`Encoder` over
+precomputed frame embeddings and cross-attention in every decoder layer
+(``norm_x``, ``cross``); each decoder layer's decode cache is then a
+:class:`CrossCache`, its self-attention cache beside the cross K/V the
+prefill projects once from the encoder output.  Positions are sinusoidal
+(float64 tables in the prefill and the encoder, float32 in decode, as the
+reference computes them).  Qwen2-VL merges precomputed vision patch
+embeddings into the token stream (``vision_embeds``) and takes M-RoPE
+position ids (``positions`` (B, 3, S); ``mrope_positions`` (B, 3, 1) in
+decode).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -52,20 +64,36 @@ from .layers import (
     mlp_spec,
     rmsnorm,
     rmsnorm_spec,
+    sinusoidal_positions,
 )
 
 __all__ = ["check_ported", "sublayer_spec", "model_spec", "Sublayer",
-           "DecoderLM", "layer_kinds", "init_params", "init_caches",
-           "make_trainable", "apply_sublayer_full", "apply_sublayer_decode",
-           "forward_train", "lm_loss", "prefill", "decode_step"]
+           "Encoder", "DecoderLM", "CrossCache", "layer_kinds",
+           "init_params", "init_caches", "make_trainable",
+           "apply_sublayer_full", "apply_sublayer_decode", "forward_train",
+           "lm_loss", "prefill", "decode_step"]
 
 #: the ROADMAP.md item of each mixer kind the port does not carry
 _UNPORTED_MIXERS = {"mamba": "1.7c (Mamba)"}
 _MIXERS = ("attn", "local", "mlstm", "slstm")
 _FFNS = ("mlp", "moe", "none")
+#: the encoder's one sublayer kind
+ENC_SUBLAYER: SublayerKind = ("attn", "mlp")
 
-#: one layer's decode cache: a KV cache, or an mLSTM / sLSTM state
-Cache = Union[KVCache, xlstm_mod.MLSTMState, xlstm_mod.SLSTMState]
+
+class CrossCache(NamedTuple):
+    """An encoder-decoder layer's decode cache: ``kv``, its self-attention
+    KV cache, and ``cross``, the K/V of its cross-attention projected from
+    the encoder output, (B, Se, nkv, hd), written by the prefill."""
+
+    kv: KVCache
+    cross: KVCache
+
+
+#: one layer's decode cache: a KV cache (with the cross K/V for an
+#: encoder-decoder), or an mLSTM / sLSTM state
+Cache = Union[KVCache, CrossCache, xlstm_mod.MLSTMState,
+              xlstm_mod.SLSTMState]
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -78,14 +106,6 @@ def check_ported(cfg: ModelConfig) -> None:
                 f"{_UNPORTED_MIXERS[mixer]}")
         if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"unknown sublayer {(mixer, ffn)}")
-    if cfg.kind == "encdec" or cfg.pos_embed != "rope":
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet: ROADMAP.md item "
-            "1.7e")
-    if cfg.vision_stub or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "vision-language models are not ported yet: ROADMAP.md item "
-            "1.7f")
 
 
 # --------------------------------------------------------------------- #
@@ -99,12 +119,16 @@ def _mixer_spec(cfg: ModelConfig, mixer: str) -> Dict:
     return attn_mod.attn_spec(cfg)
 
 
-def sublayer_spec(cfg: ModelConfig, sub: SublayerKind) -> Dict:
+def sublayer_spec(cfg: ModelConfig, sub: SublayerKind,
+                  cross: bool = False) -> Dict:
     mixer, ffn = sub
     s: Dict = {
         "norm1": rmsnorm_spec(cfg.d_model),
         "mixer": _mixer_spec(cfg, mixer),
     }
+    if cross:
+        s["norm_x"] = rmsnorm_spec(cfg.d_model)
+        s["cross"] = attn_mod.cross_attn_spec(cfg)
     if ffn == "mlp":
         s["norm2"] = rmsnorm_spec(cfg.d_model)
         s["ffn"] = mlp_spec(cfg)
@@ -117,16 +141,26 @@ def sublayer_spec(cfg: ModelConfig, sub: SublayerKind) -> Dict:
 def model_spec(cfg: ModelConfig) -> Dict:
     """The reference's parameter tree: ``embed``, ``final_norm``, the
     period stacked over ``n_periods`` under ``stack`` and the remainder
-    under ``rest``."""
+    under ``rest``; an encoder-decoder's decoder layers also hold
+    ``norm_x`` and ``cross``, and ``encoder`` holds its (attn, mlp) layer
+    stacked over ``n_enc_layers`` and its ``final_norm``."""
     check_ported(cfg)
+    cross = cfg.kind == "encdec"
     s: Dict = {"embed": embed_spec(cfg), "final_norm": rmsnorm_spec(cfg.d_model)}
     if cfg.n_periods > 0:
         s["stack"] = stack_specs(
-            {str(i): sublayer_spec(cfg, sub) for i, sub in enumerate(cfg.period)},
-            cfg.n_periods)
+            {str(i): sublayer_spec(cfg, sub, cross)
+             for i, sub in enumerate(cfg.period)}, cfg.n_periods)
     s["rest"] = {
-        str(i): sublayer_spec(cfg, sub) for i, sub in enumerate(cfg.remainder)
+        str(i): sublayer_spec(cfg, sub, cross)
+        for i, sub in enumerate(cfg.remainder)
     }
+    if cross:
+        s["encoder"] = {
+            "stack": stack_specs({"0": sublayer_spec(cfg, ENC_SUBLAYER)},
+                                 cfg.n_enc_layers),
+            "final_norm": rmsnorm_spec(cfg.d_model),
+        }
     return s
 
 
@@ -148,41 +182,70 @@ class Sublayer(ParamTree):
         self.kind = tuple(kind)
 
 
-class DecoderLM(nn.Module):
-    """The parameters of a decoder: ``embed``, ``layers`` (one
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: ``layers`` (one (attn, mlp)
     :class:`Sublayer` per layer, in order) and ``final_norm``."""
 
+    def __init__(self, layer_trees: Sequence[Dict], final_norm_tree: Dict):
+        super().__init__()
+        self.layers = nn.ModuleList(Sublayer(ENC_SUBLAYER, t)
+                                    for t in layer_trees)
+        self.final_norm = ParamTree(final_norm_tree)
+
+
+class DecoderLM(nn.Module):
+    """The parameters of a decoder: ``embed``, ``layers`` (one
+    :class:`Sublayer` per layer, in order) and ``final_norm``; for an
+    encoder-decoder also ``encoder`` (an :class:`Encoder` built from
+    ``encoder = (layer_trees, final_norm_tree)``; None otherwise)."""
+
     def __init__(self, cfg: ModelConfig, embed_tree: Dict,
-                 layer_trees: Sequence[Dict], final_norm_tree: Dict):
+                 layer_trees: Sequence[Dict], final_norm_tree: Dict,
+                 encoder: Optional[Tuple[Sequence[Dict], Dict]] = None):
         super().__init__()
         check_ported(cfg)
         kinds = layer_kinds(cfg)
         if len(layer_trees) != len(kinds):
             raise ValueError(f"{cfg.name}: expected {len(kinds)} layers, "
                              f"got {len(layer_trees)}")
+        if (encoder is not None) != (cfg.kind == "encdec"):
+            raise ValueError(f"{cfg.name} (kind {cfg.kind}): an encoder is "
+                             f"{'required' if encoder is None else 'unused'}")
+        if encoder is not None and len(encoder[0]) != cfg.n_enc_layers:
+            raise ValueError(f"{cfg.name}: expected {cfg.n_enc_layers} "
+                             f"encoder layers, got {len(encoder[0])}")
         self.cfg = cfg
         self.embed = ParamTree(embed_tree)
         self.layers = nn.ModuleList(
             Sublayer(kind, t) for kind, t in zip(kinds, layer_trees))
         self.final_norm = ParamTree(final_norm_tree)
+        self.encoder = None if encoder is None else Encoder(*encoder)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 dtype=None, device=None) -> DecoderLM:
     """Random parameters from ``generator`` (seed 0 on ``device`` when
-    None), drawn layer by layer on ``device`` (None: the card): the
-    embedding first, then each layer, then the final norm."""
+    None), drawn layer by layer on ``device`` (None: the card) in the
+    reference's top-level order: the embedding first, then (an
+    encoder-decoder's) each encoder layer and the encoder's final norm,
+    then each decoder layer, then the final norm."""
     check_ported(cfg)
     device = resolve_device(device)
     dt = dtype or getattr(torch, cfg.param_dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     kw = dict(generator=generator, device=device, dtype=dt)
+    cross = cfg.kind == "encdec"
     emb = materialize(embed_spec(cfg), **kw)
-    layers = [materialize(sublayer_spec(cfg, sub), **kw)
+    encoder = None
+    if cross:
+        encoder = ([materialize(sublayer_spec(cfg, ENC_SUBLAYER), **kw)
+                    for _ in range(cfg.n_enc_layers)],
+                   materialize(rmsnorm_spec(cfg.d_model), **kw))
+    layers = [materialize(sublayer_spec(cfg, sub, cross), **kw)
               for sub in layer_kinds(cfg)]
     final = materialize(rmsnorm_spec(cfg.d_model), **kw)
-    return DecoderLM(cfg, emb, layers, final)
+    return DecoderLM(cfg, emb, layers, final, encoder)
 
 
 def _param_at(tree, path: Sequence[str]) -> nn.Parameter:
@@ -194,9 +257,9 @@ def _param_at(tree, path: Sequence[str]) -> nn.Parameter:
 def make_trainable(params: DecoderLM) -> FlatParams:
     """Bind every parameter of ``params`` into one flat buffer laid out as
     the reference's ``ravel_pytree`` of its parameter tree: the leaves in
-    sorted-key order (``embed``, ``final_norm``, ``rest``, ``stack``), a
-    stacked leaf being the same parameter of every period, period by
-    period.  The parameters become trainable views (see
+    sorted-key order (``embed``, ``encoder`` where there is one,
+    ``final_norm``, ``rest``, ``stack``), a stacked leaf being the same
+    parameter of every period (every encoder layer), period by period.  The parameters become trainable views (see
     :class:`~repro_torch.models.common.FlatParams`); the result is kept as
     ``params.flat``, and a second call returns it while its parameters
     are still bound to it; a copy (``copy.deepcopy``, ``Module.to``) of a
@@ -213,6 +276,11 @@ def make_trainable(params: DecoderLM) -> FlatParams:
             parts = [_param_at(params.embed, rest)]
         elif head == "final_norm":
             parts = [_param_at(params.final_norm, rest)]
+        elif head == "encoder" and rest[0] == "final_norm":
+            parts = [_param_at(params.encoder.final_norm, rest[1:])]
+        elif head == "encoder":  # ("stack", "0", ...)
+            parts = [_param_at(layer, rest[2:])
+                     for layer in params.encoder.layers]
         elif head == "stack":
             i = int(rest[0])
             parts = [_param_at(params.layers[p * L + i], rest[1:])
@@ -240,10 +308,18 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device=None) -> List[Cache]:
     """One empty decode cache per layer on ``device`` (None: the card): a
     KV cache for attention (a ring buffer for local layers), a float32
-    mLSTM or sLSTM state for the recurrent mixers."""
+    mLSTM or sLSTM state for the recurrent mixers.  An encoder-decoder's
+    layers get a :class:`CrossCache` whose cross K/V hold one zero
+    position (the reference's placeholder: the encoder's length is known
+    at prefill, which writes its K/V)."""
     device = resolve_device(device)
-    return [_sublayer_cache(cfg, mixer, batch, max_len, dtype, device)
-            for mixer, _ in layer_kinds(cfg)]
+    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, device)
+              for mixer, _ in layer_kinds(cfg)]
+    if cfg.kind == "encdec":
+        caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, 1, None,
+                                                    dtype, device))
+                  for c in caches]
+    return caches
 
 
 # --------------------------------------------------------------------- #
@@ -271,14 +347,19 @@ def _apply_ffn(cfg, params, sub, x, aux: Optional[Dict], decode=False):
 def apply_sublayer_full(
     cfg: ModelConfig, params, sub: SublayerKind, x: torch.Tensor,
     positions: torch.Tensor, *, causal: bool = True,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     collect_cache: bool = False, max_len: int = 0, cache_dtype=None,
     aux: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict], Optional[Cache]]:
-    """Full-sequence sublayer (training and prefill): ``(x, aux, cache)``.
-    The K/V an attention layer projects also fill its decode cache, and a
-    recurrent mixer's projections also give its final state, so each is
-    computed once (the reference computes them a second time for the
-    cache, with the same result)."""
+    """Full-sequence sublayer (training, prefill and the encoder):
+    ``(x, aux, cache)``.  The K/V an attention layer projects also fill its
+    decode cache, and a recurrent mixer's projections also give its final
+    state, so each is computed once (the reference computes them a second
+    time for the cache, with the same result).  With ``cross_kv`` (the
+    context, the encoder output twice) the layer cross-attends after its
+    mixer, and its cache is a :class:`CrossCache` holding the cross K/V
+    that attention used (the same products as the reference's
+    ``_precompute_cross_kv_all``)."""
     mixer, _ = sub
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     new_cache = None
@@ -303,17 +384,28 @@ def apply_sublayer_full(
             new_cache = _prefill_kv_cache(cfg, k, v, window, max_len,
                                           cache_dtype)
     x = x + out
+    if cross_kv is not None:
+        hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        ck, cv = attn_mod.project_cross_kv(params["cross"], *cross_kv)
+        x = x + attn_mod.cross_attention(cfg, params["cross"], hx, ck, cv)
+        if collect_cache:
+            new_cache = CrossCache(new_cache, KVCache(ck, cv))
     x, aux = _apply_ffn(cfg, params, sub, x, aux)
     return x, aux, new_cache
 
 
 def apply_sublayer_decode(
     cfg: ModelConfig, params, sub: SublayerKind, x: torch.Tensor,
-    cache: Cache, pos: int,
+    cache: Cache, pos: int, mrope_positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One-token sublayer against its cache: a KV cache is updated in
-    place, a recurrent state is replaced."""
+    place, a recurrent state is replaced; a :class:`CrossCache`'s cross
+    K/V are read.  ``mrope_positions`` (B, 3, 1) rotate an M-RoPE
+    config's q and k."""
     mixer, _ = sub
+    cross = cache.cross if isinstance(cache, CrossCache) else None
+    if cross is not None:
+        cache = cache.kv
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if mixer == "mlstm":
         out, new_cache = xlstm_mod.mlstm_decode(cfg, params["mixer"], h, cache)
@@ -322,8 +414,14 @@ def apply_sublayer_decode(
     else:
         window = cfg.window if mixer == "local" else None
         out, new_cache = attn_mod.decode_attention(
-            cfg, params["mixer"], h, cache, pos, window=window)
+            cfg, params["mixer"], h, cache, pos, window=window,
+            positions=mrope_positions)
     x = x + out
+    if cross is not None:
+        hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        x = x + attn_mod.decode_cross_attention(cfg, params["cross"], hx,
+                                                cross.k, cross.v)
+        new_cache = CrossCache(new_cache, cross)
     x, _ = _apply_ffn(cfg, params, sub, x, None, decode=True)
     return x, new_cache
 
@@ -349,27 +447,96 @@ def _prefill_kv_cache(cfg, k, v, window, max_len, dtype) -> KVCache:
 # --------------------------------------------------------------------- #
 # Full model passes
 # --------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=8)
+def _sinusoid_on(S: int, d: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`~.layers.sinusoidal_positions` (float64) cast to ``dtype``,
+    made once per device for the last few lengths (a serve sees one
+    frame count and a few prompt lengths)."""
+    return torch.as_tensor(sinusoidal_positions(S, d), dtype=dtype,
+                           device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_denom_on(d: int, device: torch.device) -> torch.Tensor:
+    """``10000 ** (dim / d)`` in float32 for the even ``dim`` (decode's
+    one-position table), made once per device."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    return torch.pow(10000.0, dim / d)
+
+
+def _decode_sinusoid(d: int, pos: int, dtype, device) -> torch.Tensor:
+    """The one-position sinusoidal embedding at ``pos``, computed in
+    float32 (the prefill's table is float64), as the reference's
+    ``decode_step`` computes it."""
+    denom = _sinusoid_denom_on(d, device)
+    ang = denom.new_full(denom.shape, float(pos)) / denom
+    pe = torch.zeros(d, dtype=dtype, device=device)
+    pe[0::2] = ang.sin().to(dtype)
+    pe[1::2] = ang.cos().to(dtype)
+    return pe
+
+
+def _merge_vision(x: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """The first ``vision_embeds.shape[1]`` positions replaced by the
+    precomputed vision patch embeddings."""
+    ve = batch.get("vision_embeds")
+    if ve is None:
+        return x
+    return torch.cat([ve.to(x.dtype), x[:, ve.shape[1]:]], dim=1)
+
+
 def _input_embed(cfg: ModelConfig, params: DecoderLM,
                  batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, positions)."""
+    """Returns (x, positions): the token embeddings with the vision block
+    merged and the sinusoidal table added where the config has them; the
+    batch's ``positions`` ((B, S), or (B, 3, S) for M-RoPE) or 0..S-1."""
     tokens = batch["tokens"]
-    x = embed(params.embed, cfg, tokens)
+    x = _merge_vision(embed(params.embed, cfg, tokens), batch)
     B, S = tokens.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoid_on(S, cfg.d_model, x.dtype, x.device)[None]
     return x, positions
 
 
+def _encode(cfg: ModelConfig, params: DecoderLM, batch: Dict) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings
+    (``audio_embeds`` (B, Se, d), the stub frontend's): the sinusoidal
+    table added, every (attn, mlp) layer non-causal, the final norm."""
+    frames = batch["audio_embeds"]
+    B, Se, _ = frames.shape
+    x = frames + _sinusoid_on(Se, cfg.d_model, frames.dtype,
+                              frames.device)[None]
+    positions = torch.arange(Se, dtype=torch.int32,
+                             device=frames.device)[None].expand(B, Se)
+    for layer in params.encoder.layers:
+        x, _, _ = apply_sublayer_full(cfg, layer, ENC_SUBLAYER, x, positions,
+                                      causal=False)
+    return rmsnorm(params.encoder.final_norm, x, cfg.norm_eps)
+
+
+def _cross_context(cfg: ModelConfig, params: DecoderLM, batch: Dict):
+    """The cross-attention context of an encoder-decoder (the encoder
+    output as keys and values), None for a decoder."""
+    if cfg.kind != "encdec":
+        return None
+    enc_out = _encode(cfg, params, batch)
+    return enc_out, enc_out
+
+
 def _run_stack(cfg, params: DecoderLM, x, positions, *, causal=True,
-               collect_cache=False, max_len=0, cache_dtype=None):
+               cross_kv=None, collect_cache=False, max_len=0,
+               cache_dtype=None):
     """Every layer in order.  Returns (x, caches or None)."""
     caches = []
     for layer in params.layers:
         x, _, c = apply_sublayer_full(
             cfg, layer, layer.kind, x, positions, causal=causal,
-            collect_cache=collect_cache, max_len=max_len,
+            cross_kv=cross_kv, collect_cache=collect_cache, max_len=max_len,
             cache_dtype=cache_dtype)
         caches.append(c)
     return x, (caches if collect_cache else None)
@@ -379,14 +546,14 @@ def _run_stack(cfg, params: DecoderLM, x, positions, *, causal=True,
 ZERO_AUX = ("moe_load_balance", "moe_router_z")
 
 
-def _period(cfg, layers, positions, x, *aux):
+def _period(cfg, layers, positions, cross_kv, x, *aux):
     """``layers`` in order; ``aux`` (and the result after x) are the
     running ``ZERO_AUX`` sums, as tensors so that a checkpoint carries
     them."""
     aux = dict(zip(ZERO_AUX, aux))
     for layer in layers:
         x, aux, _ = apply_sublayer_full(cfg, layer, layer.kind, x, positions,
-                                        aux=aux)
+                                        cross_kv=cross_kv, aux=aux)
     return (x, *aux.values())
 
 
@@ -398,18 +565,20 @@ def forward_train(cfg: ModelConfig, params: DecoderLM,
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
     recomputed in the backward pass, as the reference's
     ``jax.checkpoint(policy=nothing_saveable)`` over its scanned periods
-    does; the unstacked remainder is not recomputed, as there."""
+    does; the unstacked remainder and an encoder-decoder's encoder (not
+    rematerialised in the reference either) are not recomputed."""
+    cross_kv = _cross_context(cfg, params, batch)
     x, positions = _input_embed(cfg, params, batch)
     aux = tuple(x.new_zeros((), dtype=torch.float32) for _ in ZERO_AUX)
     L = len(cfg.period)
     recompute = torch.is_grad_enabled()
     for p in range(cfg.n_periods):
         fn = functools.partial(_period, cfg, params.layers[p * L:(p + 1) * L],
-                               positions)
+                               positions, cross_kv)
         x, *aux = (checkpoint(fn, x, *aux, use_reentrant=False) if recompute
                    else fn(x, *aux))
-    x, *aux = _period(cfg, params.layers[cfg.n_periods * L:], positions, x,
-                      *aux)
+    x, *aux = _period(cfg, params.layers[cfg.n_periods * L:], positions,
+                      cross_kv, x, *aux)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return (compute_logits(params.embed, cfg, x).float(),
             dict(zip(ZERO_AUX, aux)))
@@ -431,25 +600,34 @@ def lm_loss(cfg: ModelConfig, params: DecoderLM,
 def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict, max_len: int,
             cache_dtype=None):
     """Full forward emitting the last position's logits (B, 1, vocab) and
-    one decode cache per layer (:func:`init_caches`' kinds)."""
+    one decode cache per layer (:func:`init_caches`' kinds; an
+    encoder-decoder's hold the cross K/V of the encoder run on
+    ``batch["audio_embeds"]``)."""
+    cross_kv = _cross_context(cfg, params, batch)
     x, positions = _input_embed(cfg, params, batch)
     x, caches = _run_stack(
-        cfg, params, x, positions, causal=True, collect_cache=True,
-        max_len=max_len, cache_dtype=cache_dtype or x.dtype)
+        cfg, params, x, positions, causal=True, cross_kv=cross_kv,
+        collect_cache=True, max_len=max_len,
+        cache_dtype=cache_dtype or x.dtype)
     x = rmsnorm(params.final_norm, x[:, -1:, :], cfg.norm_eps)
     return compute_logits(params.embed, cfg, x), caches
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: DecoderLM, caches: List[Cache],
-                tokens: torch.Tensor, pos: int):
-    """One-token step.  tokens: (B, 1); pos: the current index.  Returns
-    the logits and the caches: KV caches updated in place, recurrent
-    states replaced."""
+                tokens: torch.Tensor, pos: int,
+                mrope_positions: Optional[torch.Tensor] = None):
+    """One-token step.  tokens: (B, 1); pos: the current index (the cache
+    slot, and the sinusoidal position); ``mrope_positions`` (B, 3, 1): an
+    M-RoPE config's position ids of the token.  Returns the logits and the
+    caches: KV caches updated in place, recurrent states replaced."""
     x = embed(params.embed, cfg, tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _decode_sinusoid(cfg.d_model, pos, x.dtype, x.device)
     new_caches = []
     for layer, cache in zip(params.layers, caches):
-        x, c = apply_sublayer_decode(cfg, layer, layer.kind, x, cache, pos)
+        x, c = apply_sublayer_decode(cfg, layer, layer.kind, x, cache, pos,
+                                     mrope_positions)
         new_caches.append(c)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return compute_logits(params.embed, cfg, x), new_caches

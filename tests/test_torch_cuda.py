@@ -625,6 +625,9 @@ FLASH_CASES = [
     (2, 77, 50, 4, 2, 32, True, 20, 50.0, -27),      # ragged, masked rows
     (1, 100, 300, 2, 1, 16, False, 40, None, 150),   # window, no causal
     (1, 200, 200, 8, 4, 256, True, 96, 50.0, 0),     # gemma2's head dim
+    (1, 224, 1500, 20, 20, 64, False, None, None, 0),  # Whisper's cross
+    (1, 1500, 1500, 20, 20, 64, False, None, None, 0),  # Whisper's encoder
+    (1, 320, 320, 64, 8, 128, True, None, None, 0),  # Qwen2-VL's 8:1 GQA
 ]
 
 
@@ -779,6 +782,72 @@ class TestLmOnTheCard:
                         [want.prefill_logits] + want.step_logits):
             rel = float((a.cpu() - b).abs().max() / b.abs().max())
             assert rel <= 1e-4
+
+
+class TestEncDecAndVlmOnTheCard:
+    """Reduced Whisper and Qwen2-VL served on the card against the plain
+    CPU run of the same weights (float32): logits within 1e-4 relative
+    with identical greedy tokens; and the flash launches a prefill at the
+    smoke's depths (Whisper's 32 + 32 layers, Qwen2-VL's cut to 8) on
+    reduced widths: one per layer and role."""
+
+    @staticmethod
+    def _inputs(cfg, B, S, gen, device):
+        if cfg.kind == "encdec":
+            return lm_serve.audio_inputs(cfg, B, 48, device,
+                                         torch.float32), None
+        return lm_serve.vision_inputs(cfg, B, S, gen, device, torch.float32)
+
+    @pytest.mark.parametrize("arch", ["whisper_large_v3", "qwen2_vl_72b"])
+    def test_serve_matches_cpu(self, dev, arch):
+        cfg = lm_serve.make_config(arch, reduced=True)
+        cpu = torch.device("cpu")
+        params = lm_serve.make_params(cfg, cpu, seed=1)
+        prompt = lm_serve.make_prompt(cfg, 2, 64, cpu)
+        inputs, dec = self._inputs(cfg, 2, 64, 6, cpu)  # a 4 x 4 grid
+        want = lm_serve.serve(cfg, params, prompt, gen=6, keep_logits=True,
+                              inputs=inputs, decode_positions=dec)
+        ops.reset_launch_counts()
+        got = lm_serve.serve(
+            cfg, params.to(dev), prompt.to(dev), gen=6, keep_logits=True,
+            inputs={k: t.to(dev) for k, t in inputs.items()},
+            decode_positions=None if dec is None else dec.to(dev))
+        launches = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers
+                                   if cfg.kind == "encdec" else 0)
+        assert ops.launch_counts()["flash_attention"] == launches
+        assert torch.equal(got.tokens.cpu(), want.tokens)
+        for a, b in zip([got.prefill_logits] + got.step_logits,
+                        [want.prefill_logits] + want.step_logits):
+            rel = float((a.cpu() - b).abs().max() / b.abs().max())
+            assert rel <= 1e-4
+
+    @pytest.mark.parametrize("arch,depth,want", [
+        ("whisper_large_v3", 32, {"encoder": 32, "self": 32, "cross": 32}),
+        ("qwen2_vl_72b", 8, {"self": 8}),
+    ])
+    def test_flash_launches_per_prefill(self, dev, arch, depth, want):
+        import dataclasses
+
+        from repro_torch.launch.lm_profile import flash_roles, role_summary
+        from repro_torch.models import init_params
+
+        cfg = dataclasses.replace(lm_serve.make_config(arch, reduced=True),
+                                  n_layers=depth)
+        if cfg.kind == "encdec":
+            cfg = dataclasses.replace(cfg, n_enc_layers=depth)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        prompt = lm_serve.make_prompt(cfg, 2, 64, dev)
+        inputs, _ = self._inputs(cfg, 2, 64, 1, dev)
+        ops.reset_launch_counts()
+        with flash_roles() as calls:
+            lm_serve.serve(cfg, params, prompt, 1,
+                           inputs={k: t.to(params.embed["embedding"].dtype)
+                                   if t.is_floating_point() else t
+                                   for k, t in inputs.items()})
+        roles = role_summary(calls)
+        assert {r: v["launches"] for r, v in roles.items()} == want
+        assert ops.launch_counts()["flash_attention"] == sum(want.values())
 
 
 class TestMoeAndXlstmOnTheCard:

@@ -53,9 +53,13 @@ RTOL = 1e-5
 #: per-arch reduced overrides (gemma3_4b keeps a remainder)
 REDUCED = {"gemma2_2b": {}, "gemma_2b": {}, "minitron_8b": {},
            "gemma3_4b": dict(n_layers=10), "qwen2_moe_a2p7b": {},
-           "olmoe_1b_7b": {}, "xlstm_125m": {}}
-#: the configs whose every mixer is attention (one KV cache per layer)
-ATTN = [a for a in REDUCED if a != "xlstm_125m"]
+           "olmoe_1b_7b": {}, "xlstm_125m": {}, "whisper_large_v3": {},
+           "qwen2_vl_72b": {}}
+#: the decoders whose every mixer is attention (one KV cache per layer);
+#: Qwen2-VL here serves text (plain RoPE), as the reference's lm_serve
+#: does, and its vision block and M-RoPE are held in test_torch_vlm.py;
+#: Whisper's encoder-decoder path in test_torch_whisper.py
+ATTN = [a for a in REDUCED if a not in ("xlstm_125m", "whisper_large_v3")]
 
 
 def _rel(a, b) -> float:
@@ -140,13 +144,15 @@ class TestConfigs:
         ("qwen2_moe_a2p7b", None),
         ("olmoe_1b_7b", None),
         ("xlstm_125m", None),
+        ("whisper_large_v3", None),
+        ("qwen2_vl_72b", None),
         ("gemma_2b", dict(period=(("mlstm", "none"),))),
         ("gemma_2b", dict(period=(("attn", "moe"),))),
     ])
     def test_ported_families_resolve(self, arch, change):
-        """The MoE and xLSTM configs and layers (items 1.7b and 1.7d):
-        the config resolves and its ``model_spec`` equals the
-        reference's."""
+        """The MoE, xLSTM, encoder-decoder and vision-language configs and
+        layers (items 1.7b, 1.7d, 1.7e and 1.7f): the config resolves and
+        its ``model_spec`` equals the reference's."""
         cfg, jcfg = get_config(arch).reduced(), j_get_config(arch).reduced()
         if change is not None:
             moe = j_get_config("olmoe_1b_7b").reduced().moe
@@ -164,8 +170,6 @@ class TestConfigs:
 
     @pytest.mark.parametrize("change,item", [
         (dict(period=(("mamba", "mlp"),)), "1.7c"),
-        (dict(kind="encdec", n_enc_layers=2), "1.7e"),
-        (dict(vision_stub=True), "1.7f"),
     ])
     def test_unported_layers_raise(self, change, item):
         cfg = dataclasses.replace(get_config("gemma_2b").reduced(), **change)
@@ -173,12 +177,6 @@ class TestConfigs:
             model_spec(cfg)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             init_params(cfg, device="cpu")
-
-    def test_cross_attention_raises(self):
-        cfg = get_config("gemma_2b").reduced()
-        x = torch.zeros(1, 2, cfg.d_model)
-        with pytest.raises(NotImplementedError, match="1.7e"):
-            attn_mod.attention(cfg, {}, x, torch.zeros(1, 2), kv=(x, x))
 
 
 class TestLayers:
