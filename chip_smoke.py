@@ -41,7 +41,15 @@ and no result line is printed):
    (q (2, 8192, 64, 128) against 8 KV heads, causal), each held to the
    reference's bfloat16 math and timed by events and CUPTI beside SDPA;
    the float32 local layer also beside SDPA with the window mask by
-   events and CUPTI;
+   events and CUPTI; ``selective_scan`` (the port's own kernel: Mamba's
+   scan, which has no Pallas kernel) on a small sweep (d_state 8 and 16,
+   float32 and bfloat16, with and without h0, lengths off the kernel's
+   tiles) within 1e-5 of the plain scan, then at the [lm-jamba] prefill's
+   shape, dt and xc (2, 8192, 16384) bfloat16, d_state 16, held to a
+   float64 run of the plain scan (its max and RMS error at most
+   ``SCAN_ERR_FACTOR`` times the plain float32 scan's), timed by events
+   and CUPTI beside the plain scan at ``ssm_chunk`` 1024, with its byte
+   bound and the exponentials' floor;
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -113,6 +121,20 @@ and no result line is printed):
    ``LM_BF16_PARITY_TOL``, 8 decode steps teacher-forced on the CPU's
    tokens, and print each dtype's seconds by step (draw, copy to the
    CPU, CPU run, card run);
+9d. Hybrid serving — ``[lm-jamba]`` (Jamba-1.5-Large's widths at depth 5
+   of 72: layers (mamba, mlp), (mamba, moe), (mamba, mlp), (mamba, moe),
+   (attn, mlp); d 8192, 64/8 heads of 128, d_ff 24576, 16 experts top-2,
+   Mamba d_state 16 and d_inner 16384, vocab 65536 untied; ~24.05 B
+   bfloat16 parameters; ``ssm_chunk`` 1024), the serve cell's prompt and
+   generation after a warm-up at the same shapes: 1 bfloat16 flash
+   launch and 4 ``selective_scan`` launches a prefill, none in decode;
+   parameter count, prefill and decode times, peak memory and a traced
+   prefill's split by kernel group (``selective_scan`` among them).
+   After ``[lm-vl-parity]``, ``[lm-jamba-parity]``: (a) Jamba's widths at
+   depth 1 (its (mamba, mlp) layer), vocab 32768, prompt 2 x 512,
+   ``ssm_chunk`` 128, float32 to 1e-4 and bfloat16 to
+   ``LM_BF16_PARITY_TOL``; (b) the reduced full period (every sublayer
+   kind) in float32 to 1e-4, 7 ``selective_scan`` launches a prefill;
 10. process backend — the Jacobi g = 2048 and SCF main paths on
    ``executor="process"`` (4 spawned workers, each with its own CUDA
    context on the card; without MPS their kernels time-slice): the Jacobi
@@ -235,6 +257,23 @@ LM_WHISPER, WHISPER_BATCH, WHISPER_PROMPT = "whisper_large_v3", 8, 224
 #: 80 to 8 layers (80 hold ~145 GB of bfloat16 weights), LM_BATCH x
 #: LM_PROMPT tokens whose first quarter is a vision block
 LM_VL, VL_LAYERS = "qwen2_vl_72b", 8
+#: the hybrid serving cell: jamba-1.5-large's widths, depth cut from 72 to
+#: 5 layers (layers 0-4 hold every sublayer kind of its period: (mamba,
+#: mlp), (mamba, moe), (attn, mlp)), with the reference's ssm_chunk for a
+#: prefill over 1024 tokens (``adjusted_config``: read by the plain scan
+#: only; the card's kernel walks time in order)
+LM_JAMBA, JAMBA_LAYERS, JAMBA_SSM_CHUNK = "jamba_1p5_large_398b", 5, 1024
+
+#: [kernels] selective_scan: the kernel's max and RMS error against a
+#: float64 run of the plain scan may be at most this many times the plain
+#: float32 scan's own (time in order against a doubling scan; a CPU
+#: emulation of the sequential order measured 1.3x the doubling scan's max
+#: error and 1.03x its RMS at (1, 8192, 128, 16))
+SCAN_ERR_FACTOR = 4
+#: the small selective_scan cases, (B, S, d_inner), each at d_state 8 and
+#: 16, float32 and bfloat16, with and without h0: S = 1, and lengths that
+#: are no multiple of the kernel's 16- and 32-step tiles
+SCAN_SWEEP = [(1, 1, 32), (2, 33, 130), (2, 515, 384)]
 
 #: LM training main path (its shape is ``launch/train_profile.py``'s): timed
 #: steps, after one warm-up step
@@ -505,7 +544,160 @@ def phase_kernels(torch, dev, name):
     torch.cuda.empty_cache()
 
     flash_row(torch, dev, record, bound, err_of, (fp32, bf16))
+    rows_out["selective_scan"] = scan_row(torch, dev, bound, fp32)
     return rows_out
+
+
+def _scan_inputs(torch, dev, gen, B, S, di, ds, dtype):
+    """Seeded selective-scan inputs: dt in Mamba's init range [1e-3, 1e-1]
+    (long memories), xc, B and C standard normal, all in ``dtype``; A =
+    -exp(U(-1, 1.5)) float32."""
+    kw = dict(generator=gen, device=dev)
+    dt = torch.exp(torch.empty(B, S, di, device=dev).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen)).to(dtype)
+    xc, Bm, Cm = (torch.randn(*shape, **kw).to(dtype)
+                  for shape in ((B, S, di), (B, S, ds), (B, S, ds)))
+    A = -torch.exp(torch.empty(di, ds, device=dev).uniform_(
+        -1.0, 1.5, generator=gen))
+    return dt, xc, Bm, Cm, A
+
+
+def _max_sm_clock_hz() -> float:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_row(torch, dev, bound, fp32):
+    """selective_scan (the port's own kernel: Mamba's scan has no Pallas
+    kernel) on the small sweep (``SCAN_SWEEP``, within 1e-5 relative of
+    the plain version), then at the [lm-jamba] prefill's shape: dt and xc
+    (2, 8192, 16384) bfloat16, d_state 16, A = -(1..16) (Mamba's S4D-real
+    init).  Held to a float64 run of the plain scan on the same inputs:
+    the kernel's max and RMS error no larger than ``SCAN_ERR_FACTOR``
+    times the plain float32 scan's (both at ``ssm_chunk`` 1024, by slabs
+    of 1024 channels: the scan is independent per channel).  Timed by
+    events and CUPTI beside the plain scan at ``ssm_chunk`` 1024 (one
+    call); bound by bytes, and the exponentials' floor at 16 a clock an
+    SM at the card's maximum SM clock.  No single PyTorch call computes
+    it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_bench import (device_profile,
+                                                 selective_scan_work,
+                                                 time_ms)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    sweep_err = 0.0
+    for ds in (8, 16):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_h0 in (False, True):
+                for B_, S_, di_ in SCAN_SWEEP:
+                    args = _scan_inputs(torch, dev, gen, B_, S_, di_, ds,
+                                        dtype)
+                    h0 = (torch.randn(B_, di_, ds, generator=gen, device=dev)
+                          if with_h0 else None)
+                    y, h = ops.selective_scan(*args, h0)
+                    wy, wh = ref.selective_scan(*args, h0)
+                    err = max(rel(y, wy), rel(h, wh))
+                    check(err <= 1e-5, f"selective_scan {(B_, S_, di_, ds)} "
+                          f"{dtype} h0 {with_h0}: rel err {err:.3e}")
+                    sweep_err = max(sweep_err, err)
+    cfg = get_config(LM_JAMBA)
+    B, S = LM_BATCH, LM_PROMPT
+    di, ds = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    dt, xc, Bm, Cm, _ = _scan_inputs(torch, dev, gen, B, S, di, ds,
+                                     torch.bfloat16)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(
+        di, ds).contiguous()
+    y, h = ops.selective_scan(dt, xc, Bm, Cm, A)
+    errs = {k: [0.0, 0.0] for k in ("kernel_y", "plain_y", "kernel_h",
+                                    "plain_h")}  # max, sum of squares
+    slab = 1024
+    for c0 in range(0, di, slab):
+        sl = slice(c0, c0 + slab)
+        args = (dt[..., sl], xc[..., sl], Bm, Cm, A[sl])
+        y64, h64 = ref.selective_scan(*args, chunk=JAMBA_SSM_CHUNK,
+                                      acc=torch.float64)
+        y32, h32 = ref.selective_scan(*args, chunk=JAMBA_SSM_CHUNK)
+        for key, got, want in (("kernel_y", y[..., sl], y64),
+                               ("plain_y", y32, y64),
+                               ("kernel_h", h[:, sl], h64),
+                               ("plain_h", h32, h64)):
+            d = got.double() - want
+            errs[key][0] = max(errs[key][0], float(d.abs().max()))
+            errs[key][1] += float(d.pow(2).sum())
+        del y64, h64, y32, h32, d
+    counts = {"y": y.numel(), "h": h.numel()}
+    err = {k: (m, math.sqrt(ss / counts[k[-1]])) for k, (m, ss) in
+           errs.items()}
+    for part in ("y", "h"):
+        (km, kr), (pm, pr) = err[f"kernel_{part}"], err[f"plain_{part}"]
+        check(km <= SCAN_ERR_FACTOR * pm and kr <= SCAN_ERR_FACTOR * pr,
+              f"selective_scan {part}: kernel max/RMS {km:.3e}/{kr:.3e} vs "
+              f"float64 beyond {SCAN_ERR_FACTOR} x the plain float32 scan's "
+              f"{pm:.3e}/{pr:.3e}")
+    del y, h
+    torch.cuda.empty_cache()
+
+    def kernel():
+        return ops.selective_scan(dt, xc, Bm, Cm, A)
+
+    nbytes, flops, n_exp = selective_scan_work(B, S, di, ds, 2)
+    b_ms, b_by = bound(nbytes, flops, fp32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _max_sm_clock_hz()
+    exp_ms = n_exp / (16 * sms * clock) * 1e3
+    row = dict(name="selective_scan", route="cuda",
+               source="src/repro_torch/csrc/selective_scan.cu",
+               replaces="src/repro/models/mamba.py:107",
+               pallas_kernel=None, shape=[B, S, di, ds, "bfloat16"],
+               max_abs_err=err["kernel_y"][0], rms_err=err["kernel_y"][1],
+               plain_max_abs_err=err["plain_y"][0],
+               plain_rms_err=err["plain_y"][1],
+               h_max_abs_err=err["kernel_h"][0], h_rms_err=err["kernel_h"][1],
+               plain_h_max_abs_err=err["plain_h"][0],
+               plain_h_rms_err=err["plain_h"][1],
+               err_factor=SCAN_ERR_FACTOR, tol=SCAN_ERR_FACTOR
+               * err["plain_y"][0], sweep_max_rel_err=sweep_err,
+               ms=time_ms(torch, kernel),
+               device_ms=device_profile(torch, kernel)[0],
+               plain_ms=time_ms(torch, lambda: ref.selective_scan(
+                   dt, xc, Bm, Cm, A, chunk=JAMBA_SSM_CHUNK), reps=2,
+                   warmup=1),
+               plain_chunk=JAMBA_SSM_CHUNK, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+               exponentials=n_exp, sm_clock_max_mhz=clock / 1e6,
+               exp_floor_ms=exp_ms)
+    row["kernel_ms"] = row["ms"]
+    row.update(bound_share=b_ms / row["ms"],
+               device_bound_share=b_ms / row["device_ms"],
+               exp_floor_share=exp_ms / row["device_ms"])
+    print(f"[kernels] selective_scan sweep ({len(SCAN_SWEEP)} shapes x d_state"
+          f" 8/16 x float32/bfloat16 x h0): max rel err {sweep_err:.2e} "
+          f"(tol 1e-05)")
+    print(f"[kernels] selective_scan {row['shape']}: vs float64 |err| y max "
+          f"{err['kernel_y'][0]:.3e} RMS {err['kernel_y'][1]:.3e} (the plain "
+          f"float32 scan's {err['plain_y'][0]:.3e} / {err['plain_y'][1]:.3e}"
+          f"), h max {err['kernel_h'][0]:.3e} RMS {err['kernel_h'][1]:.3e} "
+          f"({err['plain_h'][0]:.3e} / {err['plain_h'][1]:.3e}; factor "
+          f"{SCAN_ERR_FACTOR}); kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f}), plain at chunk {JAMBA_SSM_CHUNK} "
+          f"{row['plain_ms']:.3f} ms; bound {b_ms:.4f} ms ({b_by}, "
+          f"{100 * row['bound_share']:.1f}% by events, "
+          f"{100 * row['device_bound_share']:.1f}% by device time); "
+          f"{n_exp:.3e} exponentials at 16 a clock an SM, {sms} SMs, "
+          f"{clock / 1e6:.0f} MHz: {exp_ms:.4f} ms "
+          f"({100 * row['exp_floor_share']:.1f}% of the device time)")
+    del dt, xc, Bm, Cm, A
+    torch.cuda.empty_cache()
+    return row
 
 
 #: flash-attention checks at small shapes (TestFlashAttention's sweep, a
@@ -2108,6 +2300,83 @@ def phase_lm_vl(torch, dev):
     return launches
 
 
+def phase_lm_jamba(torch, dev):
+    """Jamba-1.5-Large's widths at depth JAMBA_LAYERS in its bfloat16
+    through lm_serve's ``serve``: LM_BATCH x LM_PROMPT tokens, LM_GEN
+    greedy tokens, after a warm-up at the same shapes with one decode
+    step.  Each prefill launches the bfloat16 flash kernel once (the
+    attention layer: hd 128, 8:1 GQA, causal) and ``selective_scan`` once
+    a Mamba layer (4); decode launches neither kernel (the Mamba step is
+    plain PyTorch).  Prints the parameter count, prefill and decode times,
+    peak memory and a traced prefill's split by kernel group."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import layer_kinds
+
+    label = "lm-jamba"
+    cfg = dataclasses.replace(lm_serve.make_config(LM_JAMBA),
+                              n_layers=JAMBA_LAYERS,
+                              ssm_chunk=JAMBA_SSM_CHUNK)
+    kinds = layer_kinds(cfg)
+    check(set(kinds) == {("mamba", "mlp"), ("mamba", "moe"),
+                         ("attn", "mlp")} and cfg.param_dtype == "bfloat16",
+          f"{label}: layers {kinds}, {cfg.param_dtype}")
+    n_mamba = sum(mixer == "mamba" for mixer, _ in kinds)
+    n_attn = sum(mixer == "attn" for mixer, _ in kinds)
+    vl = lm_serve.make_config(LM_VL)  # its flash row in the kernel table
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+          == (vl.n_heads, vl.n_kv_heads, vl.hd),
+          f"{label}: attention heads are not the Qwen2-VL row's")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    m = cfg.mamba
+    print(f"[{label}] {cfg.name}: depth cut to {cfg.n_layers} of 72 layers "
+          f"{kinds}, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, Mamba d_state "
+          f"{m.d_state} d_conv {m.d_conv} expand {m.expand}, vocab "
+          f"{cfg.vocab_size}, ssm_chunk {cfg.ssm_chunk}; {n_params / 1e9:.3f}"
+          f" B bfloat16 parameters ({n_params * 2 / 2**30:.2f} GiB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompt = lm_serve.make_prompt(cfg, LM_BATCH, LM_PROMPT, dev)
+    lm_serve.serve(cfg, params, prompt, 2)  # warm-up at the cell's shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, params, prompt, LM_GEN)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_served(torch, label, cfg, res)
+    ops.reset_launch_counts()
+    roles = _prefill_roles(torch, label, cfg, params, prompt, None,
+                           {"self": n_attn})
+    in_prefill = ops.launch_counts()
+    want = {"flash_attention": n_attn, "selective_scan": n_mamba}
+    for k, n in want.items():
+        check(in_prefill[k] == n and launches[k] == n,
+              f"{label}: {k} launched {in_prefill[k]} times in a prefill and "
+              f"{launches[k]} in a serve, expected {n} in each (none in "
+              f"decode)")
+    split = _cell_prefill_split(torch, label, cfg, params, prompt, None)
+    scan_ms = split["groups"].get("selective_scan", 0.0)
+    check(scan_ms > 0, f"{label}: the trace holds no selective_scan kernel")
+    print(f"[{label}] {_rates(res)}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; launches a prefill: flash_attention "
+          f"{in_prefill['flash_attention']} ({_roles_line(roles)}), "
+          f"selective_scan {in_prefill['selective_scan']}; none in decode; "
+          f"traced prefill device time {split['device_ms']:.3f} ms: "
+          f"{_shares(split)}; selective_scan {scan_ms / n_mamba:.3f} ms a "
+          f"layer")
+    print(f"[{label}] row0: {res.tokens[0].tolist()}")
+    del params, res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_lm_cell_parity(torch, dev, label, cfg, B, S, steps, make_inputs):
     """``cfg`` on the card against the CPU on the same weights, float32 to
     1e-4 and bfloat16 to ``LM_BF16_PARITY_TOL``: prefill logits and
@@ -2194,6 +2463,55 @@ def phase_lm_vl_parity(torch, dev):
         lambda c, dt: lm_serve.vision_inputs(c, 2, 256, 9,
                                              torch.device("cpu"), dt,
                                              seed=1))
+
+
+def phase_lm_jamba_parity(torch, dev):
+    """(a) Jamba-1.5-Large's widths at depth 1 (its (mamba, mlp) layer),
+    vocab cut to 32768, prompt 2 x 512, ``ssm_chunk`` 128 (the CPU's scan
+    in 4 chunks), 8 decode steps: float32 to 1e-4, bfloat16 to
+    ``LM_BF16_PARITY_TOL`` (``phase_lm_cell_parity``); one
+    ``selective_scan`` launch a card prefill.  (b) The reduced full period
+    (``reduced()``: 8 layers, every sublayer kind at once) in float32,
+    prompt 2 x 100, 8 decode steps teacher-forced on the CPU's tokens,
+    logits within 1e-4; 7 ``selective_scan`` launches and 1 flash launch a
+    card prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_serve
+
+    label = "lm-jamba-parity"
+    cfg = dataclasses.replace(get_config(LM_JAMBA), n_layers=1,
+                              vocab_size=32768, ssm_chunk=128)
+    print(f"[{label}] (a) {cfg.name} widths, depth 1 {cfg.remainder}, vocab "
+          f"32768, prompt 2 x 512, ssm_chunk 128")
+    ops.reset_launch_counts()
+    phase_lm_cell_parity(torch, dev, label, cfg, 2, 512, 8,
+                         lambda c, dt: ({}, None))
+    got = ops.launch_counts()["selective_scan"]
+    check(got == 2, f"{label} (a): selective_scan launched {got} times in "
+          f"two card runs, expected 1 a prefill")
+    cfg = get_config(LM_JAMBA).reduced()
+    cpu = torch.device("cpu")
+    params = lm_serve.make_params(cfg, cpu, seed=1)
+    prompt = lm_serve.make_prompt(cfg, 2, 100, cpu, seed=1)
+    steps = 8
+    want, fed = _forced_run(torch, cfg, params, prompt, steps)
+    ops.reset_launch_counts()
+    got, _ = _forced_run(torch, cfg, params.to(dev), prompt.to(dev), steps,
+                         forced=fed)
+    counts = ops.launch_counts()
+    rel = _rel_max(got, want)
+    print(f"[{label}] (b) reduced period {cfg.period}, d_model {cfg.d_model},"
+          f" d_state {cfg.mamba.d_state}, float32, prompt 2 x 100, {steps} "
+          f"teacher-forced decode steps: logits max|delta|/max|ref| "
+          f"{rel:.3e} (tol 1e-4); card prefill launches flash_attention "
+          f"{counts['flash_attention']}, selective_scan "
+          f"{counts['selective_scan']}")
+    check(rel <= 1e-4, f"{label} (b): logits differ by {rel:.3e}")
+    check(counts["flash_attention"] == 1 and counts["selective_scan"] == 7,
+          f"{label} (b): launches {counts}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def _forced_run(torch, cfg, params, toks, steps, forced=None, inputs=None,
@@ -2791,11 +3109,13 @@ def main() -> int:
             ("lm-xlstm", lambda: phase_lm_xlstm(torch, dev)),
             ("lm-whisper", lambda: phase_lm_whisper(torch, dev)),
             ("lm-vl", lambda: phase_lm_vl(torch, dev)),
+            ("lm-jamba", lambda: phase_lm_jamba(torch, dev)),
             ("lm-moe-parity", lambda: phase_lm_moe_parity(torch, dev)),
             ("lm-xlstm-parity", lambda: phase_lm_xlstm_parity(torch, dev)),
             ("lm-whisper-parity",
              lambda: phase_lm_whisper_parity(torch, dev)),
             ("lm-vl-parity", lambda: phase_lm_vl_parity(torch, dev)),
+            ("lm-jamba-parity", lambda: phase_lm_jamba_parity(torch, dev)),
             ("train", lambda: phase_train(torch, dev, name)),
             ("train-parity", lambda: phase_train_parity(torch, dev)),
             ("async-dp", lambda: phase_async_dp(torch, dev)),

@@ -1,6 +1,6 @@
-"""The port's model configs: the schema and the ported configs (dense, MoE,
-xLSTM, encoder-decoder and vision-language), copied from ``repro.configs``
-(no JAX import)."""
+"""The port's model configs: the schema and every config (dense, MoE,
+xLSTM, encoder-decoder, vision-language and the Mamba hybrid), copied
+from ``repro.configs`` (no JAX import)."""
 
 from .base import (
     ARCH_IDS,

@@ -3,13 +3,13 @@
 
 Each ported architecture has one module in :mod:`repro_torch.configs`
 exporting ``CONFIG``; ``get_config(name)`` resolves by id.  The port
-carries the four dense decoder configs, the two MoE configs, xLSTM,
-Whisper (encoder-decoder) and Qwen2-VL (vision-language) (:data:`PORTED`);
-every other id in :data:`ARCH_IDS` raises ``NotImplementedError`` naming
-the ROADMAP.md item that ports its family.  Layer stacks are expressed
-as a repeating *period* of (mixer, ffn) sublayer pairs plus an optional
-remainder, so heterogeneous patterns (Jamba 1:7 attn:mamba with MoE every
-2nd layer, Gemma local:global alternation) scan efficiently.
+carries every id of :data:`ARCH_IDS` (:data:`PORTED`): the four dense
+decoder configs, the two MoE configs, xLSTM, Whisper (encoder-decoder),
+Qwen2-VL (vision-language) and the Jamba hybrid (Mamba, attention and
+MoE).  Layer stacks are expressed as a repeating *period* of (mixer,
+ffn) sublayer pairs plus an optional remainder, so heterogeneous
+patterns (Jamba 1:7 attn:mamba with MoE every 2nd layer, Gemma
+local:global alternation) scan efficiently.
 """
 
 from __future__ import annotations
@@ -166,22 +166,15 @@ ARCH_IDS = [
 
 
 #: the configs the port carries: the dense decoders, the MoE decoders,
-#: xLSTM, the encoder-decoder and the vision-language backbone
+#: xLSTM, the encoder-decoder, the vision-language backbone and the
+#: Mamba hybrid
 PORTED = ("gemma2_2b", "gemma_2b", "gemma3_4b", "minitron_8b",
           "qwen2_moe_a2p7b", "olmoe_1b_7b", "xlstm_125m", "whisper_large_v3",
-          "qwen2_vl_72b")
-
-#: the ROADMAP.md item that ports each other architecture's family
-_NOT_PORTED = {
-    "jamba_1p5_large_398b": "1.7c (Mamba)",
-}
+          "qwen2_vl_72b", "jamba_1p5_large_398b")
 
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_").replace(".", "p")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md item {_NOT_PORTED[name]}")
     if name not in PORTED:
         raise ValueError(f"unknown architecture {name!r}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")

@@ -71,7 +71,8 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device=None,
     output as nested dicts of numpy arrays).
 
     Both packages keep the reference's einsum layouts (``wq (d, nq, hd)``,
-    ``wi (d, 2, f)``, ...), so this is a renaming, never a transpose: the
+    ``wi (d, 2, f)``, Mamba's ``in_proj (d, 2, d_inner)`` and ``A_log
+    (d_inner, d_state)``, ...), so this is a renaming, never a transpose: the
     stacked ``stack`` leaves ``(n_periods, ...)`` are split per layer, in
     order, followed by the ``rest`` layers (an encoder-decoder's carry
     their ``norm_x`` and ``cross``), and an encoder-decoder's

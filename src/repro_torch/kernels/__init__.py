@@ -3,8 +3,9 @@
 - :mod:`repro_torch.kernels.ops`  — public wrappers (route by device, count
   launches)
 - :mod:`repro_torch.kernels.ref`  — plain PyTorch versions, numpy oracles
-- :mod:`repro_torch.kernels.jacobi_stencil`, ``bellman``, ``anderson_mix``
-  — ctypes launchers of ``csrc/*.cu``
+- :mod:`repro_torch.kernels.jacobi_stencil`, ``bellman``, ``anderson_mix``,
+  ``flash_attention``, ``selective_scan`` — ctypes launchers of
+  ``csrc/*.cu``
 - :mod:`repro_torch.kernels._build` — builds ``csrc/`` with ``nvcc`` on
   first use (never at import)
 """

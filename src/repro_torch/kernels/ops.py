@@ -1,8 +1,10 @@
 """Public wrappers of the port's kernels, with launch counters.
 
 Counterpart of ``repro.kernels.ops``: the same shape checks and
-``ValueError``s.  The device of the tensors picks the route, and nothing
-else does: CPU tensors take the plain PyTorch version in
+``ValueError``s; ``selective_scan`` is the port's own (Mamba's scan, which
+the reference leaves to ``jax.lax.associative_scan``).  The device of the
+tensors picks the route, and nothing else does: CPU tensors take the
+plain PyTorch version in
 :mod:`repro_torch.kernels.ref`; CUDA tensors launch the hand-written
 kernel or raise (there is no fallback).  Each CUDA launch adds one to its
 wrapper's counter, which :func:`launch_counts` reads, so a run can show
@@ -21,14 +23,17 @@ from . import bellman as _bellman
 from . import flash_attention as _flash
 from . import jacobi_stencil as _jacobi
 from . import ref
+from . import selective_scan as _scan
 
 __all__ = ["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
-           "anderson_mix", "flash_attention", "launch_counts",
-           "reset_launch_counts", "add_launch_counts", "KERNELS"]
+           "anderson_mix", "flash_attention", "selective_scan",
+           "launch_counts", "reset_launch_counts", "add_launch_counts",
+           "KERNELS"]
 
-#: the wrappers that count launches, in the order of the kernel table
+#: the wrappers that count launches, in the order of the kernel tables
+#: (the Pallas kernels', then the port's own)
 KERNELS = ("jacobi_halo_sweeps", "jacobi_sweep", "bellman_block", "bellman",
-           "anderson_mix", "flash_attention")
+           "anderson_mix", "flash_attention", "selective_scan")
 
 _count_lock = threading.Lock()
 _counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -165,3 +170,41 @@ def anderson_mix(X, G, alpha, *, beta: float = 1.0):
     _counted("anderson_mix")
     return out
 
+
+def selective_scan(dt, xc, Bm, Cm, A, h0=None, *, chunk=None):
+    """Mamba's selective scan (``ref.selective_scan``): dt, xc (B, S,
+    d_inner) and Bm, Cm (B, S, d_state) in the model's type, A (d_inner,
+    d_state) float32, ``h0`` (B, d_inner, d_state) float32 or None.
+    Returns ``(y, h_S)`` in float32.  ``chunk`` bounds the plain version's
+    (B, chunk, d_inner, d_state) temporaries; the kernel walks time in
+    order with no such temporary, so it does not read it.  On CUDA it
+    refuses inputs that require grad while autograd records: the kernel
+    has no backward."""
+    if dt.ndim != 3 or xc.shape != dt.shape:
+        raise ValueError(f"expected dt and xc of one (B, S, d_inner) shape, "
+                         f"got {tuple(dt.shape)} and {tuple(xc.shape)}")
+    B, S, di = dt.shape
+    if A.ndim != 2 or A.shape[0] != di:
+        raise ValueError(f"expected A of shape ({di}, d_state), got "
+                         f"{tuple(A.shape)}")
+    ds = A.shape[1]
+    if Bm.shape != (B, S, ds) or Cm.shape != (B, S, ds):
+        raise ValueError(f"expected Bm and Cm of shape {(B, S, ds)}, got "
+                         f"{tuple(Bm.shape)} and {tuple(Cm.shape)}")
+    if h0 is not None and h0.shape != (B, di, ds):
+        raise ValueError(f"expected h0 of shape {(B, di, ds)}, got "
+                         f"{tuple(h0.shape)}")
+    if S == 0:
+        raise ValueError("empty sequence")
+    tensors = (dt, xc, Bm, Cm, A) + (() if h0 is None else (h0,))
+    if _on_cpu(*tensors):
+        return ref.selective_scan(dt, xc, Bm, Cm, A, h0, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "selective_scan has no backward: its CUDA kernel's output is "
+            "invisible to autograd, so its inputs must not require grad "
+            "(run under torch.no_grad(); training takes "
+            "repro_torch.kernels.ref.selective_scan)")
+    out = _scan.selective_scan(dt, xc, Bm, Cm, A, h0)
+    _counted("selective_scan")
+    return out

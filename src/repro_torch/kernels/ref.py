@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the six CUDA kernels, plus numpy oracles.
+"""Plain PyTorch versions of the CUDA kernels, plus numpy oracles.
 
 Each torch function computes exactly what its kernel computes, with the
-same argument order (``kernels/ref.py`` and the Pallas kernels of the JAX
-package are the source).  :mod:`repro_torch.kernels.ops` takes them for
-CPU tensors only; the CPU tests and ``chip_smoke.py`` hold the kernels
-against them.  The arithmetic order is part of the contract:
+same argument order (``kernels/ref.py`` and the Pallas kernels of the
+JAX package are the source; for ``selective_scan``, which has no Pallas
+kernel, the reference's ``models/mamba.py``).
+:mod:`repro_torch.kernels.ops` takes them for CPU tensors only; the CPU
+tests and ``chip_smoke.py`` hold the kernels against them.  The
+arithmetic order is part of the contract:
 
 * ``jacobi_halo_sweeps`` sums ``(b + (((up + down) + left) + right)) / 4``
   like ``_halo_kernel`` and the host path's ``_block_sweeps``;
@@ -17,6 +19,11 @@ against them.  The arithmetic order is part of the contract:
 ``flash_attention`` is ``ref_attention`` (materialised float32 scores)
 with its conventions: ``-2e38`` for masked scores, zeros for fully-masked
 rows, kv head ``h // (nq / nkv)``.
+
+``selective_scan`` is the reference's ``_ssm_apply`` and
+``ssm_final_state`` in one: the (decay, increment) pairs combined as its
+``_combine`` by a doubling scan along time within each chunk, the carried
+state injected as ``b_cum + a_cum * h0``.
 
 The ``oracle_*`` functions are numpy copies of the reference's
 ``ref_jacobi_halo_sweeps``/``ref_bellman_block``: the device plane's
@@ -31,7 +38,8 @@ import torch.nn.functional as F
 
 __all__ = ["JACOBI_ORDERS", "jacobi_sweep", "jacobi_halo_sweeps", "bellman",
            "bellman_block", "anderson_mix", "flash_attention",
-           "oracle_jacobi_halo_sweeps", "oracle_bellman_block"]
+           "selective_scan", "oracle_jacobi_halo_sweeps",
+           "oracle_bellman_block"]
 
 
 #: add orders of :func:`jacobi_sweep`
@@ -114,6 +122,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # fully-masked rows: zero output (the kernel's convention)
     out.masked_fill_(~mask.any(-1)[None, :, None, None, None], 0.0)
     return out.reshape(B, Sq, nq, hd).to(q.dtype)
+
+
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan along dim 1 of the pairs (a, b) under the
+    reference's ``_combine((al, bl), (ar, br)) = (al * ar, ar * bl + br)``,
+    by doubling: step d combines each position with the one d before it."""
+    S, d = a.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return a, b
+
+
+def selective_scan(dt: torch.Tensor, xc: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor, h0=None, *,
+                   chunk=None, acc=torch.float32):
+    """Mamba's selective scan: ``h_t = exp(dt_t A) h_{t-1} + (dt_t xc_t)
+    B_t``, ``y_t = C_t . h_t``, from ``h0`` (zero when None).  dt, xc (B,
+    S, d_inner) and Bm, Cm (B, S, d_state) in the model's type, A (d_inner,
+    d_state) float32; ``dt * xc`` is rounded to that type, everything
+    after it is computed in ``acc`` (float32, as the reference; float64
+    for an error yardstick).  Chunks of ``chunk`` steps when it divides S
+    (the reference's rule: its unchunked form is the one chunk S), each a
+    doubling scan over (B, chunk, d_inner, d_state) tensors.  Returns
+    ``(y (B, S, d_inner), h_S (B, d_inner, d_state))`` in ``acc``."""
+    B, S, _ = dt.shape
+    L = chunk if chunk and S % chunk == 0 else S
+    A = A.to(acc)
+    h = None if h0 is None else h0.to(acc)
+    ys = []
+    for s0 in range(0, S, L):
+        dti, xci, Bi = (t[:, s0:s0 + L] for t in (dt, xc, Bm))
+        a = torch.exp(dti.to(acc)[..., None] * A)
+        b = (dti * xci).to(acc)[..., None] * Bi.to(acc)[..., None, :]
+        a_cum, hs = _doubling_scan(a, b)
+        del a, b
+        if h is not None:  # inject the carried state
+            hs = hs + a_cum * h[:, None]
+        del a_cum
+        ys.append(torch.einsum("bcin,bcn->bci", hs,
+                               Cm[:, s0:s0 + L].to(acc)))
+        h = hs[:, -1].clone()
+        del hs
+    return torch.cat(ys, dim=1), h
 
 
 def oracle_jacobi_halo_sweeps(xb, top, bot, b, *, sweeps: int):

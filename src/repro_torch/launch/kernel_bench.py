@@ -38,8 +38,9 @@ operations over the float32 rate outside the tensor cores, or the float64
 rate; NVIDIA's H100 data sheet for the part ``nvidia-smi`` names) and the
 largest deviation from the tree's plain version.  ``chip_smoke.py`` uses
 the same timing and the same work counts (:func:`jacobi_halo_work`,
-:func:`flash_work`, :func:`bellman_work`, :func:`anderson_work`).  Run it by path so that
-``--src`` decides which ``repro_torch`` is imported:
+:func:`flash_work`, :func:`bellman_work`, :func:`anderson_work`; its
+``selective_scan`` row :func:`selective_scan_work`).  Run it by path so
+that ``--src`` decides which ``repro_torch`` is imported:
 
     python3 src/repro_torch/launch/kernel_bench.py [--src DIR/src] \\
         [--label NAME] [--only KERNEL] [--out FILE.json]
@@ -201,6 +202,19 @@ def flash_work(B, S, nq, nkv, hd, window, itemsize):
     visible (query, key) pair (the multiply-adds of both products)."""
     nbytes = (2 * B * S * nq * hd + 2 * B * S * nkv * hd) * itemsize
     return nbytes, 4 * B * nq * hd * attention_pairs(S, S, True, window)
+
+
+def selective_scan_work(B, S, di, ds, itemsize):
+    """Bytes, operations and exponentials of one ``selective_scan`` call:
+    dt and xc (B, S, di) in the input type, B and C (B, S, ds), A and the
+    final state read or written once, y (B, S, di) float32 written once;
+    per channel and step one product dt * xc, and per state the products
+    dt * A and (dt * xc) * B and two multiply-adds (the state's and y's),
+    beside one exponential (on the special-function units, 16 a clock an
+    SM on Hopper: not in the data sheet's float32 rate)."""
+    nbytes = (2 * B * S * di + 2 * B * S * ds) * itemsize + (
+        B * S * di + di * ds + B * di * ds) * 4
+    return nbytes, B * S * di * (6 * ds + 1), B * S * di * ds
 
 
 def bellman_work(idx, block=False):

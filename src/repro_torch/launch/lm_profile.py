@@ -10,20 +10,24 @@ ranges (``lm_serve.PREFILL``, ``lm_serve.DECODE``):
 
 ``--arch`` takes any config the port carries (``configs.PORTED``), the
 MoE (``qwen2_moe_a2p7b``, ``olmoe_1b_7b``), xLSTM (``xlstm_125m``),
-encoder-decoder and vision-language ones too:
+encoder-decoder, vision-language and Mamba-hybrid (Jamba) ones too:
 
   PYTHONPATH=src python -m repro_torch.launch.lm_profile \
       --arch whisper_large_v3 --dtype bfloat16   # 8 x 1500 frames, 224 tokens
   PYTHONPATH=src python -m repro_torch.launch.lm_profile \
       --arch qwen2_vl_72b --layers 8 --dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.lm_profile \
+      --arch jamba_1p5_large_398b --layers 5 --dtype bfloat16
 
 Whisper gets seeded frame embeddings of a padded 30-s clip
 (``inputs.WHISPER_FRAMES``) and, by default, batch 8 and a 224-token
 prompt (half its 448-token text context); Qwen2-VL a seeded vision block
 of the prompt's first quarter with its M-RoPE ids
 (``lm_serve.vision_inputs``).  ``--layers`` cuts the depth (Qwen2-VL-72B's
-80 layers do not fit one card).  The warm-up serves the same inputs with
-one decode step, so the timed run is not the first at its shapes.
+80 layers and Jamba-1.5-Large's 72 do not fit one card; Jamba's first 5
+hold every sublayer kind of its period).  The warm-up serves the same
+inputs with one decode step, so the timed run is not the first at its
+shapes.
 Before the traced run one prefill counts the flash launches by role
 (encoder, self, cross) and their host time (:func:`flash_roles`).
 
@@ -33,18 +37,18 @@ overlap; the serve synchronises between the phases, so a kernel belongs
 to the phase it starts in), the device's busy share (that sum over the
 traced wall time; tracing slows the host, so for a host-bound phase the
 share is a lower bound), and the device time by group (the
-flash-attention kernel, cuBLAS products, MoE routing and dispatch, copies,
-other PyTorch kernels) and by kernel, largest first.  The
-``moe_dispatch`` group is every top-k, sort, ``searchsorted``, gather,
-scatter, index and histogram kernel: an MoE layer's routing and token
-movement (in the other configs only the embedding lookup and the ring
-caches' writes land there).  ``--dtype`` picks the parameters' type:
-float32 (the default, ``lm_serve``'s) or bfloat16 (the config's own
-``param_dtype``, as the JAX package's launchers serve it; the caches
-follow).  The parameters come from ``models.init_params`` and a seeded
-generator, so the script also runs unchanged against an earlier tree's
-package.  ``--reduced --device cpu`` runs it without device times, for
-tests.
+flash-attention kernel, cuBLAS products, MoE routing and dispatch,
+copies, Mamba's ``selective_scan`` kernel, other PyTorch kernels) and by
+kernel, largest first.  The ``moe_dispatch`` group is every top-k, sort,
+``searchsorted``, gather, scatter, index and histogram kernel: an MoE
+layer's routing and token movement (in the other configs only the
+embedding lookup and the ring caches' writes land there).  ``--dtype``
+picks the parameters' type: float32 (the default, ``lm_serve``'s) or
+bfloat16 (the config's own ``param_dtype``, as the JAX package's
+launchers serve it; the caches follow).  The parameters come from
+``models.init_params`` and a seeded generator, so the script also runs
+unchanged against an earlier tree's package.  ``--reduced --device cpu``
+runs it without device times, for tests.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ __all__ = ["kernel_group", "breakdown", "FlashCall", "flash_role",
 
 #: (group, substrings of a kernel's name in lower case), first match wins
 _GROUPS = (("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
+           ("selective_scan", ("selective_scan_kernel",)),
            ("matmul", ("gemm", "gemv", "sm90_", "cutlass", "xmma", "nvjet")),
            ("copies", ("memcpy", "memset")),
            ("moe_dispatch", ("topk", "sort", "index", "scatter", "gather",

@@ -22,11 +22,12 @@ Three entry modes share one sublayer implementation:
 :class:`~repro_torch.models.common.FlatParams` laid out in the order of
 the reference's ``ravel_pytree`` of its stacked parameter tree.
 
-Mixers: global attention, sliding-window attention (ring cache), mLSTM
-and sLSTM (recurrent states, :mod:`.xlstm`).  FFNs: dense (SwiGLU/GeGLU/
-GELU/ReLU²), MoE (:mod:`.moe`; its auxiliary losses are summed over the
-layers by ``forward_train``) or none.  Mamba configs raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Mixers: global attention, sliding-window attention (ring cache), Mamba
+(a (conv, ssm) state, :mod:`.mamba`; its prefill scan through the
+``selective_scan`` kernel on the card), mLSTM and sLSTM (recurrent
+states, :mod:`.xlstm`).  FFNs: dense (SwiGLU/GeGLU/GELU/ReLU²), MoE
+(:mod:`.moe`; its auxiliary losses are summed over the layers by
+``forward_train``) or none.
 
 Whisper (``kind="encdec"``) adds a bidirectional :class:`Encoder` over
 precomputed frame embeddings and cross-attention in every decoder layer
@@ -52,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelConfig, Sublayer as SublayerKind
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .attention import KVCache
@@ -73,9 +75,7 @@ __all__ = ["check_ported", "sublayer_spec", "model_spec", "Sublayer",
            "apply_sublayer_full", "apply_sublayer_decode", "forward_train",
            "lm_loss", "prefill", "decode_step"]
 
-#: the ROADMAP.md item of each mixer kind the port does not carry
-_UNPORTED_MIXERS = {"mamba": "1.7c (Mamba)"}
-_MIXERS = ("attn", "local", "mlstm", "slstm")
+_MIXERS = ("attn", "local", "mamba", "mlstm", "slstm")
 _FFNS = ("mlp", "moe", "none")
 #: the encoder's one sublayer kind
 ENC_SUBLAYER: SublayerKind = ("attn", "mlp")
@@ -91,19 +91,15 @@ class CrossCache(NamedTuple):
 
 
 #: one layer's decode cache: a KV cache (with the cross K/V for an
-#: encoder-decoder), or an mLSTM / sLSTM state
-Cache = Union[KVCache, CrossCache, xlstm_mod.MLSTMState,
-              xlstm_mod.SLSTMState]
+#: encoder-decoder), or a Mamba, mLSTM or sLSTM state
+Cache = Union[KVCache, CrossCache, mamba_mod.MambaState,
+              xlstm_mod.MLSTMState, xlstm_mod.SLSTMState]
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP.md item) unless
-    ``cfg`` is a decoder the port carries."""
+    """Raise ``ValueError`` unless every sublayer of ``cfg`` is a kind the
+    port carries."""
     for mixer, ffn in cfg.period:
-        if mixer in _UNPORTED_MIXERS:
-            raise NotImplementedError(
-                f"{mixer} mixers are not ported yet: ROADMAP.md item "
-                f"{_UNPORTED_MIXERS[mixer]}")
         if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"unknown sublayer {(mixer, ffn)}")
 
@@ -112,6 +108,8 @@ def check_ported(cfg: ModelConfig) -> None:
 # Parameter specs
 # --------------------------------------------------------------------- #
 def _mixer_spec(cfg: ModelConfig, mixer: str) -> Dict:
+    if mixer == "mamba":
+        return mamba_mod.mamba_spec(cfg)
     if mixer == "mlstm":
         return xlstm_mod.mlstm_spec(cfg)
     if mixer == "slstm":
@@ -295,6 +293,8 @@ def make_trainable(params: DecoderLM) -> FlatParams:
 
 def _sublayer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
                     dtype, device) -> Cache:
+    if mixer == "mamba":
+        return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
     if mixer == "mlstm":
         return xlstm_mod.init_mlstm_state(cfg, batch, device)
     if mixer == "slstm":
@@ -307,8 +307,9 @@ def _sublayer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device=None) -> List[Cache]:
     """One empty decode cache per layer on ``device`` (None: the card): a
-    KV cache for attention (a ring buffer for local layers), a float32
-    mLSTM or sLSTM state for the recurrent mixers.  An encoder-decoder's
+    KV cache for attention (a ring buffer for local layers), a Mamba
+    state (its conv window in ``dtype``, its ssm state float32), a
+    float32 mLSTM or sLSTM state.  An encoder-decoder's
     layers get a :class:`CrossCache` whose cross K/V hold one zero
     position (the reference's placeholder: the encoder's length is known
     at prefill, which writes its K/V)."""
@@ -363,7 +364,13 @@ def apply_sublayer_full(
     mixer, _ = sub
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     new_cache = None
-    if mixer == "mlstm":
+    if mixer == "mamba":
+        if collect_cache:
+            out, new_cache = mamba_mod.mamba_block_with_state(
+                cfg, params["mixer"], h)
+        else:
+            out = mamba_mod.mamba_block(cfg, params["mixer"], h)
+    elif mixer == "mlstm":
         if collect_cache:
             out, new_cache = xlstm_mod.mlstm_block_with_state(
                 cfg, params["mixer"], h)
@@ -407,7 +414,9 @@ def apply_sublayer_decode(
     if cross is not None:
         cache = cache.kv
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if mixer == "mlstm":
+    if mixer == "mamba":
+        out, new_cache = mamba_mod.mamba_decode(cfg, params["mixer"], h, cache)
+    elif mixer == "mlstm":
         out, new_cache = xlstm_mod.mlstm_decode(cfg, params["mixer"], h, cache)
     elif mixer == "slstm":
         out, new_cache = xlstm_mod.slstm_decode(cfg, params["mixer"], h, cache)

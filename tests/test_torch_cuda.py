@@ -11,15 +11,17 @@ runs on the machine with the card:
 Tolerances: the Jacobi kernels are exact (adds and an exact scaling, in
 the plain version's order, for both add orders of ``jacobi_sweep``);
 Bellman 1e-13 (the CUDA kernel may contract ``R + gamma * ev`` to an
-FMA); ``anderson_mix`` 1e-12 (FMAs over the window); norms 1e-12 relative (per-CTA partial sums); ``flash_attention``
-2e-5 in float32 and 2e-2 in bfloat16 (an online softmax against the plain
-version's one-shot softmax, as ``tests/test_kernels.py`` holds the Pallas
-kernel); the LM serving path on the card against the same weights on the
-CPU 1e-4 relative in the logits (float32 matmuls in other orders through
-a stack of layers) with identical greedy tokens; a train step on the card
-against the CPU 1e-4 relative in the loss and every gradient leaf, and
-each parameter within 2 lr after AdamW (Adam's first step moves an
-element by ±lr whatever the size of its gradient).
+FMA); ``anderson_mix`` 1e-12 (FMAs over the window); norms 1e-12
+relative (per-CTA partial sums); ``flash_attention`` 2e-5 in float32 and
+2e-2 in bfloat16 (an online softmax against the plain version's one-shot
+softmax, as ``tests/test_kernels.py`` holds the Pallas kernel);
+``selective_scan`` 1e-5 relative (time in order against the plain
+version's doubling scan); the LM serving path on the card against the
+same weights on the CPU 1e-4 relative in the logits (float32 matmuls in
+other orders through a stack of layers) with identical greedy tokens; a
+train step on the card against the CPU 1e-4 relative in the loss and
+every gradient leaf, and each parameter within 2 lr after AdamW (Adam's
+first step moves an element by ±lr whatever the size of its gradient).
 """
 
 import numpy as np
@@ -996,3 +998,115 @@ class TestTrainingOnTheCard:
         assert runs["card"].accel_accepts == runs["cpu"].accel_accepts
         a, b = np.array(runs["card"].losses), np.array(runs["cpu"].losses)
         assert np.max(np.abs(a - b)) <= 1e-4 * np.max(np.abs(b))
+
+
+class TestSelectiveScanKernel:
+    """``selective_scan`` (``csrc/selective_scan.cu``) against its plain
+    version on the card on the same inputs: ``max|kernel - plain| /
+    max|plain|`` at most 1e-5 for y and the final state (the kernel walks
+    time in order, the plain version doubles; both round ``dt * xc`` to
+    the input type once), over both state sizes, both input types, with
+    and without ``h0``, at lengths that are no multiple of the kernel's
+    16- and 32-step tiles, and with B and C read in place from a
+    projection's columns (the model's views)."""
+
+    @staticmethod
+    def _inputs(dev, B, S, di, ds, dtype, seed=0, views=False):
+        import math
+
+        g = torch.Generator(device=dev).manual_seed(seed)
+        kw = dict(generator=g, device=dev)
+        dt = torch.exp(torch.empty(B, S, di, device=dev).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=g)).to(dtype)
+        xc = torch.randn(B, S, di, **kw).to(dtype)
+        if views:  # columns of one (B, S, 5 + 2 ds) projection
+            proj = torch.randn(B, S, 5 + 2 * ds, **kw).to(dtype)
+            Bm, Cm = proj[..., 5:5 + ds], proj[..., 5 + ds:]
+        else:
+            Bm, Cm = (torch.randn(B, S, ds, **kw).to(dtype) for _ in range(2))
+        A = -torch.exp(torch.empty(di, ds, device=dev).uniform_(
+            -1.0, 1.5, generator=g))
+        return dt, xc, Bm, Cm, A
+
+    @staticmethod
+    def _rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    @pytest.mark.parametrize("ds", [8, 16])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("with_h0", [False, True])
+    @pytest.mark.parametrize("B,S,di", [(1, 1, 32), (2, 33, 130),
+                                        (2, 100, 256), (1, 515, 384)])
+    def test_matches_plain(self, dev, ds, dtype, with_h0, B, S, di):
+        dt, xc, Bm, Cm, A = self._inputs(dev, B, S, di, ds, dtype)
+        h0 = (torch.randn(B, di, ds, device=dev) if with_h0 else None)
+        y, h = ops.selective_scan(dt, xc, Bm, Cm, A, h0)
+        wy, wh = ref.selective_scan(dt, xc, Bm, Cm, A, h0, chunk=None)
+        assert y.dtype == h.dtype == torch.float32
+        assert y.shape == (B, S, di) and h.shape == (B, di, ds)
+        assert self._rel(y, wy) <= 1e-5
+        assert self._rel(h, wh) <= 1e-5
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_reads_b_and_c_in_place(self, dev, dtype):
+        dt, xc, Bm, Cm, A = self._inputs(dev, 2, 70, 160, 16, dtype,
+                                         views=True)
+        assert not Bm.is_contiguous()
+        y, h = ops.selective_scan(dt, xc, Bm, Cm, A)
+        wy, wh = ref.selective_scan(dt, xc, Bm.contiguous(),
+                                    Cm.contiguous(), A)
+        assert self._rel(y, wy) <= 1e-5 and self._rel(h, wh) <= 1e-5
+
+    def test_launches_are_counted_and_grad_refused(self, dev):
+        dt, xc, Bm, Cm, A = self._inputs(dev, 1, 8, 32, 8, torch.float32)
+        ops.reset_launch_counts()
+        ops.selective_scan(dt, xc, Bm, Cm, A)
+        assert ops.launch_counts()["selective_scan"] == 1
+        A.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.selective_scan(dt, xc, Bm, Cm, A)
+        with torch.no_grad():
+            ops.selective_scan(dt, xc, Bm, Cm, A)
+        assert ops.launch_counts()["selective_scan"] == 2
+
+    @pytest.mark.parametrize("change", ["d_state", "dtype", "contiguous"])
+    def test_rejects_what_the_kernel_does_not_take(self, dev, change):
+        dt, xc, Bm, Cm, A = self._inputs(dev, 1, 8, 32, 8, torch.float32)
+        if change == "d_state":
+            Bm, Cm, A = Bm[..., :4], Cm[..., :4], A[:, :4].contiguous()
+        elif change == "dtype":
+            dt, xc = dt.half(), xc.half()
+            Bm, Cm = Bm.half(), Cm.half()
+        else:  # the same shape, time innermost
+            dt = dt.transpose(1, 2).contiguous().transpose(1, 2)
+        with pytest.raises(ValueError):
+            ops.selective_scan(dt, xc, Bm, Cm, A)
+
+
+class TestJambaOnTheCard:
+    def test_serve_matches_cpu_at_depth_5(self, dev):
+        """Reduced Jamba's first 5 layers ((mamba, mlp), (mamba, moe),
+        (mamba, mlp), (mamba, moe), (attn, mlp)) served on the card
+        against the CPU on the same float32 weights: logits within 1e-4
+        relative with identical greedy tokens; one flash launch and 4
+        ``selective_scan`` launches a prefill, none in decode."""
+        import dataclasses
+
+        cfg = dataclasses.replace(
+            lm_serve.make_config("jamba_1p5_large_398b", reduced=True),
+            n_layers=5)
+        cpu = torch.device("cpu")
+        params = lm_serve.make_params(cfg, cpu, seed=1)
+        prompt = lm_serve.make_prompt(cfg, 2, 40, cpu)
+        want = lm_serve.serve(cfg, params, prompt, gen=6, keep_logits=True)
+        ops.reset_launch_counts()
+        got = lm_serve.serve(cfg, params.to(dev), prompt.to(dev), gen=6,
+                             keep_logits=True)
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == 1
+        assert counts["selective_scan"] == 4
+        assert torch.equal(got.tokens.cpu(), want.tokens)
+        for a, b in zip([got.prefill_logits] + got.step_logits,
+                        [want.prefill_logits] + want.step_logits):
+            rel = float((a.cpu() - b).abs().max() / b.abs().max())
+            assert rel <= 1e-4

@@ -197,8 +197,10 @@ def no_plain(monkeypatch):
     lambda S: ops.anderson_mix(S(3, 8), S(3, 8), S(3), beta=0.5),
     lambda S: ops.flash_attention(S(1, 8, 4, 16), S(1, 8, 2, 16),
                                   S(1, 8, 2, 16), window=4, softcap=50.0),
+    lambda S: ops.selective_scan(S(2, 5, 32), S(2, 5, 32), S(2, 5, 16),
+                                 S(2, 5, 16), S(32, 16), chunk=4),
 ], ids=["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
-        "anderson_mix", "flash_attention"])
+        "anderson_mix", "flash_attention", "selective_scan"])
 def test_cuda_inputs_never_take_the_plain_version(no_plain, call):
     before = ops.launch_counts()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -217,6 +219,19 @@ def test_flash_refuses_cuda_inputs_that_require_grad(no_plain):
         ops.flash_attention(q, kv, kv)
     with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA"):
         ops.flash_attention(q, kv, kv)
+    assert ops.launch_counts() == before
+
+
+def test_selective_scan_refuses_cuda_inputs_that_require_grad(no_plain):
+    """As flash: a CUDA scan that autograd would record raises before
+    anything launches (training takes the plain scan)."""
+    dt = _CudaStub(2, 5, 32, requires_grad=True)
+    bc, A = _CudaStub(2, 5, 8), _CudaStub(32, 8)
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.selective_scan(dt, dt, bc, bc, A)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA"):
+        ops.selective_scan(dt, dt, bc, bc, A)
     assert ops.launch_counts() == before
 
 

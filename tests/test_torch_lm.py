@@ -54,12 +54,14 @@ RTOL = 1e-5
 REDUCED = {"gemma2_2b": {}, "gemma_2b": {}, "minitron_8b": {},
            "gemma3_4b": dict(n_layers=10), "qwen2_moe_a2p7b": {},
            "olmoe_1b_7b": {}, "xlstm_125m": {}, "whisper_large_v3": {},
-           "qwen2_vl_72b": {}}
+           "qwen2_vl_72b": {}, "jamba_1p5_large_398b": {}}
 #: the decoders whose every mixer is attention (one KV cache per layer);
 #: Qwen2-VL here serves text (plain RoPE), as the reference's lm_serve
 #: does, and its vision block and M-RoPE are held in test_torch_vlm.py;
-#: Whisper's encoder-decoder path in test_torch_whisper.py
-ATTN = [a for a in REDUCED if a not in ("xlstm_125m", "whisper_large_v3")]
+#: Whisper's encoder-decoder path in test_torch_whisper.py, Jamba's
+#: Mamba layers in test_torch_mamba.py
+ATTN = [a for a in REDUCED if a not in ("xlstm_125m", "whisper_large_v3",
+                                        "jamba_1p5_large_398b")]
 
 
 def _rel(a, b) -> float:
@@ -135,10 +137,11 @@ class TestConfigs:
 
         assert shapes(model_spec(cfg)) == shapes(j_model_spec(jcfg))
 
-    @pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)))
-    def test_unported_families_raise_naming_the_item(self, arch):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.7"):
-            get_config(arch)
+    @pytest.mark.parametrize("arch", ARCH_IDS)
+    def test_every_arch_id_is_ported(self, arch):
+        """Every architecture of the reference resolves in the port."""
+        assert arch in PORTED
+        assert get_config(arch).name == j_get_config(arch).name
 
     @pytest.mark.parametrize("arch,change", [
         ("qwen2_moe_a2p7b", None),
@@ -146,17 +149,20 @@ class TestConfigs:
         ("xlstm_125m", None),
         ("whisper_large_v3", None),
         ("qwen2_vl_72b", None),
+        ("jamba_1p5_large_398b", None),
         ("gemma_2b", dict(period=(("mlstm", "none"),))),
         ("gemma_2b", dict(period=(("attn", "moe"),))),
+        ("gemma_2b", dict(period=(("mamba", "mlp"),))),
     ])
     def test_ported_families_resolve(self, arch, change):
-        """The MoE, xLSTM, encoder-decoder and vision-language configs and
-        layers (items 1.7b, 1.7d, 1.7e and 1.7f): the config resolves and
-        its ``model_spec`` equals the reference's."""
+        """The MoE, xLSTM, encoder-decoder, vision-language and Mamba
+        configs and layers (items 1.7b, 1.7c, 1.7d, 1.7e and 1.7f): the
+        config resolves and its ``model_spec`` equals the reference's."""
         cfg, jcfg = get_config(arch).reduced(), j_get_config(arch).reduced()
         if change is not None:
             moe = j_get_config("olmoe_1b_7b").reduced().moe
-            change = dict(change, moe=moe)
+            mamba = j_get_config("jamba_1p5_large_398b").reduced().mamba
+            change = dict(change, moe=moe, mamba=mamba)
             cfg = dataclasses.replace(cfg, **change)
             jcfg = dataclasses.replace(jcfg, **change)
 
@@ -168,14 +174,13 @@ class TestConfigs:
         assert shapes(model_spec(cfg)) == shapes(j_model_spec(jcfg))
         assert len(init_params(cfg, device="cpu").layers) == cfg.n_layers
 
-    @pytest.mark.parametrize("change,item", [
-        (dict(period=(("mamba", "mlp"),)), "1.7c"),
-    ])
-    def test_unported_layers_raise(self, change, item):
-        cfg = dataclasses.replace(get_config("gemma_2b").reduced(), **change)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    @pytest.mark.parametrize("sub", [("ssm", "mlp"), ("attn", "glu")])
+    def test_unknown_layers_raise(self, sub):
+        cfg = dataclasses.replace(get_config("gemma_2b").reduced(),
+                                  period=(sub,))
+        with pytest.raises(ValueError, match="unknown sublayer"):
             model_spec(cfg)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(ValueError, match="unknown sublayer"):
             init_params(cfg, device="cpu")
 
 
