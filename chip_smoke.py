@@ -548,28 +548,6 @@ def phase_kernels(torch, dev, name):
     return rows_out
 
 
-def _scan_inputs(torch, dev, gen, B, S, di, ds, dtype):
-    """Seeded selective-scan inputs: dt in Mamba's init range [1e-3, 1e-1]
-    (long memories), xc, B and C standard normal, all in ``dtype``; A =
-    -exp(U(-1, 1.5)) float32."""
-    kw = dict(generator=gen, device=dev)
-    dt = torch.exp(torch.empty(B, S, di, device=dev).uniform_(
-        math.log(1e-3), math.log(1e-1), generator=gen)).to(dtype)
-    xc, Bm, Cm = (torch.randn(*shape, **kw).to(dtype)
-                  for shape in ((B, S, di), (B, S, ds), (B, S, ds)))
-    A = -torch.exp(torch.empty(di, ds, device=dev).uniform_(
-        -1.0, 1.5, generator=gen))
-    return dt, xc, Bm, Cm, A
-
-
-def _max_sm_clock_hz() -> float:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return float(smi.stdout.strip().splitlines()[0]) * 1e6
-
-
 def scan_row(torch, dev, bound, fp32):
     """selective_scan (the port's own kernel: Mamba's scan has no Pallas
     kernel) on the small sweep (``SCAN_SWEEP``, within 1e-5 relative of
@@ -580,12 +558,17 @@ def scan_row(torch, dev, bound, fp32):
     times the plain float32 scan's (both at ``ssm_chunk`` 1024, by slabs
     of 1024 channels: the scan is independent per channel).  Timed by
     events and CUPTI beside the plain scan at ``ssm_chunk`` 1024 (one
-    call); bound by bytes, and the exponentials' floor at 16 a clock an
-    SM at the card's maximum SM clock.  No single PyTorch call computes
-    it."""
+    call), and again with B and C as the model's views (the last columns
+    of a (2, 8192, 544) ``x_proj`` output); bound by bytes, and the
+    exponentials' floor at 16 a clock an SM at the card's maximum SM
+    clock; with the registers ``ptxas`` gave that instantiation.  No
+    single PyTorch call computes it."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
-    from repro_torch.launch.kernel_bench import (device_profile,
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch.kernel_bench import (SCAN_PROJ, device_profile,
+                                                 exp_floor_ms,
+                                                 max_sm_clock_hz,
+                                                 ptxas_report, scan_inputs,
                                                  selective_scan_work,
                                                  time_ms)
 
@@ -599,8 +582,8 @@ def scan_row(torch, dev, bound, fp32):
         for dtype in (torch.float32, torch.bfloat16):
             for with_h0 in (False, True):
                 for B_, S_, di_ in SCAN_SWEEP:
-                    args = _scan_inputs(torch, dev, gen, B_, S_, di_, ds,
-                                        dtype)
+                    args = scan_inputs(torch, dev, gen, B_, S_, di_, ds,
+                                       dtype)
                     h0 = (torch.randn(B_, di_, ds, generator=gen, device=dev)
                           if with_h0 else None)
                     y, h = ops.selective_scan(*args, h0)
@@ -612,8 +595,8 @@ def scan_row(torch, dev, bound, fp32):
     cfg = get_config(LM_JAMBA)
     B, S = LM_BATCH, LM_PROMPT
     di, ds = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
-    dt, xc, Bm, Cm, _ = _scan_inputs(torch, dev, gen, B, S, di, ds,
-                                     torch.bfloat16)
+    dt, xc, Bm, Cm, _ = scan_inputs(torch, dev, gen, B, S, di, ds,
+                                    torch.bfloat16)
     A = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(
         di, ds).contiguous()
     y, h = ops.selective_scan(dt, xc, Bm, Cm, A)
@@ -649,11 +632,20 @@ def scan_row(torch, dev, bound, fp32):
     def kernel():
         return ops.selective_scan(dt, xc, Bm, Cm, A)
 
+    Bv, Cv = scan_inputs(torch, dev, gen, B, S, di, ds, torch.bfloat16,
+                         proj=SCAN_PROJ)[2:4]
+
+    def kernel_views():
+        return ops.selective_scan(dt, xc, Bv, Cv, A)
+
     nbytes, flops, n_exp = selective_scan_work(B, S, di, ds, 2)
     b_ms, b_by = bound(nbytes, flops, fp32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock = _max_sm_clock_hz()
-    exp_ms = n_exp / (16 * sms * clock) * 1e3
+    clock = max_sm_clock_hz()
+    exp_ms = exp_floor_ms(n_exp, sms, clock)
+    inst = f"selective_scan_kernel<__nv_bfloat16, {ds}, true>"
+    regs = [(r, st, ld) for name, r, st, ld in ptxas_report(
+        _build.build_info().log, "selective_scan.cu") if inst in name]
     row = dict(name="selective_scan", route="cuda",
                source="src/repro_torch/csrc/selective_scan.cu",
                replaces="src/repro/models/mamba.py:107",
@@ -668,6 +660,10 @@ def scan_row(torch, dev, bound, fp32):
                * err["plain_y"][0], sweep_max_rel_err=sweep_err,
                ms=time_ms(torch, kernel),
                device_ms=device_profile(torch, kernel)[0],
+               views_ms=time_ms(torch, kernel_views),
+               views_device_ms=device_profile(torch, kernel_views)[0],
+               registers=regs[0][0] if regs else None,
+               spill_bytes=sum(regs[0][1:]) if regs else None,
                plain_ms=time_ms(torch, lambda: ref.selective_scan(
                    dt, xc, Bm, Cm, A, chunk=JAMBA_SSM_CHUNK), reps=2,
                    warmup=1),
@@ -688,14 +684,17 @@ def scan_row(torch, dev, bound, fp32):
           f"), h max {err['kernel_h'][0]:.3e} RMS {err['kernel_h'][1]:.3e} "
           f"({err['plain_h'][0]:.3e} / {err['plain_h'][1]:.3e}; factor "
           f"{SCAN_ERR_FACTOR}); kernel {row['ms']:.4f} ms (device "
-          f"{row['device_ms']:.4f}), plain at chunk {JAMBA_SSM_CHUNK} "
+          f"{row['device_ms']:.4f}), B and C as x_proj views "
+          f"{row['views_ms']:.4f} ms (device {row['views_device_ms']:.4f}); "
+          f"{row['registers']} registers, spills "
+          f"{row['spill_bytes']} B; plain at chunk {JAMBA_SSM_CHUNK} "
           f"{row['plain_ms']:.3f} ms; bound {b_ms:.4f} ms ({b_by}, "
           f"{100 * row['bound_share']:.1f}% by events, "
           f"{100 * row['device_bound_share']:.1f}% by device time); "
           f"{n_exp:.3e} exponentials at 16 a clock an SM, {sms} SMs, "
           f"{clock / 1e6:.0f} MHz: {exp_ms:.4f} ms "
           f"({100 * row['exp_floor_share']:.1f}% of the device time)")
-    del dt, xc, Bm, Cm, A
+    del dt, xc, Bm, Cm, A, Bv, Cv
     torch.cuda.empty_cache()
     return row
 

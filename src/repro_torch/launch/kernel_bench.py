@@ -31,7 +31,18 @@ that tree's kernels there and times each kernel with CUDA events around
   8-byte loads), with whether its bits equal the aligned call's.  At VI's
   shape, whose 56 MB nearly fit the 50 MB L2, a 128 MB scratch write runs
   before every call, as a fire finds its window cold: the event times
-  subtract the write's own, the device times leave its kernel out by name.
+  subtract the write's own, the device times leave its kernel out by name;
+* ``selective_scan`` at the [lm-jamba] prefill's shape, dt and xc (2, 8192,
+  16384) bfloat16, d_state 16 (:data:`SCAN_SHAPE`), with B and C
+  contiguous and as the model's views (the last columns of a (2, 8192,
+  544) ``x_proj`` output), by events and CUPTI, beside the byte bound and
+  the exponentials' floor (16 a clock an SM at the card's maximum SM
+  clock); with the registers and spills ``ptxas`` reported, the SASS of
+  each instantiation counted by ``cuobjdump`` (:func:`sass_report`:
+  instructions per ``MUFU.EX2`` in its main loop), and the kernel timed
+  back to back against right after bursts of bfloat16 matrix products,
+  with the SM clock and power ``nvidia-smi`` sampled in each
+  (:func:`scan_under_load`).
 
 Each row carries its bound (the larger of bytes over the memory rate and
 operations over the float32 rate outside the tensor cores, or the float64
@@ -44,13 +55,17 @@ that ``--src`` decides which ``repro_torch`` is imported:
 
     python3 src/repro_torch/launch/kernel_bench.py [--src DIR/src] \\
         [--label NAME] [--only KERNEL] [--out FILE.json]
+
+(``--only selective_scan`` times that group alone, ~1 min.)
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -217,6 +232,94 @@ def selective_scan_work(B, S, di, ds, itemsize):
     return nbytes, B * S * di * (6 * ds + 1), B * S * di * ds
 
 
+#: the [lm-jamba] prefill's scan (B, S, d_inner, d_state), bfloat16, and
+#: the width of the x_proj output whose last 2 d_state columns are B and C
+SCAN_SHAPE = (2, 8192, 16384, 16)
+SCAN_PROJ = 544
+
+
+def scan_inputs(torch, dev, gen, B, S, di, ds, dtype, proj=None):
+    """Seeded selective-scan inputs: dt in Mamba's init range [1e-3, 1e-1]
+    (long memories), xc, B and C standard normal, all in ``dtype``; A =
+    -exp(U(-1, 1.5)) float32.  With ``proj``, B and C are the last 2 ds
+    columns of a (B, S, proj) tensor (the model's in-place views)."""
+    kw = dict(generator=gen, device=dev)
+    dt = torch.exp(torch.empty(B, S, di, device=dev).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen)).to(dtype)
+    xc = torch.randn(B, S, di, **kw).to(dtype)
+    if proj is None:
+        Bm, Cm = (torch.randn(B, S, ds, **kw).to(dtype) for _ in range(2))
+    else:
+        full = torch.randn(B, S, proj, **kw).to(dtype)
+        Bm, Cm = full[..., proj - 2 * ds:proj - ds], full[..., proj - ds:]
+    A = -torch.exp(torch.empty(di, ds, device=dev).uniform_(
+        -1.0, 1.5, generator=gen))
+    return dt, xc, Bm, Cm, A
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), in Hz."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def exp_floor_ms(n_exp: float, sms: int, clock_hz: float) -> float:
+    """The least time for ``n_exp`` exponentials on the special-function
+    units: 16 a clock an SM (Hopper)."""
+    return n_exp / (16 * sms * clock_hz) * 1e3
+
+
+def _cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/cuobjdump")
+    return str(default) if default.exists() else None
+
+
+def sass_report(lib, match: str):
+    """Per kernel of the library ``lib`` whose mangled name holds
+    ``match``: its SASS instructions and ``MUFU.EX2`` ops, and in its main
+    loop (the backward branch whose body holds the most ``MUFU.EX2``) the
+    instructions, the ``MUFU.EX2`` ops, their ratio and the count of each
+    opcode.  Empty when the toolkit has no ``cuobjdump``."""
+    tool = _cuobjdump()
+    if tool is None:
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    out = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if match not in name:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body)]
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for _, t in ins]
+        best = (0, 0, 0)  # (MUFU.EX2 ops, start, end) of the main loop
+        for (addr, t), op in zip(ins, ops):
+            m = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", t)
+            if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+                lo = int(m.group(1), 16)
+                n = sum(o == "MUFU.EX2" for (a, _), o in zip(ins, ops)
+                        if lo <= a <= addr)
+                if n > best[0]:
+                    best = (n, lo, addr)
+        loop = [o for (a, _), o in zip(ins, ops)
+                if best[0] and best[1] <= a <= best[2]]
+        out[name] = dict(
+            instructions=len(ins),
+            mufu_ex2=sum(o == "MUFU.EX2" for o in ops),
+            loop_instructions=len(loop), loop_mufu_ex2=best[0],
+            loop_per_ex2=len(loop) / best[0] if best[0] else None,
+            loop_opcodes=dict(collections.Counter(
+                o.split(".")[0] for o in loop).most_common()))
+    return out
+
+
 def bellman_work(idx, block=False):
     """Bytes and operations of one ``bellman`` call over ``idx`` (rows, A,
     b): the index, probability and reward rows, the distinct ``v`` entries
@@ -282,7 +385,8 @@ def bound_ms(nbytes: float, flops: float, bw: float, peak: float):
 
 
 #: the kernel groups :func:`bench` times, in order (``--only`` picks one)
-GROUPS = ("jacobi_halo_sweeps", "flash_attention", "bellman", "anderson_mix")
+GROUPS = ("jacobi_halo_sweeps", "flash_attention", "bellman", "anderson_mix",
+          "selective_scan")
 
 
 def bench(torch, card: str, only=None):
@@ -317,6 +421,9 @@ def bench(torch, card: str, only=None):
             print(f"[bench] ptxas {name}: {regs} registers, spill stores "
                   f"{st} B, loads {ld} B", flush=True)
         bench_anderson(torch, dev, ops, ref, row, fp64)
+    if only in (None, "selective_scan"):
+        rows.append(dict(name="selective_scan_under_load",
+                         **bench_scan(torch, dev, ops, ref, row, fp32)))
     return rows
 
 
@@ -475,6 +582,123 @@ def bench_anderson(torch, dev, ops, ref, row, fp64):
             bits_equal_aligned=bool(torch.equal(got, kernel())))
         del X, G, Go, got, want
     torch.cuda.empty_cache()
+
+
+#: bfloat16 (8192, 8192) products in a burst before each loaded scan
+#: (~50 ms on an H100 SXM, about a Jamba layer's products)
+LOAD_GEMMS = 30
+#: seconds of each window of :func:`scan_under_load`, and the seconds at
+#: its start whose clock samples are left out (the clock settling)
+LOAD_SECONDS, LOAD_SETTLE = 3.0, 0.5
+
+
+def scan_under_load(torch, dev, kernel):
+    """The scan's event time (median of single calls) and the SM clock and
+    power draw ``nvidia-smi`` sampled every 20 ms (medians), over a window
+    of calls back to back and over a window where each call follows a
+    burst of :data:`LOAD_GEMMS` bfloat16 products, as in a prefill, where
+    the layer's products precede the scan."""
+    import datetime
+    import statistics
+
+    a = torch.randn(8192, 8192, device=dev).to(torch.bfloat16)
+    c = torch.empty_like(a)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def burst():
+        for _ in range(LOAD_GEMMS):
+            torch.matmul(a, a, out=c)
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    out, windows = {}, {}
+    try:
+        for label, before in (("alone", None), ("after_products", burst)):
+            kernel()
+            torch.cuda.synchronize()
+            times, t_start = [], time.time()
+            while time.time() - t_start < LOAD_SECONDS:
+                if before is not None:
+                    before()
+                e0.record()
+                kernel()
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            windows[label] = (t_start + LOAD_SETTLE, time.time())
+            out[f"{label}_ms"] = statistics.median(times)
+            out[f"{label}_calls"] = len(times)
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=30)[0]
+    samples = []
+    for line in text.splitlines():
+        try:
+            ts, mhz, watts = (f.strip() for f in line.split(","))
+            t = datetime.datetime.strptime(ts, "%Y/%m/%d %H:%M:%S.%f")
+            samples.append((t.timestamp(), float(mhz), float(watts)))
+        except ValueError:
+            continue
+    for label, (lo, hi) in windows.items():
+        got = [(m, w) for t, m, w in samples if lo <= t <= hi]
+        out[f"{label}_sm_mhz"] = (statistics.median(m for m, _ in got)
+                                  if got else None)
+        out[f"{label}_power_w"] = (statistics.median(w for _, w in got)
+                                   if got else None)
+        out[f"{label}_samples"] = len(got)
+    return out
+
+
+def bench_scan(torch, dev, ops, ref, row, fp32):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import selective_scan as scan_mod
+
+    info = _build.build_info()
+    for name, regs, st, ld in ptxas_report(info.log, "selective_scan.cu"):
+        print(f"[bench] ptxas {name}: {regs} registers, spill stores {st} B,"
+              f" loads {ld} B", flush=True)
+    for name, rep in sass_report(info.path, "selective_scan").items():
+        print(f"[bench] sass {name}: {json.dumps(rep)}", flush=True)
+    B, S, di, ds = SCAN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dt, xc, Bm, Cm, A = scan_inputs(torch, dev, gen, B, S, di, ds,
+                                    torch.bfloat16)
+    views = scan_inputs(torch, dev, gen, B, S, di, ds, torch.bfloat16,
+                        proj=SCAN_PROJ)[2:4]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor_hz = max_sm_clock_hz()
+    slab = slice(0, 512)
+    want = {layout: ref.selective_scan(dt[..., slab], xc[..., slab], b_, c_,
+                                       A[slab])
+            for layout, (b_, c_) in (("contiguous", (Bm, Cm)),
+                                     ("views", views))}
+    nbytes, flops, n_exp = selective_scan_work(B, S, di, ds, 2)
+    floor = exp_floor_ms(n_exp, sms, floor_hz)
+    for layout, (b_, c_) in (("contiguous", (Bm, Cm)), ("views", views)):
+
+        def kernel(b_=b_, c_=c_):
+            return scan_mod.selective_scan(dt, xc, b_, c_, A)
+
+        y, h = kernel()
+        wy, wh = want[layout]
+        err = max(float((y[..., slab] - wy).abs().max()),
+                  float((h[:, slab] - wh).abs().max()))
+        del y, h
+        dev_ms, launches = device_profile(torch, kernel)
+        row("selective_scan", [B, S, di, ds, "bfloat16", layout], err,
+            kernel, nbytes, flops, fp32, device_ms=dev_ms,
+            launches_per_call=launches, exp_floor_ms=floor,
+            exp_floor_share=floor / dev_ms)
+    del want
+    load = scan_under_load(torch, dev, lambda: ops.selective_scan(
+        dt, xc, *views, A))
+    print(f"[bench] selective_scan views under load: {json.dumps(load)}",
+          flush=True)
+    del dt, xc, Bm, Cm, A, views
+    torch.cuda.empty_cache()
+    return load
 
 
 def main() -> int:

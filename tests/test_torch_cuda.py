@@ -1007,8 +1007,12 @@ class TestSelectiveScanKernel:
     time in order, the plain version doubles; both round ``dt * xc`` to
     the input type once), over both state sizes, both input types, with
     and without ``h0``, at lengths that are no multiple of the kernel's
-    16- and 32-step tiles, and with B and C read in place from a
-    projection's columns (the model's views)."""
+    16- and 32-step tiles, just under and over a tile and its
+    three-tile ring (float32 16 and 48 steps, bfloat16 32 and 96), at one
+    length of 4100, at channel counts that are no multiple of a CTA's 256
+    or of a 16-byte chunk (the plain-load path), with batch 3, and with B
+    and C read in place from a projection's columns (the model's
+    views)."""
 
     @staticmethod
     def _inputs(dev, B, S, di, ds, dtype, seed=0, views=False):
@@ -1036,9 +1040,16 @@ class TestSelectiveScanKernel:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("with_h0", [False, True])
     @pytest.mark.parametrize("B,S,di", [(1, 1, 32), (2, 33, 130),
-                                        (2, 100, 256), (1, 515, 384)])
-    def test_matches_plain(self, dev, ds, dtype, with_h0, B, S, di):
-        dt, xc, Bm, Cm, A = self._inputs(dev, B, S, di, ds, dtype)
+                                        (2, 100, 256), (1, 515, 384),
+                                        (1, 15, 72), (2, 17, 200),
+                                        (1, 31, 64), (2, 47, 130),
+                                        (1, 49, 96), (2, 95, 200),
+                                        (1, 97, 64), (3, 70, 192),
+                                        (1, 4100, 72)])
+    @pytest.mark.parametrize("views", [False, True])
+    def test_matches_plain(self, dev, ds, dtype, with_h0, B, S, di, views):
+        dt, xc, Bm, Cm, A = self._inputs(dev, B, S, di, ds, dtype,
+                                         views=views)
         h0 = (torch.randn(B, di, ds, device=dev) if with_h0 else None)
         y, h = ops.selective_scan(dt, xc, Bm, Cm, A, h0)
         wy, wh = ref.selective_scan(dt, xc, Bm, Cm, A, h0, chunk=None)
