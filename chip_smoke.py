@@ -206,7 +206,29 @@ and no result line is printed):
    reduced the loss, prints the paper's prediction beside the outcome;
 20. DiLoCo — ``[diloco]``: the same config, 4 pods x 4 inner steps x 6
    outer steps with Anderson(5), sync and then async with pod 0 a 3 s
-   straggler; checks the loss fell and ``anderson_mix`` launched.
+   straggler; checks the loss fell and ``anderson_mix`` launched;
+21. query-chunked training — ``[train-chunk]``: Gemma-2-2B at its
+   published widths, one sequence of 8192 tokens, ``adjusted_config``'s
+   ``attn_chunk`` 1024, AdamW at learning rate 0: a warm-up and one
+   timed step (s/step, peak), then one step with ``attn_chunk=None`` from
+   the same weights and batch (loss 1e-5, gradient leaves 1e-4, chunked peak no higher;
+   if the unchunked step runs out of memory, the finding and the same
+   checks at 4096 tokens); with the allocator's expandable segments;
+22. dry run — ``[dryrun]``: the meta-device dry run
+   (``repro_torch.launch.dryrun``) at the shapes of ``[train]``,
+   ``[train-chunk]``, ``[lm-bf16]``, ``[lm-jamba]`` and ``[lm-vl]``,
+   beside each phase's measured peak and time: the resident estimate at
+   most the peak (the ratio printed), the compute term beside the
+   measured step (``[train]``: its share of the float32 peak), the
+   traced product FLOPs beside ``model_flops``; ``[dryrun --all]``, the
+   last phase, prints ``dryrun --all`` over the reference's cell list at
+   one card (a line a cell), traced in two processes that see no card
+   beside the phases from ``[process]`` on;
+23. examples — ``[examples]``: ``repro_torch.examples`` serve_batched
+   (decode equals teacher forcing), train_lm (crash, resume, the loss
+   keeps falling), diloco_async (every run's loss falls) and quickstart
+   (Jacobi at ``QUICKSTART_GRID``, VI at the example's size; every run
+   converges) on the card, with their seconds and kernel launches.
 
 After each phase a ``[time]`` line gives its seconds and the total so
 far.  The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
@@ -226,6 +248,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -278,6 +301,25 @@ SCAN_SWEEP = [(1, 1, 32), (2, 33, 130), (2, 515, 384)]
 #: LM training main path (its shape is ``launch/train_profile.py``'s): timed
 #: steps, after one warm-up step
 TRAIN_STEPS = 4
+
+#: [train-chunk]: one sequence of this many tokens, Gemma-2-2B at its
+#: published widths with ``inputs.adjusted_config``'s ``attn_chunk``
+#: (1024 above 4096 tokens); the tokens the chunked and unchunked steps
+#: are compared at if the unchunked one runs out of memory (4 chunks)
+TRAIN_CHUNK_SEQ, TRAIN_CHUNK_FALLBACK = 8192, 4096
+
+#: [examples]: quickstart's Jacobi grid side (the example's is 50, whose
+#: whole run took 42.9 s on the card: over this phase's budget) and
+#: Garnet states (the example's)
+QUICKSTART_GRID, QUICKSTART_VI_STATES = 24, 200
+
+#: [dryrun --all]: its worker processes (two of the host's cores, beside
+#: the last phases) and its time limit (s) once those phases are done
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 2, 400
+
+#: what the phases measured, by label, for [dryrun] to hold its estimates
+#: against: peak bytes and seconds
+MEASURED = {}
 
 #: the Jacobi golden of tests/test_hotpath_goldens.py (jacobi_async_plain)
 _JACOBI_GOLDEN = (600, 0.4318607003352541,
@@ -1874,6 +1916,8 @@ def phase_lm_bf16(torch, dev):
           f"times in one prefill, expected {cfg.n_layers}")
     check(all(d == (torch.bfloat16,) * 3 for d in seen),
           f"lm-bf16: flash_attention inputs {set(seen)}, expected bfloat16")
+    MEASURED["lm-bf16"] = dict(peak=peak, s=res.prefill_s,
+                               decode_ms=res.decode_ms_per_step)
     split = _cell_prefill_split(torch, "lm-bf16", cfg, params, prompt, None)
     flash_ms = split["groups"]["flash_attention"]
     print(f"[lm-bf16] prefill {LM_BATCH} x {LM_PROMPT} tokens: "
@@ -2280,6 +2324,8 @@ def phase_lm_vl(torch, dev):
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     _check_served(torch, label, cfg, res)
+    MEASURED[label] = dict(peak=peak, s=res.prefill_s,
+                           decode_ms=res.decode_ms_per_step)
     check(launches["flash_attention"] == cfg.n_layers,
           f"{label}: flash_attention launched {launches['flash_attention']} "
           f"times in one prefill, expected {cfg.n_layers}")
@@ -2350,6 +2396,8 @@ def phase_lm_jamba(torch, dev):
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     _check_served(torch, label, cfg, res)
+    MEASURED[label] = dict(peak=peak, s=res.prefill_s,
+                           decode_ms=res.decode_ms_per_step)
     ops.reset_launch_counts()
     roles = _prefill_roles(torch, label, cfg, params, prompt, None,
                            {"self": n_attn})
@@ -2881,6 +2929,7 @@ def phase_train(torch, dev, name):
           f"train: flash_attention launched {launches['flash_attention']} "
           f"times under grad")
     s_step = sum(times) / len(times)
+    MEASURED["train"] = dict(peak=peak, s=s_step)
     flop = 8 * n * tokens  # forward, recompute, backward (2 x forward)
     fp32 = peaks(name)[2]
     print(f"[train] {TRAIN_STEPS} steps of {BATCH} x {SEQ} "
@@ -3053,6 +3102,295 @@ def phase_diloco(torch, dev):
     return total
 
 
+def phase_train_chunk(torch, dev):
+    """Gemma-2-2B at its published widths, one sequence of
+    TRAIN_CHUNK_SEQ tokens, ``adjusted_config`` (``attn_chunk`` 1024)
+    through ``make_train_step``: one warm-up step, one timed step, then,
+    from the timed step's weights and batch, one step with
+    ``attn_chunk=None``: the loss within 1e-5 and every gradient leaf
+    within 1e-4 relative (``[train-parity]``'s), at no higher peak.  The
+    steps run AdamW at learning rate 0 (its arithmetic all the same), so
+    every step starts from the same weights.  If
+    the unchunked step runs out of memory, that is printed as the finding
+    (with the dry run's bytes for it) and the same comparison, with the
+    same checks, is made at TRAIN_CHUNK_FALLBACK tokens.  The phase runs
+    with the allocator's expandable segments: the head's float32
+    logit-sized tensors (7.8 GiB each at 8192 x 256000) fragment the
+    default segments, and the chunked step ran out of memory with 63.6
+    GiB allocated and 7.4 GiB reserved but free."""
+    with expandable_segments(torch):
+        _train_chunk(torch, dev)
+
+
+@contextlib.contextmanager
+def expandable_segments(torch):
+    """The caching allocator with expandable segments inside the block
+    (its cache emptied on entry and exit)."""
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
+
+
+def _timed_step(torch, dev, step, params, state, batch):
+    """One train step timed between synchronisations, from a reset peak:
+    ``(seconds, peak bytes, metrics)``."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev),
+            m)
+
+
+def _train_chunk(torch, dev):
+    from repro_torch.launch import dryrun, inputs, lm_serve
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train_profile import ARCH
+    from repro_torch.models import make_trainable
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    label, gib = "train-chunk", 2 ** 30
+    shape = inputs.ShapeSpec(label, TRAIN_CHUNK_SEQ, 1, "train")
+    cfg = inputs.adjusted_config(lm_serve.make_config(ARCH), shape)
+    check(cfg.attn_chunk == 1024, f"{label}: attn_chunk {cfg.attn_chunk}")
+    plain = dataclasses.replace(cfg, attn_chunk=None)
+    params = lm_serve.make_params(cfg, dev, seed=0)
+    flat = make_trainable(params)
+    opt_cfg = AdamWConfig(lr=0.0, warmup_steps=1, total_steps=4)
+    state = adamw_init(flat, opt_cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=1,
+                                  seq=TRAIN_CHUNK_SEQ, seed=7))
+    warm, batch = ({"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                              device=dev)} for i in (0, 1))
+    step = make_train_step(cfg, opt_cfg, 1)
+    _, state, m = step(params, state, warm)
+    check(math.isfinite(m["loss"]), f"{label}: warm-up loss {m['loss']}")
+
+    def compare(tokens):
+        """The chunked and the unchunked step on ``tokens``: ``(chunked,
+        unchunked)``, each (s, peak, metrics), and the largest relative
+        distance of a gradient leaf."""
+        b = {"tokens": tokens}
+        chunked = _timed_step(torch, dev, step, params, state, b)
+        ran.append(chunked)
+        grad_c = flat.grad.to("cpu", copy=True)
+        unchunked = _timed_step(torch, dev, make_train_step(plain, opt_cfg, 1),
+                                params, state, b)
+        grad_rel = 0.0
+        for lf in flat.leaves:
+            want = grad_c[lf.start:lf.stop].to(dev)
+            got = flat.grad[lf.start:lf.stop]
+            grad_rel = max(grad_rel, float((got - want).abs().max()
+                                           / want.abs().max()))
+        return chunked, unchunked, grad_rel
+
+    n, oom, ran = TRAIN_CHUNK_SEQ, None, []
+    try:
+        chunked, unchunked, grad_rel = compare(batch["tokens"])
+    except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0]  # the traceback (and its tensors) go
+    if oom is not None:
+        check(ran, f"{label}: the chunked step at {n} tokens ran out of "
+              f"memory ({oom})")
+        torch.cuda.empty_cache()
+        est = dryrun.resident_bytes(plain, "train", 1, TRAIN_CHUNK_SEQ,
+                                    inputs.rules_for(plain, shape))
+        print(f"[{label}] FINDING: the unchunked step at {n} tokens ran out "
+              f"of memory ({oom}); the dry run's resident bytes for it "
+              f"{est['total'] / gib:.2f} GiB before activations; the "
+              f"chunked step took {ran[0][0]:.3f} s, max_memory_allocated "
+              f"{ran[0][1] / gib:.2f} GiB; the comparison is made at "
+              f"{TRAIN_CHUNK_FALLBACK} tokens")
+        n = TRAIN_CHUNK_FALLBACK
+        chunked, unchunked, grad_rel = compare(batch["tokens"][:, :n])
+    # [dryrun] reads the chunked step at TRAIN_CHUNK_SEQ tokens
+    MEASURED[label] = dict(peak=ran[0][1], s=ran[0][0])
+    (s_c, peak, m_c), (s_u, plain_peak, m_u) = chunked, unchunked
+    loss_rel = abs(m_u["loss"] - m_c["loss"]) / abs(m_c["loss"])
+    print(f"[{label}] {cfg.name}: 1 x {n} tokens, attn_chunk "
+          f"{cfg.attn_chunk}: {s_c:.3f} s/step, max_memory_allocated "
+          f"{peak / gib:.2f} GiB; attn_chunk None from the same weights and "
+          f"batch: {s_u:.3f} s/step, max_memory_allocated "
+          f"{plain_peak / gib:.2f} GiB; loss chunked {m_c['loss']:.6f}, "
+          f"unchunked {m_u['loss']:.6f} (rel {loss_rel:.2e}, tol 1e-5); max "
+          f"gradient leaf rel diff {grad_rel:.2e} (tol 1e-4)")
+    check(math.isfinite(m_c["loss"]), f"{label}: loss {m_c['loss']}")
+    check(loss_rel <= 1e-5, f"{label}: loss differs by {loss_rel:.3e}")
+    check(grad_rel <= 1e-4, f"{label}: a gradient differs by {grad_rel:.3e}")
+    check(peak <= plain_peak, f"{label}: chunked peak {peak} above the "
+          f"unchunked {plain_peak}")
+    del params, flat, state
+
+
+@contextlib.contextmanager
+def dryrun_all():
+    """``dryrun --all`` over the reference's cell list at one card, started
+    in the background in DRYRUN_JOBS processes (they see no card and
+    trace on the meta device) while the last phases run, none of whose
+    times a ``[dryrun]`` line reads; the process is stopped on leaving the
+    block if it still runs."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    proc.started = time.perf_counter()
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def phase_dryrun(torch):
+    """The meta-device dry run at the shapes the smoke's phases ran, beside
+    what they measured: the estimated resident bytes at most the measured
+    peak (their ratio printed), the roofline's compute term beside the
+    measured time ([train]: its share of the float32 peak), the traced
+    product FLOPs beside ``model_flops``."""
+    from repro_torch.launch import dryrun, inputs, lm_serve
+    from repro_torch.launch.train_profile import ACCUM, ARCH, BATCH, SEQ
+
+    gib = 2 ** 30
+    cells = [
+        ("train", lm_serve.make_config(ARCH),
+         inputs.ShapeSpec("train", SEQ, BATCH, "train"), ACCUM, None),
+        ("train-chunk", inputs.adjusted_config(
+            lm_serve.make_config(ARCH),
+            inputs.ShapeSpec("t", TRAIN_CHUNK_SEQ, 1, "train")),
+         inputs.ShapeSpec("train-chunk", TRAIN_CHUNK_SEQ, 1, "train"), 1,
+         None),
+        ("lm-bf16", lm_serve.make_config(LM_ARCH),
+         inputs.ShapeSpec("lm-bf16", LM_PROMPT, LM_BATCH, "prefill"), None,
+         LM_PROMPT + LM_GEN),
+        ("lm-jamba", dataclasses.replace(
+            lm_serve.make_config(LM_JAMBA), n_layers=JAMBA_LAYERS,
+            ssm_chunk=JAMBA_SSM_CHUNK),
+         inputs.ShapeSpec("lm-jamba", LM_PROMPT, LM_BATCH, "prefill"), None,
+         LM_PROMPT + LM_GEN),
+        ("lm-vl", dataclasses.replace(lm_serve.make_config(LM_VL),
+                                      n_layers=VL_LAYERS),
+         inputs.ShapeSpec("lm-vl", LM_PROMPT, LM_BATCH, "prefill"), None,
+         LM_PROMPT + LM_GEN),
+    ]
+    for label, cfg, shape, accum, max_len in cells:
+        got = MEASURED.get(label)
+        check(got is not None, f"dryrun: [{label}] measured nothing")
+        t0 = time.perf_counter()
+        rec = dryrun.dry_run(cfg, shape, accum=accum, max_len=max_len)
+        res = rec["resident_bytes"]
+        ratio = res["total"] / got["peak"]
+        parts = ", ".join(f"{k} {v / gib:.2f}" for k, v in res.items()
+                          if k != "total")
+        line = (f"[dryrun] {label}: {cfg.name} {shape.batch} x {shape.seq} "
+                f"{shape.kind}{f', accum {accum}' if accum else ''}: "
+                f"resident estimate {res['total'] / gib:.2f} GiB ({parts}) "
+                f"vs measured peak {got['peak'] / gib:.2f} GiB (ratio "
+                f"{ratio:.3f}); compute term {rec['compute_s']:.4f} s, "
+                f"memory term {rec['memory_s']:.4f} s ({rec['bottleneck']}) "
+                f"vs measured {got['s']:.4f} s")
+        if shape.kind == "train":
+            line += (f" = {100 * rec['compute_s'] / got['s']:.1f}% of the "
+                     f"float32 peak")
+        else:
+            dec = dryrun.dry_run(cfg, inputs.ShapeSpec(
+                label, max_len, shape.batch, "decode"), max_len=max_len)
+            line += (f"; a decode step: compute {dec['compute_s'] * 1e3:.3f}"
+                     f" ms, memory {dec['memory_s'] * 1e3:.3f} ms vs "
+                     f"measured {got['decode_ms']:.2f} ms")
+        line += (f"; traced product FLOPs {rec['dot_flops']:.4e} "
+                 f"({json.dumps(rec['dot_flops_by_dtype'])}) vs model_flops "
+                 f"{rec['model_flops']:.4e} (useful "
+                 f"{rec['useful_fraction']:.3f}); kernel leaves "
+                 f"{json.dumps({k: v['calls'] for k, v in rec['leaves'].items()})}"
+                 f"; traced in {time.perf_counter() - t0:.1f} s")
+        print(line)
+        check(res["total"] <= got["peak"], f"dryrun {label}: estimate "
+              f"{res['total']} above the measured peak {got['peak']}")
+
+
+def phase_dryrun_all(name, all_proc):
+    """The lines of ``dryrun --all`` (``all_proc``, from
+    :func:`dryrun_all`), one a cell, and how many fit the card."""
+    stdout, stderr = all_proc.communicate(timeout=DRYRUN_TIMEOUT)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[")]
+    for ln in lines:
+        print(f"[dryrun --all] {ln}")
+    n_ok = sum(" OK " in ln for ln in lines)
+    n_skip = sum(" SKIP " in ln for ln in lines)
+    print(f"[dryrun --all] {n_ok} cells traced, {n_skip} skipped, fitting "
+          f"one {name}: {sum('fits=True' in ln for ln in lines)}; "
+          f"read {time.perf_counter() - all_proc.started:.1f} s after its "
+          f"start in {DRYRUN_JOBS} processes")
+    check(all_proc.returncode == 0, f"dryrun --all exited "
+          f"{all_proc.returncode}: {stderr[-2000:]}")
+
+
+def phase_examples(torch, dev):
+    """The four examples whole on the card, each checking what its
+    reference checks (serve_batched: decode equals teacher forcing;
+    train_lm: the resumed run's loss keeps falling; diloco_async: every
+    run's loss falls; quickstart: every solve converges)."""
+    import tempfile
+
+    from repro_torch.examples import (diloco_async, quickstart,
+                                      serve_batched, train_lm)
+    from repro_torch.kernels import ops
+
+    def log(name):
+        return lambda text: print(f"[examples] {name}: {text}")
+
+    launches = {}
+    for name, fn in (
+            ("serve_batched", lambda: serve_batched.run(device=dev,
+                                                        log=log("serve"))),
+            ("train_lm", None),
+            ("diloco_async", lambda: diloco_async.run(device=dev,
+                                                      log=log("diloco"))),
+            ("quickstart", lambda: quickstart.run(
+                grid=QUICKSTART_GRID, vi_states=QUICKSTART_VI_STATES,
+                device=dev, log=log("quickstart")))):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name == "train_lm":
+            with tempfile.TemporaryDirectory() as d:
+                out = train_lm.run(ckpt=d, device=dev, log=log("train_lm"))
+        else:
+            out = fn()
+        wall = time.perf_counter() - t0
+        counts = {k: c for k, c in ops.launch_counts().items() if c}
+        extra = ""
+        if name == "serve_batched":
+            extra = f"teacher-forcing agreement {out['match']:.3f}, "
+        elif name == "train_lm":
+            extra = (f"resumed loss {out['losses'][0]:.3f} -> "
+                     f"{out['losses'][-1]:.3f} (falling), ")
+        elif name == "diloco_async":
+            extra = "losses " + ", ".join(
+                f"{k} {out['start'][k]:.3f} -> {r.losses[-1]:.3f}"
+                for k, r in out["runs"].items()) + ", "
+        else:
+            bad = [k for k, r in out.items() if not r.converged]
+            check(not bad, f"examples quickstart: {bad} did not converge")
+            extra = (f"grid {QUICKSTART_GRID}, {QUICKSTART_VI_STATES} "
+                     f"states, all {len(out)} runs converged, ")
+        print(f"[examples] {name}: {extra}{wall:.1f} s on the card; kernel "
+              f"launches {json.dumps(counts)}")
+        add_counts(launches, ops.launch_counts())
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -3120,15 +3458,20 @@ def main() -> int:
             ("async-dp", lambda: phase_async_dp(torch, dev)),
             ("diloco", lambda: phase_diloco(torch, dev))):
         run(label, fn)
+    run("train-chunk", lambda: phase_train_chunk(torch, dev))
+    run("dryrun", lambda: phase_dryrun(torch))
+    run("examples", lambda: phase_examples(torch, dev))
     from repro_torch.core import pool_stats, shutdown_pools
 
     try:
-        run("process", lambda: phase_process(dev))
-        run("recover process", lambda: phase_recover(dev, "process"))
-        jac, vi = jacobi_problem(dev), vi_problem(dev)
-        run("telemetry", lambda: phase_telemetry(dev, jac, vi))
-        run("autoscale", lambda: phase_autoscale(dev, vi))
-        run("serve", lambda: phase_serve(dev, jac, vi))
+        with dryrun_all() as all_proc:
+            run("process", lambda: phase_process(dev))
+            run("recover process", lambda: phase_recover(dev, "process"))
+            jac, vi = jacobi_problem(dev), vi_problem(dev)
+            run("telemetry", lambda: phase_telemetry(dev, jac, vi))
+            run("autoscale", lambda: phase_autoscale(dev, vi))
+            run("serve", lambda: phase_serve(dev, jac, vi))
+            run("dryrun --all", lambda: phase_dryrun_all(name, all_proc))
     finally:
         shutdown_pools()
     check(pool_stats() == {}, "process: pools left after shutdown_pools()")

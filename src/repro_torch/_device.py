@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["has_cuda", "default_device", "resolve_device", "to_device",
-           "to_host"]
+           "to_host", "host_float"]
 
 
 def has_cuda() -> bool:
@@ -64,3 +64,12 @@ def to_device(a, device: torch.device) -> torch.Tensor:
 def to_host(t: torch.Tensor) -> np.ndarray:
     """Tensor -> host numpy array (a device-to-host copy on CUDA)."""
     return t.detach().cpu().numpy()
+
+
+def host_float(t) -> float:
+    """``float(t)`` of a one-element tensor (a copy to the host), or nan
+    for a meta tensor, which has a shape and no value (the dry run's
+    steps run on the meta device)."""
+    if isinstance(t, torch.Tensor) and t.device.type == "meta":
+        return float("nan")
+    return float(t)

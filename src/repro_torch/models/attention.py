@@ -12,8 +12,10 @@ on the CPU.  That one call replaces the reference's ``_grouped_attn`` and
 ``_chunked_attn`` for prefill.  The kernel has no backward (nor has the
 reference's Pallas kernel), so when autograd records (training) the
 reference's training math runs instead: :func:`_grouped_attn` under the
-causal/window mask (all ones for the encoder and cross-attention), on the
-card too.  One-token decode, against the self-attention cache or the
+causal/window mask (all ones for the encoder and cross-attention), in
+query chunks where ``cfg.attn_chunk`` asks for them (:func:`_chunked_attn`),
+on the card too; without grad the flash kernel already bounds the score
+memory, so ``attn_chunk`` changes nothing there.  One-token decode, against the self-attention cache or the
 precomputed cross K/V, stays ordinary torch ops (:func:`_grouped_attn`),
 as it is jnp outside any kernel in the reference.
 
@@ -147,24 +149,57 @@ def attend(cfg: ModelConfig, params, q, k, v, *, causal: bool = True,
 
 
 def train_attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    pos_offset: int = 0) -> torch.Tensor:
     """The reference's differentiable full-sequence attention
-    (``repro.models.attention.attention`` without ``attn_chunk``):
-    :func:`_grouped_attn` under the causal and sliding-window mask."""
-    if cfg.attn_chunk is not None:
-        raise NotImplementedError(
-            "query-chunked training attention (attn_chunk) is not ported "
-            "yet: ROADMAP.md item 1.7i")
+    (``repro.models.attention.attention``): query chunks of
+    ``cfg.attn_chunk`` (:func:`_chunked_attn`) when the query length ``S``
+    exceeds it and is a multiple of it, else :func:`_grouped_attn` under
+    the whole causal and sliding-window mask.  As in the reference,
+    ``pos_offset`` shifts both the query and the key positions of the
+    whole mask (where it cancels) and only the query positions of a
+    chunk's mask."""
     S, T = q.shape[1], k.shape[1]
+    chunk = cfg.attn_chunk
+    if chunk is not None and S > chunk and S % chunk == 0:
+        return _chunked_attn(cfg, q, k, v, chunk, causal=causal,
+                             window=window, pos_offset=pos_offset)
     if causal:
-        qp = torch.arange(S, device=q.device)[:, None]
-        kp = torch.arange(T, device=q.device)[None, :]
+        qp = torch.arange(S, device=q.device)[:, None] + pos_offset
+        kp = torch.arange(T, device=q.device)[None, :] + pos_offset
         mask = qp >= kp
         if window is not None:
             mask &= qp - kp < window
     else:
         mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     return _grouped_attn(cfg, q, k, v, mask)
+
+
+def _chunked_attn(cfg: ModelConfig, q, k, v, chunk: int, *, causal: bool,
+                  window: Optional[int], pos_offset: int) -> torch.Tensor:
+    """Exact attention in query chunks: each chunk's (chunk x T) scores
+    under the causal, window and ``pos_offset`` mask through
+    :func:`_grouped_attn`, the outputs concatenated in order (the
+    reference's ``lax.scan`` as a Python loop).  In a forward pass the
+    score temporaries are bounded to one chunk's.  Under
+    :func:`~repro_torch.models.transformer.forward_train`'s per-period
+    ``torch.utils.checkpoint`` each chunk's scores are recomputed in the
+    backward pass, as the reference's are under ``jax.checkpoint``."""
+    S, T = q.shape[1], k.shape[1]
+    kp = torch.arange(T, device=q.device)[None, :]
+    rows = torch.arange(chunk, device=q.device)[:, None] + pos_offset
+    outs = []
+    for i in range(S // chunk):
+        if causal:
+            qp = rows + i * chunk
+            mask = qp >= kp
+            if window is not None:
+                mask &= qp - kp < window
+        else:
+            mask = torch.ones((chunk, T), dtype=torch.bool, device=q.device)
+        outs.append(_grouped_attn(cfg, q[:, i * chunk:(i + 1) * chunk],
+                                  k, v, mask))
+    return torch.cat(outs, dim=1)
 
 
 def attention(

@@ -53,11 +53,13 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelConfig, Sublayer as SublayerKind
 from . import attention as attn_mod
+from . import layers as layers_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .attention import KVCache
-from .common import FlatParams, ParamTree, leaves, materialize, stack_specs
+from .common import (FlatParams, ParamTree, leaves, materialize, stack_specs,
+                     tree_map)
 from .layers import (
     embed,
     embed_spec,
@@ -71,9 +73,10 @@ from .layers import (
 
 __all__ = ["check_ported", "sublayer_spec", "model_spec", "Sublayer",
            "Encoder", "DecoderLM", "CrossCache", "layer_kinds",
-           "init_params", "init_caches", "make_trainable",
+           "init_params", "abstract_params", "init_caches",
+           "abstract_caches", "make_trainable",
            "apply_sublayer_full", "apply_sublayer_decode", "forward_train",
-           "lm_loss", "prefill", "decode_step"]
+           "lm_loss", "prefill", "decode_step", "clear_host_tables"]
 
 _MIXERS = ("attn", "local", "mamba", "mlstm", "slstm")
 _FFNS = ("mlp", "moe", "none")
@@ -246,6 +249,29 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return DecoderLM(cfg, emb, layers, final, encoder)
 
 
+def abstract_params(cfg: ModelConfig, dtype=None) -> DecoderLM:
+    """:func:`init_params`' model on the meta device: every parameter's
+    shape and dtype (``cfg.param_dtype`` unless ``dtype``), no storage
+    (the dry run's parameters; the reference's ``abstract_params``)."""
+    check_ported(cfg)
+    dt = dtype or getattr(torch, cfg.param_dtype)
+
+    def mk(tree):
+        return tree_map(lambda s: torch.empty(s.shape, dtype=dt,
+                                              device="meta"), tree)
+
+    cross = cfg.kind == "encdec"
+    encoder = None
+    if cross:
+        encoder = ([mk(sublayer_spec(cfg, ENC_SUBLAYER))
+                    for _ in range(cfg.n_enc_layers)],
+                   mk(rmsnorm_spec(cfg.d_model)))
+    return DecoderLM(cfg, mk(embed_spec(cfg)),
+                     [mk(sublayer_spec(cfg, sub, cross))
+                      for sub in layer_kinds(cfg)],
+                     mk(rmsnorm_spec(cfg.d_model)), encoder)
+
+
 def _param_at(tree, path: Sequence[str]) -> nn.Parameter:
     for k in path:
         tree = tree[k]
@@ -319,6 +345,20 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     if cfg.kind == "encdec":
         caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, 1, None,
                                                     dtype, device))
+                  for c in caches]
+    return caches
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    enc_len: int = 1) -> List[Cache]:
+    """:func:`init_caches`' caches on the meta device (no storage); an
+    encoder-decoder's cross K/V hold ``enc_len`` positions."""
+    meta = torch.device("meta")
+    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, meta)
+              for mixer, _ in layer_kinds(cfg)]
+    if cfg.kind == "encdec":
+        caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, enc_len,
+                                                    None, dtype, meta))
                   for c in caches]
     return caches
 
@@ -456,6 +496,16 @@ def _prefill_kv_cache(cfg, k, v, window, max_len, dtype) -> KVCache:
 # --------------------------------------------------------------------- #
 # Full model passes
 # --------------------------------------------------------------------- #
+def clear_host_tables() -> None:
+    """Empty the caches of host-made tables (RoPE frequencies, M-RoPE
+    sections, sinusoids), so that the next step makes them again, as a
+    fresh process's first step does (the dry run counts their making in
+    every trace)."""
+    for fn in (layers_mod._rope_freqs_on, layers_mod._section_ids,
+               _sinusoid_on, _sinusoid_denom_on):
+        fn.cache_clear()
+
+
 @functools.lru_cache(maxsize=8)
 def _sinusoid_on(S: int, d: int, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:

@@ -27,6 +27,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .._device import host_float
 from ..models.common import FlatParams
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "lr_schedule",
@@ -128,5 +129,5 @@ def adamw_update(grads: torch.Tensor, state: AdamWState, params: FlatParams,
         p32.sub_(lr * delta)
         m[s:e] = m32
         v[s:e] = v32
-    metrics = {"grad_norm": float(gnorm), "lr": lr}
+    metrics = {"grad_norm": host_float(gnorm), "lr": lr}
     return params, AdamWState(step, m, v), metrics

@@ -80,6 +80,43 @@ def test_every_submodule_is_importable_here():
             "repro_torch.launch.async_dp_lm"} <= set(names)
 
 
+#: the launch tools and examples, imported with jax and repro blocked
+LAUNCH_MODULES = (
+    "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+    "repro_torch.launch.inputs", "repro_torch.launch.roofline",
+    "repro_torch.launch.opstats", "repro_torch.launch.dryrun",
+    "repro_torch.examples.quickstart", "repro_torch.examples.serve_batched",
+    "repro_torch.examples.train_lm", "repro_torch.examples.diloco_async")
+
+_BLOCKED = r"""
+import importlib, sys
+
+
+class Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print("IMPORTED", len(sys.argv) - 1)
+"""
+
+
+def test_launch_tools_and_examples_import_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED, *LAUNCH_MODULES],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == str(len(LAUNCH_MODULES))
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert set(LAUNCH_MODULES) <= names
+
+
 class TestDevices:
     def test_default_device_raises_without_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -235,13 +235,23 @@ class TestForwardAndLoss:
             lm_loss(tcfg, model, toks)
         assert len(calls) == tcfg.n_layers
 
-    def test_attn_chunk_is_refused_under_grad(self):
+    def test_attn_chunk_matches_reference_under_grad(self):
+        """Query-chunked training attention under grad gives the
+        reference's chunked loss and gradient."""
         jcfg, tcfg = _cfgs("gemma_2b")
+        jcfg = dataclasses.replace(jcfg, attn_chunk=8)
         tcfg = dataclasses.replace(tcfg, attn_chunk=8)
-        model = _port(tcfg, _ref_params(jcfg))
-        with pytest.raises(NotImplementedError, match="1.7i"):
-            lm_loss(tcfg, model, {"tokens": torch.as_tensor(
-                _tokens(tcfg, 1, 16))})
+        jparams = _ref_params(jcfg)
+        model = _port(tcfg, jparams)
+        toks = _tokens(tcfg, 1, 16)
+        (jl, _), jg = jax.value_and_grad(
+            lambda p: j_lm_loss(jcfg, p, {"tokens": jnp.asarray(toks)}),
+            has_aux=True)(jparams)
+        loss, _ = lm_loss(tcfg, model, {"tokens": torch.as_tensor(toks)})
+        loss.backward()
+        assert _rel(float(loss), float(jl)) <= 1e-4
+        assert _rel(model.flat.grad.numpy(),
+                    np.asarray(ravel_pytree(jg)[0])) <= 1e-4
 
     def test_training_attention_is_the_reference_math(self, monkeypatch):
         """Under grad the stack never reaches the flash wrapper; without
