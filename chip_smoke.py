@@ -92,7 +92,7 @@ and no result line is printed):
    them); ``[lm-xlstm]`` (xLSTM-125M, 12 layers [m, m, m, s], bfloat16):
    no flash launch, finite logits, prefill and decode times, peak memory
    and the sLSTM loops' share of the prefill.  Then ``[lm-moe-parity]``
-   (Qwen1.5-MoE widths at depth 2, vocab 32768, prompt 4 x 256, 8 decode
+   (Qwen1.5-MoE widths at depth 1, vocab 32768, prompt 4 x 256, 8 decode
    steps teacher-forced on the CPU's tokens; float32 to 1e-4, bfloat16 to
    ``LM_BF16_PARITY_TOL``; the card takes the CPU's experts where its
    top-k set differs, each such flip a near-tie on the CPU, ``MOE_TIE``)
@@ -131,8 +131,8 @@ and no result line is printed):
    parameter count, prefill and decode times, peak memory and a traced
    prefill's split by kernel group (``selective_scan`` among them).
    After ``[lm-vl-parity]``, ``[lm-jamba-parity]``: (a) Jamba's widths at
-   depth 1 (its (mamba, mlp) layer), vocab 32768, prompt 2 x 512,
-   ``ssm_chunk`` 128, float32 to 1e-4 and bfloat16 to
+   depth 1 (its (mamba, mlp) layer), vocab 32768, prompt 2 x 256,
+   ``ssm_chunk`` 64, float32 to 1e-4 and bfloat16 to
    ``LM_BF16_PARITY_TOL``; (b) the reduced full period (every sublayer
    kind) in float32 to 1e-4, 7 ``selective_scan`` launches a prefill;
 10. process backend — the Jacobi g = 2048 and SCF main paths on
@@ -228,7 +228,23 @@ and no result line is printed):
    (decode equals teacher forcing), train_lm (crash, resume, the loss
    keeps falling), diloco_async (every run's loss falls) and quickstart
    (Jacobi at ``QUICKSTART_GRID``, VI at the example's size; every run
-   converges) on the card, with their seconds and kernel launches.
+   converges) on the card, with their seconds and kernel launches;
+24. sharding — ``[shard]``: the band-sharded Jacobi sweep with 2 and 4
+   bands on the one card at the Jacobi worker block (512 x 2048) and the
+   whole grid (2048 x 2048), 10 sweeps, equal byte for byte to the
+   one-band kernel (norms within 1e-12), its launches (bands x 10 a call)
+   and ms a call beside the one-band call's; on a one-rank ``nccl``
+   group, ``moe_ffn_a2a`` at Qwen1.5-MoE-A2.7B's layer widths on 2 x 8192
+   bfloat16 tokens (capacity factor ``SHARD_MOE_CF``: nothing dropped)
+   against ``moe_ffn(dropless=True)``, bit-equal, and a
+   (1, 1)-mesh train step against the one-rank step at
+   ``[train-parity]``'s size and tolerances; then two processes on the
+   card over ``gloo`` (which takes CUDA tensors) run the (1, 2) mesh's
+   all-to-all at the same widths (float32, ``SHARD_GLOO_TOKENS``), its
+   output and token and router gradients against the one-rank dropless
+   layer within 1e-4, and the (2, 1) mesh's ZeRO train step (the
+   reduce-scatter, chunked AdamW and all-gather) against the one-rank
+   step on the whole batch within 1e-5.
 
 After each phase a ``[time]`` line gives its seconds and the total so
 far.  The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
@@ -2514,7 +2530,7 @@ def phase_lm_vl_parity(torch, dev):
 
 def phase_lm_jamba_parity(torch, dev):
     """(a) Jamba-1.5-Large's widths at depth 1 (its (mamba, mlp) layer),
-    vocab cut to 32768, prompt 2 x 512, ``ssm_chunk`` 128 (the CPU's scan
+    vocab cut to 32768, prompt 2 x 256, ``ssm_chunk`` 64 (the CPU's scan
     in 4 chunks), 8 decode steps: float32 to 1e-4, bfloat16 to
     ``LM_BF16_PARITY_TOL`` (``phase_lm_cell_parity``); one
     ``selective_scan`` launch a card prefill.  (b) The reduced full period
@@ -2528,11 +2544,11 @@ def phase_lm_jamba_parity(torch, dev):
 
     label = "lm-jamba-parity"
     cfg = dataclasses.replace(get_config(LM_JAMBA), n_layers=1,
-                              vocab_size=32768, ssm_chunk=128)
+                              vocab_size=32768, ssm_chunk=64)
     print(f"[{label}] (a) {cfg.name} widths, depth 1 {cfg.remainder}, vocab "
-          f"32768, prompt 2 x 512, ssm_chunk 128")
+          f"32768, prompt 2 x 256, ssm_chunk 64")
     ops.reset_launch_counts()
-    phase_lm_cell_parity(torch, dev, label, cfg, 2, 512, 8,
+    phase_lm_cell_parity(torch, dev, label, cfg, 2, 256, 8,
                          lambda c, dt: ({}, None))
     got = ops.launch_counts()["selective_scan"]
     check(got == 2, f"{label} (a): selective_scan launched {got} times in "
@@ -2594,9 +2610,10 @@ MOE_TIE = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def phase_lm_moe_parity(torch, dev):
-    """Qwen1.5-MoE widths at depth 2 (all 64 experts; capacity factor
+    """Qwen1.5-MoE widths at depth 1 (all 64 experts; capacity factor
     1.25, so experts overflow), vocab cut to 32768, prompt 4 x 256, 8
-    decode steps: the card against the CPU on the same weights, in
+    decode steps: the card against the CPU on the same weights (drawn on
+    the card and copied: the CPU's draw took most of the phase), in
     float32 (tol 1e-4) and bfloat16 (``LM_BF16_PARITY_TOL``), the decode
     teacher-forced on the CPU's tokens.  Routing near-ties may flip
     between the devices, and a flip at one token moves its row and, by
@@ -2606,11 +2623,13 @@ def phase_lm_moe_parity(torch, dev):
     (k+1)-th probability below ``MOE_TIE``), and the logits of every row
     are then held.  Prints the flips, their largest gap and the rows
     without one."""
+    import copy
+
     from repro_torch.configs import get_config
     from repro_torch.launch import lm_serve
     from repro_torch.models import init_params, moe
 
-    cfg = dataclasses.replace(get_config(LM_MOE[0][1]), n_layers=2,
+    cfg = dataclasses.replace(get_config(LM_MOE[0][1]), n_layers=1,
                               vocab_size=32768)
     k, cpu = cfg.moe.top_k, torch.device("cpu")
     B, S, steps = 4, 256, 8
@@ -2619,8 +2638,10 @@ def phase_lm_moe_parity(torch, dev):
     for dtype, tol in ((torch.float32, 1e-4),
                        (torch.bfloat16, LM_BF16_PARITY_TOL)):
         name = str(dtype).replace("torch.", "")
-        params = init_params(cfg, torch.Generator().manual_seed(1),
-                             dtype=dtype, device=cpu)
+        on_card = init_params(cfg,
+                              torch.Generator(device=dev).manual_seed(1),
+                              dtype=dtype, device=dev)
+        params = copy.deepcopy(on_card).to(cpu)
         rec = []
 
         def record(cfg_, p, xt):
@@ -2664,7 +2685,7 @@ def phase_lm_moe_parity(torch, dev):
 
         moe.route = force
         try:
-            got, _ = _forced_run(torch, cfg, params.to(dev), prompt.to(dev),
+            got, _ = _forced_run(torch, cfg, on_card, prompt.to(dev),
                                  steps, forced=fed)
         finally:
             moe.route = real
@@ -2673,7 +2694,7 @@ def phase_lm_moe_parity(torch, dev):
         rel = _rel_max(got, want)
         same = all(torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1))
                    for g, w in zip(got, want))
-        print(f"[lm-moe-parity] {name}: depth 2, 64 experts, vocab 32768, "
+        print(f"[lm-moe-parity] {name}: depth 1, 64 experts, vocab 32768, "
               f"prompt {B} x {S}, {steps} teacher-forced decode steps: "
               f"logits max|delta|/max|ref| {rel:.3e} (tol {tol:g}); "
               f"routing flips {flips} (largest CPU gap "
@@ -2683,7 +2704,7 @@ def phase_lm_moe_parity(torch, dev):
               f"(CPU run {cpu_s:.1f} s)")
         check(rel <= tol, f"lm-moe-parity {name}: logits differ by "
               f"{rel:.3e}")
-        del params
+        del params, on_card
         torch.cuda.empty_cache()
 
 
@@ -3391,6 +3412,350 @@ def phase_examples(torch, dev):
     return launches
 
 
+#: [shard]: the band counts, and the blocks (rows, grid side) of the
+#: band-sharded sweep: a four-worker block of the Jacobi main path and
+#: the whole grid
+SHARD_BANDS = (2, 4)
+SHARD_BLOCKS = ((JACOBI_GRID // 4, JACOBI_GRID), (JACOBI_GRID, JACOBI_GRID))
+#: the all-to-all's capacity factor at Qwen1.5-MoE's widths: on one rank
+#: cap = T * k * cf slots and C2 = cap * cf / E per expert (4096 at
+#: 2 x 8192 tokens, 3.75x the mean load), so nothing is dropped and the
+#: layer is the dropless one's
+SHARD_MOE_CF = 2.0
+#: the two-process gloo run's tokens (batch, sequence) for the all-to-all
+SHARD_GLOO_TOKENS = (2, 64)
+#: its ZeRO train step: the widths, the global batch and the steps
+SHARD_GLOO_STEP_WIDTHS = dict(n_layers=2, d_model=64, d_ff=128,
+                              vocab_size=256, n_heads=4, n_kv_heads=4,
+                              head_dim=16)
+SHARD_GLOO_STEP_TOKENS = (8, 32)
+SHARD_GLOO_STEPS = 5
+
+
+def _shard_moe_cfg():
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_MOE[0][1])
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=SHARD_MOE_CF))
+
+
+def _shard_moe_inputs(torch, dev, dtype, tokens):
+    """The MoE layer's weights and input, drawn on ``dev`` from a seed."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import materialize
+
+    cfg = _shard_moe_cfg()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = materialize(moe.moe_spec(cfg), gen, device=dev, dtype=dtype)
+    x = torch.randn(*tokens, cfg.d_model, generator=gen, device=dev,
+                    dtype=dtype)
+    return cfg, params, x
+
+
+def _shard_bands(torch, dev):
+    """The band-sharded sweep against the one-band kernel; the launches of
+    one banded call a case."""
+    from repro_torch.distributed.sharding import band_sharded_jacobi_sweeps
+    from repro_torch.kernels import ops
+    from repro_torch.launch.kernel_bench import time_ms
+
+    total = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    kw = dict(dtype=torch.float64, device=dev)
+    for rows, g in SHARD_BLOCKS:
+        blk, bg = (torch.randn(rows, g, generator=gen, **kw)
+                   for _ in range(2))
+        # the whole grid's halos are its zero Dirichlet rows
+        top, bot = ((torch.zeros(g, **kw) for _ in range(2)) if rows == g
+                    else (torch.randn(g, generator=gen, **kw)
+                          for _ in range(2)))
+        want, wnorm = ops.jacobi_halo_sweeps(blk, top, bot, bg, sweeps=10)
+        wnorm = float(wnorm)
+        one_ms = time_ms(torch, lambda: ops.jacobi_halo_sweeps(
+            blk, top, bot, bg, sweeps=10))
+        for n in SHARD_BANDS:
+            devices = [dev] * n
+            ops.reset_launch_counts()
+            got, norm = band_sharded_jacobi_sweeps(blk, top, bot, bg,
+                                                   sweeps=10, devices=devices)
+            counts = ops.launch_counts()
+            add_counts(total, counts)
+            rel = abs(norm - wnorm) / wnorm
+            ms = time_ms(torch, lambda: band_sharded_jacobi_sweeps(
+                blk, top, bot, bg, sweeps=10, devices=devices))
+            same = torch.equal(got, want)
+            print(f"[shard] band jacobi ({rows}, {g}) float64, 10 sweeps, "
+                  f"{n} bands on {dev}: bytes equal to the one-band kernel "
+                  f"{same}; norm rel diff {rel:.1e} (tol 1e-12); "
+                  f"jacobi_halo_sweeps launches {counts['jacobi_halo_sweeps']}"
+                  f" (bands x 10); {ms:.4f} ms a call against the one-band "
+                  f"call's {one_ms:.4f} ms ({ms / one_ms:.2f}x)")
+            check(same, f"shard: {n} bands at ({rows}, {g}) differ from the "
+                  f"one-band kernel")
+            check(rel <= 1e-12, f"shard: band norm differs by {rel:.1e}")
+            check(counts["jacobi_halo_sweeps"] == 10 * n
+                  and sum(counts.values()) == 10 * n,
+                  f"shard: launches {counts}, expected {10 * n} halo sweeps")
+        del blk, bg, want, got
+    return total
+
+
+@contextlib.contextmanager
+def _one_rank_group(backend):
+    """A one-rank default process group (a file store in a temporary
+    directory), destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.distributed import ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks.init(0, 1, os.path.join(tmp, "store"), backend)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _shard_moe(torch, dev):
+    """moe_ffn_a2a on a one-rank nccl mesh at Qwen1.5-MoE's widths against
+    moe_ffn(dropless=True)."""
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.launch.kernel_bench import time_ms
+    from repro_torch.models import moe
+    from repro_torch.models.moe_shard_map import moe_ffn_a2a
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg, params, x = _shard_moe_inputs(torch, dev, torch.bfloat16,
+                                       (LM_BATCH, LM_PROMPT))
+    with torch.no_grad():
+        out, aux = moe_ffn_a2a(cfg, params, x, mesh)
+        want, _ = moe.moe_ffn(cfg, params, x, dropless=True)
+        a2a_ms = time_ms(torch, lambda: moe_ffn_a2a(cfg, params, x, mesh),
+                         reps=5, warmup=1)
+        plain_ms = time_ms(torch, lambda: moe.moe_ffn(cfg, params, x,
+                                                      dropless=True),
+                           reps=5, warmup=1)
+    rel = float((out.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    dropped = int(aux["moe_dropped"])
+    m = cfg.moe
+    print(f"[shard] moe_ffn_a2a on a one-rank nccl mesh (1, 1): "
+          f"{m.n_experts} experts padded to {m.padded_experts}, top-"
+          f"{m.top_k}, {m.n_shared} shared, d {cfg.d_model}, "
+          f"{LM_BATCH} x {LM_PROMPT} bfloat16 tokens, capacity factor "
+          f"{SHARD_MOE_CF:g}: dropped {dropped}; max|delta|/max|ref| against"
+          f" moe_ffn(dropless=True) {rel:.3e} (tol 0: one rank's exchange "
+          f"is the identity and the experts see the same rows); "
+          f"{a2a_ms:.2f} ms a call against the dropless layer's "
+          f"{plain_ms:.2f} ms")
+    check(dropped == 0, f"shard: the all-to-all dropped {dropped}")
+    check(rel == 0.0, f"shard: a2a differs by {rel:.3e}")
+    del params, x, out, want
+    torch.cuda.empty_cache()
+
+
+def _shard_step(torch, dev):
+    """A (1, 1)-mesh train step against the one-rank step, at
+    [train-parity]'s size, from the same weights and batches."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, make_trainable
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2, window=128,
+                              vocab_size=32768)
+    base = init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                       dtype=torch.float32, device=dev)
+    models = {"one": base, "mesh": copy.deepcopy(base)}
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+    states = {k: adamw_init(make_trainable(v), opt_cfg)
+              for k, v in models.items()}
+    step_fns = {"one": make_train_step(cfg, opt_cfg, 1),
+                "mesh": make_train_step(cfg, opt_cfg, 1, mesh=mesh)}
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                  seq=256, seed=11))
+    for i in range(2):
+        batch = {"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                           device=dev)}
+        metrics, secs = {}, {}
+        for k in ("one", "mesh"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models[k], states[k], metrics[k] = step_fns[k](
+                models[k], states[k], batch)
+            torch.cuda.synchronize()
+            secs[k] = time.perf_counter() - t0
+        fo, fm = models["one"].flat, models["mesh"].flat
+        loss_rel = (abs(metrics["mesh"]["loss"] - metrics["one"]["loss"])
+                    / abs(metrics["one"]["loss"]))
+        grad_rel = max(
+            float((fm.grad[lf.start:lf.stop] - fo.grad[lf.start:lf.stop])
+                  .abs().max() / fo.grad[lf.start:lf.stop].abs().max())
+            for lf in fm.leaves)
+        lr = metrics["one"]["lr"]
+        p_diff = float((fm.theta - fo.theta).abs().max())
+        print(f"[shard] (1, 1)-mesh nccl train step {i} ({cfg.name} widths, "
+              f"depth 2, vocab 32768, 2 x 256 tokens): loss {metrics['mesh']['loss']:.6f}"
+              f" against the one-rank step's {metrics['one']['loss']:.6f} "
+              f"(rel {loss_rel:.2e}, tol 1e-4); max gradient leaf rel diff "
+              f"{grad_rel:.2e} (tol 1e-4); max |param diff| {p_diff:.2e} "
+              f"(lr / 10 = {lr / 10:.2e}); seconds mesh {secs['mesh']:.3f},"
+              f" one rank {secs['one']:.3f}")
+        check(loss_rel <= 1e-4, f"shard: step loss differs by {loss_rel}")
+        check(grad_rel <= 1e-4, f"shard: a gradient differs by {grad_rel}")
+        check(p_diff <= lr / 10, f"shard: θ differs by {p_diff:.3e}")
+    del models, states, base
+    torch.cuda.empty_cache()
+
+
+def _shard_gloo_step(torch, dev, mesh):
+    """[shard]'s ZeRO step on the (world, 1) mesh against the one-rank
+    step on the whole batch, in this process: per step the loss's
+    relative difference, and after the first the largest |difference| of
+    this rank's gradient chunk and of θ."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (Sharding, local_slice,
+                                                  local_tree)
+    from repro_torch.launch.steps import (make_train_step, opt_shardings,
+                                          shard_range)
+    from repro_torch.models import init_params, make_trainable
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    cfg = get_config(LM_ARCH).reduced(**SHARD_GLOO_STEP_WIDTHS)
+    opt_cfg = AdamWConfig()
+    one = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                      dtype=torch.float32, device=dev)
+    mine = copy.deepcopy(one)
+    fo, fm = make_trainable(one), make_trainable(mine)
+    st_one = adamw_init(fo, opt_cfg)
+    st_mine = local_tree(adamw_init(fm, opt_cfg), opt_shardings(mesh))
+    tokens = torch.randint(0, cfg.vocab_size, SHARD_GLOO_STEP_TOKENS,
+                           generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    piece = local_slice(tokens, Sharding(mesh, ("data",)))
+    step_one = make_train_step(cfg, opt_cfg, 1)
+    step_mine = make_train_step(cfg, opt_cfg, 1, mesh=mesh)
+    lo, hi = shard_range(fm.n, mesh.shape["data"], mesh.coord("data"))
+    res = {"loss_rel": [], "losses": []}
+    for i in range(SHARD_GLOO_STEPS):
+        one, st_one, m_one = step_one(one, st_one, {"tokens": tokens})
+        mine, st_mine, m_mine = step_mine(mine, st_mine, {"tokens": piece})
+        res["losses"].append(m_mine["loss"])
+        res["loss_rel"].append(abs(m_mine["loss"] - m_one["loss"])
+                               / abs(m_one["loss"]))
+        if i == 0:
+            res["grad_diff"] = float((fm.grad[lo:hi] - fo.grad[lo:hi])
+                                     .abs().max())
+            res["theta_diff"] = float((fm.theta - fo.theta).abs().max())
+    return res
+
+
+def _shard_gloo_rank(rank, world, out_dir, device):
+    """One of the processes of [shard]'s gloo run on ``device``: the
+    (1, world) mesh's all-to-all, its output and router and token
+    gradients, and the (world, 1) mesh's ZeRO train step against the
+    one-rank step, saved for the parent."""
+    import torch
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.models.moe_shard_map import moe_ffn_a2a
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg, params, x = _shard_moe_inputs(torch, dev, torch.float32,
+                                       SHARD_GLOO_TOKENS)
+    params["router"].requires_grad_(True)
+    x.requires_grad_(True)
+    out, aux = moe_ffn_a2a(cfg, params, x, mesh)
+    (out ** 2).sum().backward()
+    step = _shard_gloo_step(torch, dev, make_mesh((world, 1),
+                                                  ("data", "model")))
+    torch.save({"out": out.detach().cpu(), "x": x.grad.cpu(),
+                "router": params["router"].grad.cpu(),
+                "dropped": int(aux["moe_dropped"]), "step": step},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _shard_gloo(torch, dev):
+    """Two processes on the card over gloo run the (1, 2) mesh; their
+    output and gradients against the one-rank dropless layer."""
+    import tempfile
+
+    from repro_torch.distributed import ranks
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks.run("chip_smoke:_shard_gloo_rank", 2, args=[tmp, str(dev)],
+                  path=[str(ROOT)], timeout=180)
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(2)]
+    run_s = time.perf_counter() - t0
+    cfg, params, x = _shard_moe_inputs(torch, dev, torch.float32,
+                                       SHARD_GLOO_TOKENS)
+    params["router"].requires_grad_(True)
+    x.requires_grad_(True)
+    want, _ = moe.moe_ffn(cfg, params, x, dropless=True)
+    (want ** 2).sum().backward()
+    rels = {}
+    for name, ref in (("out", want), ("x", x.grad),
+                      ("router", params["router"].grad)):
+        ref = ref.detach().cpu()
+        rels[name] = max(float((g[name] - ref).abs().max()
+                               / ref.abs().max()) for g in got)
+    print(f"[shard] gloo, 2 processes on {dev}, mesh (1, 2): "
+          f"moe_ffn_a2a at {cfg.name}'s widths, "
+          f"{SHARD_GLOO_TOKENS[0]} x {SHARD_GLOO_TOKENS[1]} float32 tokens: "
+          f"dropped {got[0]['dropped']}; max|delta|/max|ref| against the "
+          f"one-rank moe_ffn(dropless=True): output {rels['out']:.2e}, "
+          f"token gradient {rels['x']:.2e}, router gradient "
+          f"{rels['router']:.2e} (tol 1e-4), the collectives on CUDA "
+          f"tensors; {run_s:.1f} s for the two processes")
+    check(all(g["dropped"] == 0 for g in got), "shard: gloo run dropped")
+    check(max(rels.values()) <= 1e-4, f"shard: gloo run differs {rels}")
+    steps = [g["step"] for g in got]
+    loss_rel = max(max(st["loss_rel"]) for st in steps)
+    grad_diff = max(st["grad_diff"] for st in steps)
+    theta_diff = max(st["theta_diff"] for st in steps)
+    losses = steps[0]["losses"]
+    print(f"[shard] gloo, 2 processes on {dev}, mesh (2, 1): ZeRO train "
+          f"step ({LM_ARCH} reduced to {SHARD_GLOO_STEP_WIDTHS}, "
+          f"{SHARD_GLOO_STEP_TOKENS[0]} x {SHARD_GLOO_STEP_TOKENS[1]} "
+          f"tokens, float32; reduce-scatter, chunked AdamW, all-gather on "
+          f"CUDA tensors) against the one-rank step on the whole batch: "
+          f"max loss rel diff over {SHARD_GLOO_STEPS} steps {loss_rel:.2e}, "
+          f"first step's max |gradient chunk diff| {grad_diff:.2e} and "
+          f"max |θ diff| {theta_diff:.2e} (tol 1e-5 each); losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}")
+    check(loss_rel <= 1e-5, f"shard: ZeRO step loss differs by {loss_rel}")
+    check(grad_diff <= 1e-5, f"shard: ZeRO gradient differs by {grad_diff}")
+    check(theta_diff <= 1e-5, f"shard: ZeRO θ differs by {theta_diff}")
+    check(losses[-1] < losses[0], f"shard: ZeRO loss did not fall {losses}")
+    del params, x, want
+    torch.cuda.empty_cache()
+
+
+def phase_shard(torch, dev):
+    """[shard]: band-sharded Jacobi, the expert-parallel all-to-all and a
+    sharded train step on one card; returns the band path's launches."""
+    counts = _shard_bands(torch, dev)
+    with _one_rank_group("nccl"):
+        _shard_moe(torch, dev)
+        _shard_step(torch, dev)
+    _shard_gloo(torch, dev)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -3461,6 +3826,7 @@ def main() -> int:
     run("train-chunk", lambda: phase_train_chunk(torch, dev))
     run("dryrun", lambda: phase_dryrun(torch))
     run("examples", lambda: phase_examples(torch, dev))
+    run("shard", lambda: phase_shard(torch, dev))
     from repro_torch.core import pool_stats, shutdown_pools
 
     try:

@@ -1,3 +1,4 @@
-"""Sharding rules of the port (the rule tables and their resolution
-against a mesh's axis sizes; the collectives wait for ROADMAP.md item
-1.6)."""
+"""Distribution: sharding rules, meshes of ranks and placements
+(:mod:`.sharding`), differentiable collectives (:mod:`.collectives`), the
+band-sharded Jacobi sweep (:mod:`.sharding`) and a launcher of ranks
+(:mod:`.ranks`)."""

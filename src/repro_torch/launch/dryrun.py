@@ -34,8 +34,9 @@ period and time step instead (slow: it shows what the scaling saves).
 ``--jobs N`` traces ``--all``'s cells in N processes (CPU only).  Variants that
 change only sharding rules are accepted and do nothing on one rank (the
 record says so); ``chunk512`` and ``chunk2048`` change ``attn_chunk``
-and so the traced train step.  Multi-device meshes and per-rank
-partitioning wait for ROADMAP.md item 1.6: ``--multi-pod`` raises.
+and so the traced train step.  The dry run traces one rank: per-rank
+bytes on a mesh and the collectives' bytes are ROADMAP.md item 1.6a, so
+``--multi-pod`` raises.
 """
 
 from __future__ import annotations
@@ -105,8 +106,8 @@ def apply_variant(cfg: ModelConfig, rules: Rules, variant: str
             return cfg, rules, None, "no MoE layer: no effect"
         moe = dataclasses.replace(cfg.moe, a2a=True)
         return (dataclasses.replace(cfg, moe=moe), rules, None,
-                "all-to-all dispatch needs a mesh (ROADMAP.md item 1.6): "
-                "one rank runs moe_ffn")
+                "all-to-all dispatch needs a mesh of ranks; the one-rank "
+                "trace runs moe_ffn (ROADMAP.md item 1.6a)")
     if variant in RULE_EDITS:
         rules.update(RULE_EDITS[variant])
         return cfg, rules, None, one_rank
@@ -417,8 +418,8 @@ def run_cell(arch: str, shape_name: str, variant: str = "baseline",
     """One (arch x shape) cell of the reference's list at one card."""
     if multi_pod:
         raise NotImplementedError(
-            "the multi-pod mesh needs sharded steps across cards: ROADMAP.md "
-            "item 1.6")
+            "the multi-pod mesh needs the multi-rank dry run: ROADMAP.md "
+            "item 1.6a")
     shape = inp.SHAPES[shape_name]
     cfg0 = get_config(arch)
     rec = {"arch": arch, "shape": shape_name, "mesh": str(ONE_CARD),
@@ -485,7 +486,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None, choices=ARCH_IDS)
     ap.add_argument("--shape", default=None, choices=list(inp.SHAPES))
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: raises (ROADMAP.md item 1.6)")
+                    help="not ported: raises (ROADMAP.md item 1.6a)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--unscaled", action="store_true",
@@ -498,8 +499,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.multi_pod:
         raise NotImplementedError(
-            "--multi-pod: the (2, 16, 16) mesh needs sharded steps across "
-            "cards, ROADMAP.md item 1.6")
+            "--multi-pod: the (2, 16, 16) mesh needs the multi-rank dry "
+            "run, ROADMAP.md item 1.6a")
     if not args.all and not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
     cells = (list(cell_list()) if args.all

@@ -1,10 +1,12 @@
 """Production mesh shapes and the H100's data-sheet constants.
 
 Counterpart of ``repro.launch.mesh``.  The reference builds JAX meshes of
-host devices; here a mesh is its axis names and sizes
+host devices.  Here the production shapes are axis names and sizes
 (:class:`~repro_torch.distributed.sharding.MeshShape`), which is all the
-dry run's cell list, rule resolution and byte counts read.  Placing
-tensors on a mesh of cards waits for ROADMAP.md item 1.6.  Shapes:
+dry run's cell list, rule resolution and byte counts read;
+:func:`make_mesh` builds a mesh of ``torch.distributed`` ranks (a
+:class:`~repro_torch.distributed.sharding.Mesh`, which is also a
+``MeshShape``) over an initialised process group.  Shapes:
 
   single-pod:  (16, 16)    -> ("data", "model")        256 devices
   multi-pod :  (2, 16, 16) -> ("pod", "data", "model") 512 devices
@@ -13,9 +15,10 @@ tensors on a mesh of cards waits for ROADMAP.md item 1.6.  Shapes:
 
 from __future__ import annotations
 
-from ..distributed.sharding import MeshShape
+from ..distributed.sharding import MeshShape, make_mesh
 
-__all__ = ["make_production_mesh", "make_debug_mesh", "PEAK_FLOPS_BF16",
+__all__ = ["make_production_mesh", "make_debug_mesh", "make_mesh",
+           "PEAK_FLOPS_BF16",
            "PEAK_FLOPS_F32", "HBM_BW", "HBM_PER_DEVICE", "NVLINK_BW"]
 
 

@@ -13,7 +13,7 @@ otherwise):
     ``2 * prod(out) * prod(contract)`` FLOPs, by the output's dtype;
   * every op that is not a view counts its operand and output bytes (in
     eager these are the traffic of the op, not a fusion-level proxy);
-  * the collectives' dicts stay empty: one rank (ROADMAP.md item 1.6).
+  * the collectives' dicts stay empty: one rank (ROADMAP.md item 1.6a).
 
 Each entry point of :mod:`repro_torch.kernels.ops` is one leaf: the
 wrapper is replaced for the trace by a function that counts the work of

@@ -12,9 +12,9 @@ cell, in seconds, per device:
 
 The FLOPs come from :mod:`repro_torch.launch.opstats` (the counterpart of
 the reference's ``hloparse``).  The reference also parses the collectives
-of a compiled SPMD program (``collective_stats``); the port runs one rank
-until ROADMAP.md item 1.6, so that parser has no counterpart yet and the
-collective term is 0.
+of a compiled SPMD program (``collective_stats``); the port's dry run
+traces one rank until ROADMAP.md item 1.6a, so that parser has no
+counterpart yet and the collective term is 0.
 
 MODEL_FLOPS uses the 6ND convention (+ logits matmul term), with MoE
 parameters scaled by top_k / n_experts (active fraction).

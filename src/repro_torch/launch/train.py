@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.launch.train`` with the same flags, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
-path, for tests).  The production-mesh AOT check waits for ROADMAP.md
-items 1.6 and 1.7g.
+path, for tests).  The production-mesh check is the multi-rank dry run,
+ROADMAP.md item 1.6a.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b \\
       --reduced --steps 50 --ckpt /tmp/ckpt [--device cpu]

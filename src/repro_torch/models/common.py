@@ -8,8 +8,12 @@ reference's random draws come from ``jax.random`` and differ from these;
 tests that compare the two packages carry the reference's arrays over
 with :func:`repro_torch.convert.lm_params_from_arrays` instead.
 
-There are no mesh rules here: the reference's ``shard`` is a no-op
-outside a mesh, and sharding waits for the multi-card item of ROADMAP.md.
+:func:`use_mesh` activates a mesh of ranks for the calls under it and
+:func:`current_mesh` reads it (the MoE layers take the expert-parallel
+all-to-all under a mesh with a ``"model"`` axis).  The reference's
+``axis_rules`` also activates a rule table for its ``shard`` activation
+constraints, which have no counterpart: a rank computes on its own local
+tensors, so no layer reads a rule.
 :class:`ParamTree` holds a materialized tree as an ``nn.Module`` whose
 ``tree["key"]`` access matches the reference's parameter dicts, so the
 layer functions read either.
@@ -23,6 +27,8 @@ optimizer state are flat vectors in the reference's order.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -33,9 +39,28 @@ from torch import nn
 from .._device import to_device
 
 __all__ = ["ParamSpec", "ParamTree", "FlatLeaf", "FlatParams", "leaves",
-           "materialize", "stack_specs", "tree_map"]
+           "materialize", "stack_specs", "tree_map", "use_mesh",
+           "current_mesh"]
 
 Axes = Tuple[Optional[str], ...]
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Activate a mesh of ranks (a ``distributed.sharding.Mesh``; None is
+    one rank) for this thread's calls under it."""
+    prev = current_mesh()
+    _ctx.mesh = mesh
+    try:
+        yield
+    finally:
+        _ctx.mesh = prev
+
+
+def current_mesh():
+    return getattr(_ctx, "mesh", None)
 
 
 @dataclass(frozen=True)

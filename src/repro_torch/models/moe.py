@@ -22,8 +22,8 @@ the experts the batch picked only: the other experts' rows are padding and
 contribute exactly 0, so the function is the same while at most ``T * k``
 experts' weights are read (all ``E`` in the reference).
 
-The expert-parallel all-to-all (``repro.models.moe_shard_map``) needs a
-device mesh and waits for ROADMAP.md item 1.6; ``cfg.moe.a2a`` without a
+The expert-parallel all-to-all is :mod:`repro_torch.models.moe_shard_map`
+(taken under a mesh with a ``"model"`` axis); ``cfg.moe.a2a`` without a
 mesh runs :func:`moe_ffn`, as in the reference.
 """
 

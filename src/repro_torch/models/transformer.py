@@ -58,8 +58,8 @@ from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .attention import KVCache
-from .common import (FlatParams, ParamTree, leaves, materialize, stack_specs,
-                     tree_map)
+from .common import (FlatParams, ParamTree, current_mesh, leaves, materialize,
+                     stack_specs, tree_map)
 from .layers import (
     embed,
     embed_spec,
@@ -369,15 +369,27 @@ def abstract_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def _apply_ffn(cfg, params, sub, x, aux: Optional[Dict], decode=False):
     """The FFN sublayer.  MoE layers add their auxiliary losses to
     ``aux`` (None: not computed) and decode dropless, as the reference
-    does.  ``cfg.moe.a2a`` needs a device mesh (ROADMAP.md item 1.6);
-    without one the reference runs ``moe_ffn`` too."""
+    does.  With ``cfg.moe.a2a`` under a mesh with a ``"model"`` axis
+    (:func:`~repro_torch.models.common.use_mesh`) a MoE layer outside
+    decode takes the expert-parallel all-to-all
+    (:mod:`~repro_torch.models.moe_shard_map`); without one the reference
+    runs ``moe_ffn`` too."""
     ffn = sub[1]
     if ffn == "none":
         return x, aux
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if ffn == "moe":
-        out, a = moe_mod.moe_ffn(cfg, params["ffn"], h, dropless=decode,
-                                 losses=aux is not None)
+        mesh = current_mesh()
+        if (cfg.moe.a2a and mesh is not None and "model" in mesh.shape
+                and not decode):
+            from .moe_shard_map import moe_ffn_a2a
+
+            data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+            out, a = moe_ffn_a2a(cfg, params["ffn"], h, mesh,
+                                 data_axes=data_axes)
+        else:
+            out, a = moe_mod.moe_ffn(cfg, params["ffn"], h, dropless=decode,
+                                     losses=aux is not None)
         if aux is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     else:

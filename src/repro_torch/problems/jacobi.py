@@ -17,6 +17,12 @@ The block update keeps the reference's neighbour order
 ``((up + down) + left) + right``, and ``backend`` picks the full map's
 order as the reference's argument of that name does, so both maps equal
 the JAX package's bit for bit.
+
+On hosts with several cards the device plane's block is band-sharded
+over them (:func:`~repro_torch.distributed.sharding.band_sharded_jacobi_sweeps`,
+taken where :func:`~repro_torch.distributed.sharding.band_devices` gives
+a list), with the same bytes, as the reference's device plan does.  The
+host-path ``block_update`` stays on the one fused call.
 """
 
 from __future__ import annotations
@@ -29,10 +35,22 @@ import torch.nn.functional as F
 
 from .._device import resolve_device, to_device, to_host
 from ..core.fixedpoint import DeviceBlockPlan, FixedPointProblem, restrict
+from ..distributed import sharding
 from ..kernels import ops
 from ..kernels.ref import JACOBI_ORDERS, oracle_jacobi_halo_sweeps
 
 __all__ = ["JacobiProblem"]
+
+
+def _halo_sweeps(blk, top, bot, bg, sweeps: int, device):
+    """The device plan's ``ops.jacobi_halo_sweeps`` of a whole-rows block,
+    band-sharded over the local cards where there are several:
+    ``(new, norm)``."""
+    devices = sharding.band_devices(blk.shape[0], device)
+    if devices is None:
+        return ops.jacobi_halo_sweeps(blk, top, bot, bg, sweeps=sweeps)
+    return sharding.band_sharded_jacobi_sweeps(blk, top, bot, bg,
+                                               sweeps=sweeps, devices=devices)
 
 
 def _apply_A(x: torch.Tensor, g: int) -> torch.Tensor:
@@ -78,8 +96,8 @@ class _JacobiDevicePlan(DeviceBlockPlan):
         bot = (to_device(next(halos), self._device) if self._r1 < self._g
                else self._zeros)
         if self._mode == "kernel":
-            new, norm = ops.jacobi_halo_sweeps(self._blk, top, bot, self._bg,
-                                               sweeps=self._sweeps)
+            new, norm = _halo_sweeps(self._blk, top, bot, self._bg,
+                                     self._sweeps, self._device)
         else:
             new_np, norm = oracle_jacobi_halo_sweeps(
                 to_host(self._blk), to_host(top), to_host(bot),

@@ -13,8 +13,11 @@ restores in the other.
 Trees are nested dicts, tuples, lists and NamedTuples whose leaves are
 tensors, numpy arrays or Python numbers.  :func:`restore` returns the
 template's structure with each leaf a tensor (on a tensor template
-leaf's device and in its dtype).  Restoring onto another layout
-(``shardings=``) waits for ROADMAP.md item 1.6.
+leaf's device and in its dtype).  With ``shardings`` (a matching tree of
+:class:`~repro_torch.distributed.sharding.Sharding` leaves) each rank
+gets its own piece of every leaf: the file holds whole leaves, so a
+checkpoint saved on any layout (either package's, one rank's or a
+gathered sharded run's) restores onto any other (elastic resume).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
         items = [(f, getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, (tuple, list)):
         items = [(str(i), v) for i, v in enumerate(tree)]
-    else:
+    else:  # a leaf (a Sharding is a dataclass, not a tuple)
         return [(_SEP.join(prefix), tree)]
     out = []
     for k, v in items:
@@ -135,19 +138,31 @@ def latest_step(directory: str) -> Optional[int]:
 
 def _like(arr: torch.Tensor, tmpl):
     if isinstance(tmpl, torch.Tensor):
-        return arr.to(device=tmpl.device, dtype=tmpl.dtype)
+        device = tmpl.device if tmpl.device.type != "meta" else None
+        return arr.to(device=device, dtype=tmpl.dtype)
     return arr
 
 
 def restore(directory: str, template, step: Optional[int] = None,
             shardings=None) -> Tuple[Any, int, Dict]:
     """Restore into ``template``'s structure, every leaf a tensor (on a
-    tensor template leaf's device, in its dtype).  Returns ``(tree, step,
-    extra)``."""
+    tensor template leaf's device, the CPU for a meta one, in its dtype).
+    ``shardings`` gives each leaf this rank's piece under its
+    :class:`~repro_torch.distributed.sharding.Sharding`; the template
+    holds whole shapes.  Returns ``(tree, step, extra)``."""
+    cuts = [None] * len(_flatten(template))
     if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a sharded layout is not ported yet: ROADMAP.md "
-            "item 1.6")
+        from ..distributed.sharding import Mesh, Sharding, local_slice
+
+        cuts = [s for _, s in _flatten(shardings)]
+        if len(cuts) != len(_flatten(template)) or not all(
+                isinstance(s, Sharding) for s in cuts):
+            raise ValueError("shardings must be a tree of Sharding leaves "
+                             "matching the template")
+        if not all(isinstance(s.mesh, Mesh) for s in cuts):
+            raise ValueError("a sharded restore places leaves on a mesh of "
+                             "ranks (distributed.sharding.make_mesh), not "
+                             "on a mesh shape")
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -160,13 +175,16 @@ def restore(directory: str, template, step: Optional[int] = None,
         if missing:
             raise ValueError(f"checkpoint missing keys: {missing[:5]} ...")
         leaves = []
-        for key, tmpl in flat:
+        for (key, tmpl), cut in zip(flat, cuts):
             arr = _from_store(data[key], manifest["dtypes"][key],
                               manifest["shapes"][key])
-            if tuple(arr.shape) != tuple(np.shape(tmpl)):
-                raise ValueError(
-                    f"shape mismatch for {key}: ckpt {tuple(arr.shape)} vs "
-                    f"template {tuple(np.shape(tmpl))}")
+            want = tuple(tmpl.shape if hasattr(tmpl, "shape")
+                         else np.shape(tmpl))
+            if tuple(arr.shape) != want:
+                raise ValueError(f"shape mismatch for {key}: ckpt "
+                                 f"{tuple(arr.shape)} vs template {want}")
+            if cut is not None:
+                arr = local_slice(arr, cut).contiguous()
             leaves.append(_like(arr, tmpl))
     return _unflatten(template, iter(leaves)), step, manifest["extra"]
 

@@ -89,25 +89,37 @@ def global_norm(grads: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(grads, dtype=f32)
 
 
-def _chunks(params: FlatParams):
-    """(start, stop, decay) pieces of at most ``_CHUNK`` elements, each
-    inside one leaf."""
+def _chunks(params: FlatParams, lo: int, hi: int):
+    """(start, stop, decay) pieces of ``[lo, hi)`` of at most ``_CHUNK``
+    elements, each inside one leaf."""
     for leaf in params.leaves:
         decay = len(leaf.shape) >= 2  # the reference's leaf rank
-        for s in range(leaf.start, leaf.stop, _CHUNK):
-            yield s, min(s + _CHUNK, leaf.stop), decay
+        a, b = max(leaf.start, lo), min(leaf.stop, hi)
+        for s in range(a, b, _CHUNK):
+            yield s, min(s + _CHUNK, b), decay
 
 
 @torch.no_grad()
 def adamw_update(grads: torch.Tensor, state: AdamWState, params: FlatParams,
-                 cfg: AdamWConfig
+                 cfg: AdamWConfig, *, lo: int = 0, group=None
                  ) -> Tuple[FlatParams, AdamWState, Dict[str, float]]:
     """One AdamW step on ``params.theta`` and the moments, in place.
     ``grads`` is a flat gradient (float32, or ``state_dtype`` when it was
     accumulated there).  Returns ``(params, new_state, metrics)`` with
-    ``grad_norm`` and ``lr``, as the reference does."""
+    ``grad_norm`` and ``lr``, as the reference does.
+
+    A sharded step (ZeRO over the flat buffer) passes one rank's chunk:
+    ``grads``, ``state.m`` and ``state.v`` then cover ``theta[lo:lo +
+    len(grads)]`` only, and the gradient's global norm sums the squares
+    of every chunk over the process group ``group``."""
     step = state.step + 1
     gnorm = global_norm(grads)
+    if group is not None:
+        import torch.distributed as dist
+
+        sq = gnorm.square()
+        dist.all_reduce(sq, group=group)
+        gnorm = sq.sqrt()
     scale = None
     if cfg.grad_clip is not None:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -116,18 +128,18 @@ def adamw_update(grads: torch.Tensor, state: AdamWState, params: FlatParams,
     bc1 = float(1 - b1 ** _f32(step))
     bc2 = float(1 - b2 ** _f32(step))
     theta, m, v = params.theta, state.m, state.v
-    for s, e, decay in _chunks(params):
-        g = grads[s:e].to(f32)
+    for s, e, decay in _chunks(params, lo, lo + grads.numel()):
+        g = grads[s - lo:e - lo].to(f32)
         if scale is not None:
             g = g * scale
-        m32 = b1 * m[s:e].to(f32) + (1 - b1) * g
-        v32 = b2 * v[s:e].to(f32) + (1 - b2) * g.square()
+        m32 = b1 * m[s - lo:e - lo].to(f32) + (1 - b1) * g
+        v32 = b2 * v[s - lo:e - lo].to(f32) + (1 - b2) * g.square()
         delta = (m32 / bc1) / ((v32 / bc2).sqrt() + cfg.eps)
         p32 = theta[s:e]
         if cfg.weight_decay and decay:  # no decay on norms/bias
             delta = delta + cfg.weight_decay * p32
         p32.sub_(lr * delta)
-        m[s:e] = m32
-        v[s:e] = v32
+        m[s - lo:e - lo] = m32
+        v[s - lo:e - lo] = v32
     metrics = {"grad_norm": host_float(gnorm), "lr": lr}
     return params, AdamWState(step, m, v), metrics

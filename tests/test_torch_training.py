@@ -491,8 +491,18 @@ class TestCheckpoints:
             assert np.array_equal(got, getattr(state, name).float().numpy())
 
     def test_sharded_restore_is_refused(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="1.6"):
-            ckpt.restore(str(tmp_path), {}, shardings={})
+        """Refused: shardings that do not match the template, and leaves
+        placed on a mesh shape without ranks.  (Sharded restores onto 2
+        and 8 ranks: tests/test_torch_distributed.py.)"""
+        from repro_torch.distributed.sharding import MeshShape, Sharding
+
+        ckpt.save(str(tmp_path), 1, {"x": torch.zeros(4)})
+        with pytest.raises(ValueError, match="matching the template"):
+            ckpt.restore(str(tmp_path), {"x": torch.zeros(4)}, shardings={})
+        shard = Sharding(MeshShape(("data",), (2,)), ("data",))
+        with pytest.raises(ValueError, match="mesh of ranks"):
+            ckpt.restore(str(tmp_path), {"x": torch.zeros(4)},
+                         shardings={"x": shard})
 
     def test_manager_keeps_the_last_k(self, tmp_path):
         mgr = ckpt.CheckpointManager(str(tmp_path), keep=2)
