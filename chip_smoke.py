@@ -149,8 +149,9 @@ and no result line is printed):
    scenario forces); prints walls, preemptions, joins, reassigned blocks,
    partial commits, discards and the residual, and checks the kernels of
    those host paths launched;
-12. recover — ``[recover]``: the Jacobi main path with
-   ``checkpoint_every=50`` into a temporary directory (removed after),
+12. recover — ``[recover]``: the Jacobi main path at ``SIDE_UPDATES``
+   updates with ``checkpoint_every=RECOVER_EVERY`` into a temporary
+   directory (removed after),
    once through, then with a scripted ``coordinator_crash`` half-way
    through that run's wall, and ``resume_fixed_point`` to the end; prints
    bytes and seconds per checkpoint write, load and restore seconds and
@@ -244,7 +245,31 @@ and no result line is printed):
    output and token and router gradients against the one-rank dropless
    layer within 1e-4, and the (2, 1) mesh's ZeRO train step (the
    reduce-scatter, chunked AdamW and all-gather) against the one-rank
-   step on the whole batch within 1e-5.
+   step on the whole batch within 1e-5;
+25. tensor parallelism — ``[tp]``: two processes on the card over
+   ``gloo`` at mesh (1, 2) run Gemma-2-2B's serve path through
+   ``build_prefill``/``build_decode`` on each rank's slices (26 layers,
+   bfloat16, weights drawn on the card, a 2 x 8192 prefill and
+   ``TP_DECODE`` teacher-forced decode steps), against the one-rank run
+   of the same weights: 26 flash launches a prefill at a rank's heads,
+   seconds a prefill and peak memory a process (the card's name and
+   power limit beside them), the bytes the collectives moved in one
+   prefill equal to the dry run's count for the same cell, and the
+   logits no further from the float32 run of the same weights than
+   ``TP_EXACT_FACTOR`` times the one-rank bfloat16 run's; the same at
+   depth 2 in bfloat16 (3e-2 of the one-rank run) and float32 (1e-4);
+   and a (1, 2) train step at ``[train-parity]``'s size against the
+   one-rank step (loss and every gradient leaf, put together from the two
+   slices, within 1e-4; the loss falls over ``TP_TRAIN_STEPS`` steps).
+   NCCL with two ranks is not run: it refuses two ranks on one card;
+26. multi-rank dry run — ``[dryrun-mesh]``: ``DRYRUN_MESH_CELLS`` at
+   16x16 and 2x16x16, traced in a process that sees no card beside
+   ``[tp]``: both byte counts, the collectives and the three terms.
+
+To fit a 900 s time limit on one H100, the runs that repeat a main path under
+another feature take ``SIDE_UPDATES`` updates (200 before ``[tp]`` was
+added) and ``[jacobi]``'s one-worker comparison ``JACOBI_1W_UPDATES``
+(20 before).
 
 After each phase a ``[time]`` line gives its seconds and the total so
 far.  The ``{"kernels": [...]}`` line carries, per kernel, the launches counted
@@ -337,6 +362,9 @@ DRYRUN_JOBS, DRYRUN_TIMEOUT = 2, 400
 #: against: peak bytes and seconds
 MEASURED = {}
 
+#: the card's name and power limit as ``nvidia-smi`` gives them (phase 1)
+CARD = "card not read"
+
 #: the Jacobi golden of tests/test_hotpath_goldens.py (jacobi_async_plain)
 _JACOBI_GOLDEN = (600, 0.4318607003352541,
                   "af8fd221f9b65b94b6d21a5e5dcc7dbef42cf475a86dd05ad8e08d5b43b1bfc9")
@@ -352,7 +380,9 @@ def phase_device(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     name = torch.cuda.get_device_name(0)
     print(f"[device] torch.cuda.get_device_name(0) = {name}; "
           f"count = {torch.cuda.device_count()}; torch {torch.__version__}, "
@@ -833,10 +863,23 @@ def flash_row(torch, dev, record, bound, err_of, peaks_fp):
             torch, label, q, k, v, bound, bf16, window=win, mask=mask)
     del q, k, v
     torch.cuda.empty_cache()
+    # [tp]'s per-rank shape: the heads of one of TP_MESH's "model" ranks
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import local_heads
+
+    heads = local_heads(get_config(LM_ARCH), TP_MESH[1])
+    q = torch.randn(B, S, heads[0], hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn(B, S, heads[1], hd, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    for label, win in (("local", window), ("global", None)):
+        out[f"bf16_tp_{label}"] = flash_bf16_layer(
+            torch, f"tp rank {label}", q, k, v, bound, bf16, window=win,
+            mask=mask, heads=heads)
+    del q, k, v
+    torch.cuda.empty_cache()
     # The MoE configs' prefill attention (both have 16 heads of 128, no GQA,
     # no window, no softcap): q/k/v (2, 8192, 16, 128), causal.
-    from repro_torch.configs import get_config
-
     moe_arch = LM_MOE[0][1]
     mcfg = get_config(moe_arch)
     mshape = (B, S, mcfg.n_heads, mcfg.hd)
@@ -948,9 +991,10 @@ def _by_kv_group(fn, q, k, v):
 
 
 def flash_bf16_layer(torch, label, q, k, v, bound, peak, arch=LM_ARCH,
-                     causal=True, window=None, mask=None):
+                     causal=True, window=None, mask=None, heads=None):
     """The bfloat16 tensor-core kernel at one prefill attention layer of
-    ``arch`` (its heads and softcap): q (B, Sq), k/v (B, Skv), ``causal``,
+    ``arch`` (its heads, or ``heads``, a tensor-parallel rank's (q, KV)
+    heads, and its softcap): q (B, Sq), k/v (B, Skv), ``causal``,
     ``window`` and, for SDPA, the window's boolean ``mask``.  The kernel
     rounds P to bfloat16 before P V (as FlashAttention-2/3 do), so its
     elements are not held to the float32 answer's 2e-5: the max and the
@@ -972,7 +1016,8 @@ def flash_bf16_layer(torch, label, q, k, v, bound, peak, arch=LM_ARCH,
     cfg = get_config(arch)
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
-    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (nq, nkv, hd),
+    check((*(heads or (cfg.n_heads, cfg.n_kv_heads)), cfg.hd)
+          == (nq, nkv, hd),
           f"flash_attention bf16 {label}: q/k/v are not {cfg.name}'s heads")
     cap = cfg.attn_softcap
     kw = dict(causal=causal, window=window, softcap=cap)
@@ -1097,6 +1142,20 @@ def run_path(label, problem, cfg, run=None):
     return res, launches, r0
 
 
+#: max_updates of the Jacobi and SCF runs that repeat the main path under
+#: another feature ([process]'s Jacobi and SCF, [chaos]'s, [telemetry]'s
+#: and [serve]'s Jacobi; VI keeps 200: its residual need not fall in 100)
+#: and of [recover]'s runs (checkpoints every RECOVER_EVERY): half the
+#: main path's 200, so that the whole smoke with [tp] fits a 900 s time
+#: limit (they ran 200 before [tp] was added, [recover] with checkpoints
+#: every 50)
+SIDE_UPDATES, RECOVER_EVERY = 100, 25
+#: [jacobi]'s one-worker runs, through the kernels and through the numpy
+#: oracle (20 before [tp] was added: the oracle run took 32 s on an H100
+#: host)
+JACOBI_1W_UPDATES = 8
+
+
 def main_cfg(**kw):
     from repro_torch import AndersonConfig, FaultProfile, RunConfig
 
@@ -1134,14 +1193,14 @@ def phase_jacobi(dev):
         check(launches[k] > 0, f"jacobi: {k} was never launched")
     check(res.device_dispatches > 0, "jacobi: the device plane never ran")
     # One worker through the kernels against one through the numpy oracle.
-    one = dict(n_workers=1, faults=None, max_updates=20)
+    one = dict(n_workers=1, faults=None, max_updates=JACOBI_1W_UPDATES)
     rk = run_path("jacobi-1w-kernel", prob, main_cfg(**one))[0]
     rr = run_path("jacobi-1w-ref", prob, main_cfg(device_plane="ref",
                                                   **one))[0]
     rel = float(np.max(np.abs(rk.x - rr.x)) / np.max(np.abs(rr.x)))
     print(f"[jacobi-1w] kernel vs numpy-oracle iterate rel diff {rel:.3e} "
           f"(tol 1e-12)")
-    check(rk.worker_updates == rr.worker_updates == 20,
+    check(rk.worker_updates == rr.worker_updates == JACOBI_1W_UPDATES,
           "jacobi-1w: update counts differ")
     check(rel <= 1e-12, f"jacobi-1w: iterates differ by {rel:.3e}")
     return launches
@@ -1239,8 +1298,11 @@ def phase_process(dev):
     from repro_torch.core import pool_stats
 
     launches = {}
-    for label, make, cfg in (("jacobi", jacobi_problem, main_cfg),
-                             ("scf", scf_problem, scf_cfg)):
+    for label, make, cfg in (
+            ("jacobi", jacobi_problem,
+             lambda **kw: main_cfg(max_updates=SIDE_UPDATES, **kw)),
+            ("scf", scf_problem,
+             lambda **kw: scf_cfg(max_updates=SIDE_UPDATES, **kw))):
         res, got, _ = run_path(f"process-{label}", make(dev),
                                cfg(executor="process"))
         for k, c in got.items():
@@ -1291,18 +1353,20 @@ def phase_chaos(dev):
     from repro_torch.chaos import get_scenario
 
     launches = {}
-    for label, make, name, kernels in (
+    for label, make, name, kernels, upd in (
             ("jacobi", jacobi_problem, "spot_wave",
-             ("jacobi_halo_sweeps", "jacobi_sweep", "anderson_mix")),
+             ("jacobi_halo_sweeps", "jacobi_sweep", "anderson_mix"),
+             SIDE_UPDATES),
             ("vi", vi_problem, "rolling_restart", ("bellman",
-                                                  "anderson_mix"))):
+                                                  "anderson_mix"), 200)):
         prob = make(dev)
-        plane = run_path(f"chaos-{label}-none", prob, main_cfg())[0]
+        plane = run_path(f"chaos-{label}-none", prob,
+                         main_cfg(max_updates=upd))[0]
         host = run_path(f"chaos-{label}-none-host", prob,
-                        main_cfg(device_plane="off"))[0]
+                        main_cfg(device_plane="off", max_updates=upd))[0]
         scn = get_scenario(name, 4)
         res, got, r0 = run_path(f"chaos-{label}", prob,
-                                main_cfg(scenario=scn))
+                                main_cfg(scenario=scn, max_updates=upd))
         for k, c in got.items():
             launches[k] = launches.get(k, 0) + c
         print(f"[chaos] {label} under {name} (last event at "
@@ -1337,8 +1401,8 @@ def phase_chaos(dev):
 
 
 def phase_recover(dev, executor):
-    """[recover]: the Jacobi main path with checkpoints every 50 updates,
-    once through, then killed by a scripted ``coordinator_crash`` half-way
+    """[recover]: the Jacobi main path at ``SIDE_UPDATES`` updates with
+    checkpoints every ``RECOVER_EVERY``, once through, then killed by a scripted ``coordinator_crash`` half-way
     through that run's wall and resumed from the latest checkpoint.  The
     checkpoint writes and the restore are timed by wrapping
     ``repro_torch.recover.checkpoint``'s two functions for the phase."""
@@ -1378,14 +1442,14 @@ def phase_recover(dev, executor):
     checkpoint.restore_coordinator = timed_restore
     try:
         pids0 = pool_pids()
-        cfg = main_cfg(executor=executor, checkpoint_every=50,
-                       checkpoint_dir=dirs[0])
+        cfg = main_cfg(executor=executor, checkpoint_every=RECOVER_EVERY,
+                       checkpoint_dir=dirs[0], max_updates=SIDE_UPDATES)
         full, got, r0 = run_path(f"{tag}-through", prob, cfg)
         for k, c in got.items():
             launches[k] = launches.get(k, 0) + c
         sizes = [ckpt_bytes(p) for p in list_checkpoints(dirs[0])]
         print(f"[recover] {executor}: uninterrupted run with checkpoints "
-              f"every 50 updates: wall {full.wall_time:.3f} s, "
+              f"every {RECOVER_EVERY} updates: wall {full.wall_time:.3f} s, "
               f"{full.checkpoints_written} checkpoints of {sizes} bytes, "
               f"write seconds {[round(w, 4) for w in writes]}")
         check(full.checkpoints_written == 4 and len(sizes) == 4,
@@ -1393,8 +1457,8 @@ def phase_recover(dev, executor):
         n_writes = len(writes)
         shutil.rmtree(dirs[0])
         crash_at = full.wall_time / 2
-        cfg = main_cfg(executor=executor, checkpoint_every=50,
-                       checkpoint_dir=dirs[1],
+        cfg = main_cfg(executor=executor, checkpoint_every=RECOVER_EVERY,
+                       checkpoint_dir=dirs[1], max_updates=SIDE_UPDATES,
                        scenario=FaultScenario("crash").coordinator_crash(
                            crash_at))
         ops.reset_launch_counts()
@@ -1424,7 +1488,7 @@ def phase_recover(dev, executor):
         spawned = len(pool_pids() - pids1)
         since_fire = ck.loop["since_fire"]
         want_fires = (ck.meta["accel"]["n_fire"]
-                      + (since_fire + 200 - ck.wu) // 4)
+                      + (since_fire + SIDE_UPDATES - ck.wu) // 4)
         hist = [tuple(h) for h in ck.meta["history"]]
         print(f"[recover] {executor}: crash at {crash_at:.3f} s, resumed "
               f"from {ck.tag} (wu {ck.wu}, t {ck.t:.3f} s, "
@@ -1437,7 +1501,8 @@ def phase_recover(dev, executor):
               f"{res.accel_fires} (expected {want_fires}), updates "
               f"{res.worker_updates}, interpreters spawned on resume "
               f"{spawned}")
-        check(res.resumed_from == ck.tag and res.worker_updates == 200,
+        check(res.resumed_from == ck.tag
+              and res.worker_updates == SIDE_UPDATES,
               f"recover {executor}: resumed run ended at wu "
               f"{res.worker_updates}")
         check(res.history[:len(hist)] == hist,
@@ -1605,11 +1670,13 @@ def phase_telemetry(dev, jac, vi):
     from repro_torch.telemetry.export import trace_lanes
 
     launches = {}
-    off, got, _ = run_path("telemetry-jacobi-off", jac, main_cfg())
+    off, got, _ = run_path("telemetry-jacobi-off", jac,
+                           main_cfg(max_updates=SIDE_UPDATES))
     add_counts(launches, got)
     with local_norms() as norms:
         on, got, _ = run_path("telemetry-jacobi-on", jac,
-                              main_cfg(telemetry=True))
+                              main_cfg(telemetry=True,
+                                       max_updates=SIDE_UPDATES))
     add_counts(launches, got)
     summ, cap = on.telemetry_summary, on.telemetry
     fires = summ["fires"]
@@ -1738,7 +1805,9 @@ def phase_serve(dev, jac, vi):
     t0 = time.perf_counter()
     with SolverService(ServiceConfig(max_active=2, weights={"a": 2, "b": 1},
                                      telemetry=True)) as svc:
-        tickets = [svc.submit(probs[k], main_cfg(), tenant="ab"[i % 2])
+        tickets = [svc.submit(probs[k], main_cfg(**(
+                       {"max_updates": SIDE_UPDATES} if k == "jacobi" else {})),
+                              tenant="ab"[i % 2])
                    for i, k in enumerate(kinds)]
         results = [checked(f"#{i}", k, tk)
                    for i, (k, tk) in enumerate(zip(kinds, tickets))]
@@ -3745,6 +3814,345 @@ def _shard_gloo(torch, dev):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# [tp]: tensor parallelism along "model"; [dryrun-mesh]
+# --------------------------------------------------------------------- #
+#: [tp]: the (data, model) mesh of its gloo processes on the one card,
+#: the decode steps after the prefill, the float32 run's depth, the train
+#: steps and the run's time limit (s)
+TP_MESH, TP_DECODE, TP_TRAIN_STEPS = (1, 2), 8, 5
+TP_TIMEOUT = 300
+#: [tp]'s serve runs: (label, weights' dtype, depth (None: the config's),
+#: limit of the logits' max|delta|/max|ref| against the one-rank run of
+#: the same weights).  At depth 2 bfloat16 is held to
+#: [lm-bf16-parity]'s 3e-2.  At the full depth no such limit holds
+#: between two bfloat16 runs that sum in another order: the one-rank run
+#: itself lies 9.2e-2 from the float32 answer there (NVIDIA H100 80GB
+#: HBM3, 700 W; the (1, 2) run 4.1e-2 from it), so the (1, 2) run is held
+#: to that answer instead (``TP_EXACT_FACTOR``).
+TP_SERVE = (("bf16", "bfloat16", None, None),
+            ("bf16 depth 2", "bfloat16", 2, 3e-2),
+            ("f32 depth 2", "float32", 2, 1e-4))
+#: the full-depth bfloat16 run's limit: its max|delta|/max|ref| from the
+#: float32 run of the same weights (upcast, one rank) at most this many
+#: times the one-rank bfloat16 run's
+TP_EXACT_FACTOR = 1.25
+#: the train step's limit: loss (relative) and gradient leaves
+#: (max|delta|/max|ref| per leaf)
+TP_TRAIN_TOL = 1e-4
+
+#: [dryrun-mesh]: (arch, shape, mesh) cells of the multi-rank dry run
+DRYRUN_MESH_CELLS = [(arch, shape, mesh) for mesh in ("16x16", "2x16x16")
+                     for arch, shape in (("gemma2_2b", "train_4k"),
+                                         ("qwen2_moe_a2p7b", "prefill_32k"),
+                                         ("gemma3_4b", "long_500k"))]
+
+
+def _tp_logits(torch, cfg, params, tokens, nxt, max_len):
+    """One rank's prefill and teacher-forced decode logits (float32)."""
+    from repro_torch.models import transformer as tf
+
+    S = tokens.shape[1]
+    with torch.no_grad():
+        logits, caches = tf.prefill(cfg, params, {"tokens": tokens},
+                                    max_len=max_len,
+                                    cache_dtype=torch.bfloat16)
+        out = [logits.float()]
+        for t in range(TP_DECODE):
+            logits, caches = tf.decode_step(cfg, params, caches, nxt[t], S + t)
+            out.append(logits.float())
+    return out
+
+
+def _tp_serve(torch, dev, mesh, cfg, dtype, exact=False):
+    """One rank of [tp]'s serve run: the one-rank prefill and
+    teacher-forced decode of the whole weights (drawn on the card), then
+    the same through ``build_prefill``/``build_decode`` on this rank's
+    slices; the flash launches, their shapes and the collectives of one
+    prefill, its seconds and the process's peak memory.  With ``exact``
+    "model" rank 0 also runs the weights upcast to float32: how far each
+    run lies from the float32 answer."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import BASE_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import inputs, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import use_mesh
+
+    B, S = LM_BATCH, LM_PROMPT
+    max_len = S + TP_DECODE
+    whole = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    nxt = torch.randint(0, cfg.vocab_size, (TP_DECODE, B, 1), generator=gen,
+                        device=dev)
+    want = _tp_logits(torch, cfg, whole, tokens, nxt, max_len)
+    f32_run = None
+    if exact and mesh.coord("model") == 0:
+        import copy
+
+        upcast = copy.deepcopy(whole).float()
+        f32_run = _tp_logits(torch, cfg, upcast, tokens, nxt, max_len)
+        del upcast
+    params = tf.shard_params(whole, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shape = inputs.ShapeSpec("tp", max_len, B, "prefill")
+    prefill = steps.build_prefill(cfg, shape, mesh, BASE_RULES)[0]
+    decode = steps.build_decode(cfg, dataclasses.replace(shape, kind="decode"),
+                                mesh, BASE_RULES)[0]
+    shapes, real = set(), ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, v, **kw)
+
+    # one prefill (the one-rank run warmed the kernels up): its flash
+    # shapes, launches, collectives and seconds, both ranks starting
+    # together (rank 0 may still be running the float32 answer)
+    coll.all_reduce_sum(torch.zeros(1, device=dev), mesh.group("model"))
+    ops.flash_attention = spy
+    ops.reset_launch_counts()
+    try:
+        with coll.tally() as moved:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = real
+    launches = ops.launch_counts()["flash_attention"]
+    with use_mesh(mesh):
+        got = [tf.gather_logits(cfg, logits).float()]
+        for t in range(TP_DECODE):
+            logits, caches = decode(params, caches, nxt[t], S + t)
+            got.append(tf.gather_logits(cfg, logits).float())
+    if f32_run is not None:  # each run against the float32 answer
+        f32_run = (_rel_max(want, f32_run), _rel_max(got, f32_run))
+    return dict(rel=_rel_max(got, want),
+                exact=f32_run,
+                finite=all(bool(torch.isfinite(g).all()) for g in got),
+                prefill_s=secs, peak=torch.cuda.max_memory_allocated(),
+                launches=launches, shapes=sorted(shapes), moved=moved,
+                local_vocab=int(logits.shape[-1]))
+
+
+def _tp_train(torch, dev, mesh):
+    """One rank of [tp]'s train steps: the (1, 2) step
+    (``build_train``) on this rank's slices beside the one-rank step on
+    the whole weights, [train-parity]'s size; per step the loss's
+    relative difference, and after the first each gradient leaf's
+    max|delta| over this rank's slice against the whole leaf's max."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (BASE_RULES, local_tree,
+                                                  model_slice)
+    from repro_torch.launch import inputs, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2, window=128,
+                              vocab_size=32768)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+    one = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                         dtype=torch.float32, device=dev)
+    fn, in_sh, _, _, meta = steps.build_train(
+        cfg, inputs.ShapeSpec("tp-train", 256, 2, "train"), mesh,
+        BASE_RULES, opt_cfg=opt_cfg, accum_override=1)
+    mine = tf.shard_params(one, mesh)
+    f_one, f_mine = tf.make_trainable(one), tf.make_trainable(mine)
+    st_one = adamw_init(f_one, opt_cfg)
+    st_mine = local_tree(adamw_init(f_mine, opt_cfg), in_sh[1])
+    step_one = steps.make_train_step(cfg, opt_cfg, 1)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                  seq=256, seed=11))
+    res = {"loss_rel": [], "losses": [], "tp": meta["tp"]}
+    for i in range(TP_TRAIN_STEPS):
+        batch = {"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                           device=dev)}
+        one, st_one, m_one = step_one(one, st_one, batch)
+        mine, st_mine, m_mine = fn(mine, st_mine, local_tree(batch, in_sh[2]))
+        res["losses"].append(m_mine["loss"])
+        res["loss_rel"].append(abs(m_mine["loss"] - m_one["loss"])
+                               / abs(m_one["loss"]))
+        if i == 0:
+            whole = _leaves(f_one.tree(f_one.grad))
+            want = _leaves(model_slice(f_one.tree(f_one.grad), in_sh[0]))
+            got = _leaves(f_mine.tree(f_mine.grad))
+            res["grad"] = {k: (float((got[k] - want[k]).abs().max()),
+                               float(whole[k].abs().max())) for k in want}
+    return res
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_leaves(tree[k], prefix + (k,)))
+        return out
+    return {"/".join(prefix): tree}
+
+
+def _tp_rank(rank, world, out_dir, device):
+    """One of [tp]'s processes on ``device``: its mesh, the bfloat16
+    serve run at full depth, the float32 one at ``TP_F32_LAYERS`` and
+    the train steps, saved for the parent."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_mesh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(TP_MESH, ("data", "model"))
+    cfg = get_config(LM_ARCH)
+    res = {}
+    for key, dtype, depth, tol in TP_SERVE:
+        res[key] = _tp_serve(
+            torch, dev, mesh, dataclasses.replace(
+                cfg, n_layers=depth or cfg.n_layers), getattr(torch, dtype),
+            exact=tol is None)
+        torch.cuda.empty_cache()
+    res["train"] = _tp_train(torch, dev, mesh)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def phase_tp(torch, dev):
+    """[tp]: two gloo processes on the card run the (1, 2) mesh's
+    tensor-parallel serve path (Gemma-2-2B, 26 layers, bfloat16; and at
+    depth 2 in float32) and train step, each against the one-rank run of
+    the same weights; the collectives' bytes of a prefill against the dry
+    run's count for the same cell."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks.run("chip_smoke:_tp_rank", TP_MESH[1], args=[tmp, str(dev)],
+                  path=[str(ROOT)], timeout=TP_TIMEOUT)
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(TP_MESH[1])]
+    run_s = time.perf_counter() - t0
+    cfg = get_config(LM_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    gib = 2 ** 30
+    for key, dtype, depth, tol in TP_SERVE:
+        depth = depth or cfg.n_layers
+        runs = [g[key] for g in got]
+        rel = max(r["rel"] for r in runs)
+        for r, run in enumerate(runs):
+            moved = ", ".join(f"{op} x{d['count']}: {d['operand_bytes']:.0f} "
+                              f"B" for op, d in sorted(run["moved"].items()))
+            print(f"[tp] {key} rank {r} of mesh {TP_MESH} ({cfg.name}, "
+                  f"{depth} layers, {B} x {S} tokens, gloo on {dev}; "
+                  f"{CARD}): prefill {run['prefill_s']:.3f} s, peak memory "
+                  f"{run['peak'] / gib:.2f} GiB, flash launches "
+                  f"{run['launches']} at q/k {run['shapes']}, logits' "
+                  f"local vocabulary {run['local_vocab']}; the collectives "
+                  f"of one prefill: {moved}")
+            check(run["finite"], f"tp {key}: non-finite logits")
+            check(run["launches"] == depth,
+                  f"tp {key}: {run['launches']} flash launches, not {depth}")
+        print(f"[tp] {key}: prefill and {TP_DECODE} teacher-forced decode "
+              f"steps, logits (gathered over the vocabulary) against the "
+              f"one-rank run of the same weights on the card: "
+              f"max|delta|/max|ref| {rel:.3e}" + (
+                  f" (tol {tol:g})" if tol is not None else ""))
+        if tol is not None:
+            check(rel <= tol, f"tp {key}: logits differ by {rel:.3e}")
+        else:
+            one, mine = runs[0]["exact"]
+            print(f"[tp] {key}: against the float32 run of the same weights "
+                  f"(upcast, one rank): the one-rank {dtype} run "
+                  f"{one:.3e}, the {TP_MESH} run {mine:.3e} (limit "
+                  f"{TP_EXACT_FACTOR:g} x the one-rank run's)")
+            check(mine <= TP_EXACT_FACTOR * one,
+                  f"tp {key}: {mine:.3e} from the float32 answer, against "
+                  f"the one-rank run's {one:.3e}")
+        check(all(r["moved"] == runs[0]["moved"] for r in runs),
+              f"tp {key}: the ranks' collectives differ")
+        # the dry run's trace of the same cell (its weights' dtype) on
+        # rank 0 of the mesh
+        st = dryrun.trace_step(
+            dataclasses.replace(cfg, n_layers=depth, param_dtype=dtype),
+            "prefill", B, S,
+            max_len=S + TP_DECODE, mesh=MeshShape(("data", "model"),
+                                                  TP_MESH))
+        counted = {op: (st.coll_counts[op], st.coll_operand_bytes[op])
+                   for op in st.coll_counts}
+        seen = {op: (d["count"], d["operand_bytes"])
+                for op, d in runs[0]["moved"].items()}
+        print(f"[tp] {key}: the dry run's collectives (count, operand "
+              f"bytes) for the same cell at {TP_MESH}: {counted}; the gloo "
+              f"run's: {seen}")
+        check(counted == seen, f"tp {key}: the bytes moved are not the dry "
+              f"run's count")
+    tr = [g["train"] for g in got]
+    loss_rel = max(max(t["loss_rel"]) for t in tr)
+    grad_rel = max(max(d / w for d, w in t["grad"].values()) for t in tr)
+    losses = tr[0]["losses"]
+    print(f"[tp] train step on mesh {TP_MESH} ({cfg.name} widths, depth 2, "
+          f"vocab 32768, 2 x 256 tokens, float32; {CARD}) against the "
+          f"one-rank step: max loss rel diff over {TP_TRAIN_STEPS} steps "
+          f"{loss_rel:.2e} (tol {TP_TRAIN_TOL:g}), first step's gradient "
+          f"leaves, put together from the {TP_MESH[1]} slices, max "
+          f"|delta|/max|ref| {grad_rel:.2e} (tol {TP_TRAIN_TOL:g}); losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}; {run_s:.1f} s for the "
+          f"{TP_MESH[1]} processes")
+    check(all(t["tp"] == TP_MESH[1] for t in tr), "tp: the step is not "
+          "tensor-parallel")
+    check(loss_rel <= TP_TRAIN_TOL, f"tp: step loss differs by {loss_rel}")
+    check(grad_rel <= TP_TRAIN_TOL, f"tp: a gradient differs by {grad_rel}")
+    check(losses[-1] < losses[0], f"tp: the loss did not fall {losses}")
+
+
+@contextlib.contextmanager
+def dryrun_mesh():
+    """[dryrun-mesh]'s cells traced in one background process that sees
+    no card (the meta device), while [tp] runs."""
+    code = ("import sys\nfrom repro_torch.launch import dryrun\nrc = 0\n"
+            + "".join(f"rc |= dryrun.main(['--arch', {a!r}, '--shape', "
+                      f"{s!r}, '--mesh', {m!r}])\n"
+                      for a, s, m in DRYRUN_MESH_CELLS)
+            + "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    proc.started = time.perf_counter()
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def phase_dryrun_mesh(proc):
+    """[dryrun-mesh]: the multi-rank dry run's lines (both byte counts,
+    the collectives and the three terms)."""
+    stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("[") and not ln.startswith("[dryrun]")]
+    for ln in lines:
+        print(f"[dryrun-mesh] {ln}")
+    print(f"[dryrun-mesh] {len(lines)} cells, read "
+          f"{time.perf_counter() - proc.started:.1f} s after their start")
+    check(proc.returncode == 0 and len(lines) == len(DRYRUN_MESH_CELLS),
+          f"dryrun-mesh exited {proc.returncode}: {stderr[-2000:]}")
+    check(all(" OK " in ln and "collectives=(none)" not in ln
+              for ln in lines), "dryrun-mesh: a cell without collectives")
+
+
 def phase_shard(torch, dev):
     """[shard]: band-sharded Jacobi, the expert-parallel all-to-all and a
     sharded train step on one card; returns the band path's launches."""
@@ -3827,6 +4235,9 @@ def main() -> int:
     run("dryrun", lambda: phase_dryrun(torch))
     run("examples", lambda: phase_examples(torch, dev))
     run("shard", lambda: phase_shard(torch, dev))
+    with dryrun_mesh() as mesh_proc:
+        run("tp", lambda: phase_tp(torch, dev))
+        run("dryrun-mesh", lambda: phase_dryrun_mesh(mesh_proc))
     from repro_torch.core import pool_stats, shutdown_pools
 
     try:

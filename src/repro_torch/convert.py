@@ -65,7 +65,8 @@ def anderson_from_snapshot(snap: dict, config: AndersonConfig,
 
 
 def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device=None,
-                          trainable: bool = False) -> DecoderLM:
+                          trainable: bool = False,
+                          shardings=None) -> DecoderLM:
     """The port's :class:`~repro_torch.models.transformer.DecoderLM` holding
     exactly the arrays of a reference parameter tree (``init_params``'s
     output as nested dicts of numpy arrays).
@@ -81,7 +82,12 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device=None,
     the port's own :func:`~repro_torch.models.transformer.model_spec`.
     The tensors land on ``device`` (None: the card).  With ``trainable``
     the parameters are bound into their flat buffer
-    (:func:`~repro_torch.models.transformer.make_trainable`).
+    (:func:`~repro_torch.models.transformer.make_trainable`).  With
+    ``shardings`` (the parameter tree's placements, e.g.
+    ``launch.steps.tp_shardings``) the model holds this rank's
+    ``"model"`` slices of the arrays
+    (``distributed.sharding.model_slice``), as
+    :func:`~repro_torch.models.transformer.shard_params` cuts a model.
     """
     spec = model_spec(cfg)
     device = resolve_device(device)
@@ -98,6 +104,10 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device=None,
                              f"{np.shape(node)}")
 
     check(spec, tree, "")
+    if shardings is not None:
+        from .distributed.sharding import model_slice
+
+        tree = model_slice(tree_map(np.asarray, tree), shardings)
     to_t = lambda a: torch.as_tensor(np.array(a), device=device)  # noqa: E731
     layers = [tree_map(lambda a, p=p: to_t(np.asarray(a)[p]),
                        tree["stack"][str(i)])

@@ -26,10 +26,17 @@ Baseline rule set (the dry run's variants edit it):
 Meshes of ranks.  :func:`make_mesh` builds a :class:`Mesh` over an
 initialised ``torch.distributed`` process group (``gloo`` on the CPU,
 ``nccl`` on the card): a :class:`MeshShape` that also holds this rank's
-coordinates and a process group for every set of its axes.  :func:`sharding_for` and :func:`spec_tree_to_shardings`
-give each tensor a :class:`Sharding`: its partition spec and one
-``Shard(dim)``/``Replicate()`` placement per mesh axis;
-:func:`local_slice` cuts a rank's piece out of a full tensor under one.
+coordinates and a process group for every set of its axes.
+:func:`traced_rank` gives one rank of a mesh shape as such a
+:class:`Mesh` whose groups exist only in a trace
+(``collectives.TracedGroup``): the dry run traces a production mesh's
+rank 0 on the meta device with it.  :func:`sharding_for` and
+:func:`spec_tree_to_shardings` give each tensor a :class:`Sharding`: its
+partition spec and one ``Shard(dim)``/``Replicate()`` placement per mesh
+axis; :func:`local_slice` cuts a rank's piece out of a full tensor under
+one, and :func:`model_slice` a tree's ``"model"`` pieces only (the
+port's tensor-parallel layout keeps θ whole along the data axes;
+:func:`model_rules` is a rule table's ``"model"`` part).
 
 Band-sharded stencil sweeps.  A Jacobi row block can itself be split
 row-band-wise over the local cards (:func:`band_devices`,
@@ -58,8 +65,8 @@ from ..models.common import ParamSpec, leaves, tree_map
 __all__ = ["Rules", "BASE_RULES", "MeshShape", "Mesh", "make_mesh",
            "Sharding", "long_decode_rules", "resolve_axes", "shards_of",
            "bytes_per_device", "sharding_for", "spec_tree_to_shardings",
-           "local_slice", "local_tree", "band_devices",
-           "band_sharded_jacobi_sweeps"]
+           "local_slice", "local_tree", "traced_rank", "model_rules",
+           "model_slice", "band_devices", "band_sharded_jacobi_sweeps"]
 
 Rules = Dict[str, Any]
 
@@ -261,6 +268,43 @@ def make_mesh(shape: Sequence[int], names: Sequence[str]) -> Mesh:
     return Mesh(names, shape, coords=coords, groups=groups)
 
 
+def traced_rank(mesh: MeshShape, rank: int = 0) -> Mesh:
+    """Rank ``rank`` (row-major, the last axis fastest) of ``mesh`` as a
+    :class:`Mesh` with no process group: each set of axes has a
+    ``collectives.TracedGroup`` of its size and this rank's index, whose
+    collectives take and return meta tensors and report what they would
+    move.  Needs no initialised ``torch.distributed``."""
+    from .collectives import TracedGroup
+
+    names, sizes = tuple(mesh.axes), tuple(mesh.sizes)
+    if not 0 <= rank < int(np.prod(sizes)):
+        raise ValueError(f"rank {rank} is not on the mesh {sizes}")
+    coords = dict(zip(names, (int(c) for c in np.unravel_index(rank,
+                                                               sizes))))
+    groups: Dict[Tuple[str, ...], Any] = {}
+    for k in range(1, len(names) + 1):
+        for sub in itertools.combinations(range(len(names)), k):
+            size, idx = 1, 0
+            for i in sub:
+                size *= sizes[i]
+                idx = idx * sizes[i] + coords[names[i]]
+            groups[tuple(names[i] for i in sub)] = TracedGroup(size, idx)
+    return Mesh(names, sizes, coords=coords, groups=groups)
+
+
+def model_rules(rules: Rules) -> Rules:
+    """The ``"model"`` part of a rule table: each rule keeps its
+    ``"model"`` entry (the port's tensor-parallel placement; θ stays whole
+    along the data axes).  Nothing is placed along ``"model"`` when the
+    batch is split along it (the ``fsdp_all`` variants: data parallel over
+    every axis)."""
+    batch = rules.get("batch")
+    if "model" in _axes_of(batch):
+        return {}
+    return {k: ("model" if "model" in _axes_of(v) else None)
+            for k, v in rules.items()}
+
+
 def _axes_of(part) -> Tuple[str, ...]:
     if part is None:
         return ()
@@ -304,10 +348,10 @@ def spec_tree_to_shardings(spec_tree, rules: Rules, mesh):
 
 
 def local_slice(x: torch.Tensor, sharding: Sharding) -> torch.Tensor:
-    """This rank's piece of the full tensor ``x`` under ``sharding`` (on a
-    :class:`Mesh`): a view, cut along each sharded dimension into as many
-    pieces as its mesh axes hold ranks (``torch.chunk``'s sizes: the last
-    piece may be shorter)."""
+    """This rank's piece of the full tensor (or numpy array) ``x`` under
+    ``sharding`` (on a :class:`Mesh`): a view, cut along each sharded
+    dimension into as many pieces as its mesh axes hold ranks
+    (``torch.chunk``'s sizes: the last piece may be shorter)."""
     mesh = sharding.mesh
     coords = mesh.coords
     if len(sharding.spec) > x.ndim:
@@ -321,13 +365,14 @@ def local_slice(x: torch.Tensor, sharding: Sharding) -> torch.Tensor:
         size = x.shape[dim]
         chunk = -(-size // n)
         start = min(idx * chunk, size)
-        x = x.narrow(dim, start, min(chunk, size - start))
+        x = x[(slice(None),) * dim + (slice(start, start + min(
+            chunk, size - start)),)]
     return x
 
 
 def local_tree(tree, shardings):
     """:func:`local_slice` of every leaf of ``tree`` (nested dicts, tuples,
-    lists and NamedTuples of tensors) under the matching
+    lists and NamedTuples of tensors or numpy arrays) under the matching
     :class:`Sharding` of ``shardings``; a leaf that is no tensor (a step
     count) stays as it is."""
     if isinstance(tree, dict):
@@ -337,9 +382,27 @@ def local_tree(tree, shardings):
         if hasattr(tree, "_fields"):
             return type(tree)(*out)
         return type(tree)(out)
-    if not isinstance(tree, torch.Tensor):
+    if not isinstance(tree, (torch.Tensor, np.ndarray)):
         return tree
     return local_slice(tree, shardings)
+
+
+def _model_part(sharding: Sharding) -> Sharding:
+    return Sharding(sharding.mesh, tuple(
+        "model" if "model" in _axes_of(part) else None
+        for part in sharding.spec))
+
+
+def model_slice(tree, shardings):
+    """This rank's ``"model"`` piece of every leaf of ``tree`` (a whole
+    parameter tree, nested dicts) under ``shardings``
+    (:func:`spec_tree_to_shardings`' placements, e.g.
+    ``launch.steps.param_shardings``): :func:`local_tree` with each spec
+    cut down to its ``"model"`` entries, so a leaf stays whole along the
+    data axes."""
+    if isinstance(tree, dict):
+        return {k: model_slice(v, shardings[k]) for k, v in tree.items()}
+    return local_tree(tree, _model_part(shardings))
 
 
 # --------------------------------------------------------------------- #

@@ -1,28 +1,47 @@
-"""One-card dry run: every (arch x shape) cell's step traced on the meta
-device, its bytes on the card and its three roofline terms.
+"""Dry run: every (arch x shape) cell's step traced on the meta device
+for one rank of a mesh (one card by default, or the 16x16 and 2x16x16
+production meshes), its bytes on the card, its collectives and its three
+roofline terms.
 
-Counterpart of ``repro.launch.dryrun``, at one card.  The reference
-lowers and compiles each cell for a 256- or 512-device mesh and reads
-XLA's memory and cost analyses; here each cell's step runs eagerly on
-the meta device (shapes and dtypes, no storage: nothing is allocated and
-the card is never touched) under :mod:`repro_torch.launch.opstats`, and
-its resident bytes come from ``bytes_per_device`` on a (1, 1) mesh:
+Counterpart of ``repro.launch.dryrun``.  The reference lowers and
+compiles each cell for a 256- or 512-device mesh and reads XLA's memory
+and cost analyses; here each cell's step runs eagerly on the meta device
+(shapes and dtypes, no storage: nothing is allocated and the card is
+never touched) under :mod:`repro_torch.launch.opstats`.  On a mesh the
+step is rank 0's (``sharding.traced_rank``): its tensor-parallel slices
+of the parameters (``transformer.shard_params``), its piece of the
+batch, and collectives that take and return meta tensors and report
+what they would move, so the collective term comes from the collectives
+the step issues.  Resident bytes per rank are given twice:
 
-  train    parameters, gradient (float32, the port trains in float32) and
-           AdamW's m and v (``cfg.opt_state_dtype``), plus the
-           accumulation buffer where that dtype is not float32
-  prefill  parameters (``cfg.param_dtype``) and the caches it emits
-  decode   parameters and the caches it reads
+* ``rule_bytes``: the reference's count, ``bytes_per_device`` of the
+  parameter specs (float32) and the caches' bytes under the cell's rules
+  (its ``_local_bytes_of_spec_tree`` and ``_local_cache_bytes``);
+* ``resident_bytes``: the port's own layout on the rank (no activations,
+  so a run's measured peak lies above it):
 
-Activations and temporaries are not in the estimate, so the measured
-peak of a run lies above it.  ``fits`` compares it with the card's 80 GB.
+  train    its slice of θ and the gradient buffer (float32, the port
+           trains in float32; autograd fills the whole slice before the
+           reduce-scatter), its ZeRO chunks of AdamW's m and v
+           (``cfg.opt_state_dtype``), plus the accumulation buffer where
+           that dtype is not float32
+  prefill  its slice of the parameters (``cfg.param_dtype``) and the
+           caches it emits (its batch piece, its KV heads)
+  decode   its parameters and the caches it reads
+
+  The slice is the rules' ``"model"`` placement; θ stays whole along the
+  data axes, and the Mamba and xLSTM mixers and the MoE router stay whole
+  (``own_layout_note`` says so where a cell has them; ROADMAP.md item
+  1.6c).  ``fits`` compares the total with the card's 80 GB.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2_2b --shape train_4k
+      [--mesh {one_card,16x16,2x16x16} | --multi-pod]
   python -m repro_torch.launch.dryrun --all [--variant chunk512] [--out DIR]
 
-The train step is the port's ``make_train_step`` with
-``grad_accum_for(cfg, shape, 1)`` microbatches.  Identical repeats are
+``--multi-pod`` is ``--mesh 2x16x16``.  The train step is the port's
+``make_train_step`` with ``grad_accum_for(cfg, shape, dp)`` microbatches
+(``dp`` the data ranks).  Identical repeats are
 traced a few times and scaled, the eager counterpart of the reference's
 loop trip counts: a step of more than 3 microbatches is traced with 3
 and the second's counts (from its start to the third's, its share of
@@ -32,11 +51,12 @@ time is traced at 3 and 4 steps (its product FLOPs exact, its other
 counts but a few zero-fills).  ``--unscaled`` traces every microbatch,
 period and time step instead (slow: it shows what the scaling saves).
 ``--jobs N`` traces ``--all``'s cells in N processes (CPU only).  Variants that
-change only sharding rules are accepted and do nothing on one rank (the
-record says so); ``chunk512`` and ``chunk2048`` change ``attn_chunk``
-and so the traced train step.  The dry run traces one rank: per-rank
-bytes on a mesh and the collectives' bytes are ROADMAP.md item 1.6a, so
-``--multi-pod`` raises.
+change only sharding rules take effect on a mesh (on one card the record
+says they do nothing): the rule count follows them, and so does the
+port's layout where they move the ``"model"`` placements or the batch
+(``fsdp_all``: data parallel over every axis); ``moe_a2a`` traces the
+expert-parallel all-to-all on a mesh; ``chunk512`` and ``chunk2048``
+change ``attn_chunk`` and so the traced train step.
 """
 
 from __future__ import annotations
@@ -56,27 +76,33 @@ import torch
 from ..configs import ARCH_IDS, get_config
 from ..configs.base import ModelConfig
 from ..distributed.sharding import (MeshShape, Rules, bytes_per_device,
-                                    resolve_axes, shards_of)
+                                    resolve_axes, shards_of, traced_rank)
 from ..models import transformer as tf
 from ..models import xlstm
+from ..models.common import use_mesh
 from ..training.optimizer import AdamWConfig, adamw_init
 from . import inputs as inp
 from . import opstats
-from .mesh import HBM_PER_DEVICE
+from .mesh import HBM_PER_DEVICE, make_production_mesh
 from .roofline import roofline_from_stats
-from .steps import make_train_step
+from .steps import data_axes, dp_size, make_train_step, shard_range, tp_size
 
 META = torch.device("meta")
 
-__all__ = ["ONE_CARD", "apply_variant", "resident_bytes", "trace_step",
-           "dry_run", "run_cell", "cell_list", "main"]
+__all__ = ["ONE_CARD", "MESHES", "apply_variant", "rule_bytes",
+           "resident_bytes", "trace_step", "dry_run", "run_cell",
+           "cell_list", "main"]
 
-#: the one-card mesh every cell is planned on
+#: the one-card mesh, the default
 ONE_CARD = MeshShape(("data", "model"), (1, 1))
+
+#: the meshes a cell can be planned on (``--mesh``)
+MESHES = {"one_card": ONE_CARD, "16x16": make_production_mesh(),
+          "2x16x16": make_production_mesh(multi_pod=True)}
 
 #: the variants that only edit the sharding rules (or, ``grad_rs`` and
 #: ``tp_only``, the reference's gradient and optimizer-state sharding):
-#: nothing changes on one rank
+#: nothing changes on one card
 RULE_EDITS = {
     "seq_shard_prefill": {"act_seq": "data"}, "no_fsdp": {"embed": None},
     "fsdp_pod": {"embed": ("pod", "data")},
@@ -89,10 +115,12 @@ RULE_EDITS = {
 }
 
 
-def apply_variant(cfg: ModelConfig, rules: Rules, variant: str
+def apply_variant(cfg: ModelConfig, rules: Rules, variant: str,
+                  mesh: MeshShape = ONE_CARD
                   ) -> Tuple[ModelConfig, Rules, Optional[int], str]:
     """The reference's named variants: ``(cfg, rules, accum_override,
-    note)``; ``note`` says what a variant does on one rank."""
+    note)``; ``note`` says what a variant does not do on one card (empty
+    on a mesh of more than one)."""
     if variant == "baseline":
         return cfg, rules, None, ""
     rules = dict(rules)
@@ -100,14 +128,15 @@ def apply_variant(cfg: ModelConfig, rules: Rules, variant: str
         return dataclasses.replace(cfg, attn_chunk=512), rules, None, ""
     if variant == "chunk2048":
         return dataclasses.replace(cfg, attn_chunk=2048), rules, None, ""
-    one_rank = "changes sharding only: no effect on one rank"
+    one_rank = ("changes sharding only: no effect on one card"
+                if mesh.size == 1 else "")
     if variant == "moe_a2a":
         if cfg.moe is None:
             return cfg, rules, None, "no MoE layer: no effect"
         moe = dataclasses.replace(cfg.moe, a2a=True)
         return (dataclasses.replace(cfg, moe=moe), rules, None,
-                "all-to-all dispatch needs a mesh of ranks; the one-rank "
-                "trace runs moe_ffn (ROADMAP.md item 1.6a)")
+                "all-to-all dispatch needs a mesh of ranks; the one-card "
+                "trace runs moe_ffn" if mesh.size == 1 else "")
     if variant in RULE_EDITS:
         rules.update(RULE_EDITS[variant])
         return cfg, rules, None, one_rank
@@ -134,22 +163,52 @@ def _cache_bytes(cfg, batch: int, max_len: int, dtype, rules, mesh) -> int:
     return total
 
 
+def rule_bytes(cfg: ModelConfig, batch: int, max_len: int, rules: Rules,
+               mesh: MeshShape) -> Dict[str, int]:
+    """The reference's per-device count: ``params``, the float32 bytes of
+    the parameter specs under ``rules`` (``_local_bytes_of_spec_tree``),
+    and ``caches``, the bfloat16 decode caches' (``_local_cache_bytes``)."""
+    return {"params": bytes_per_device(tf.model_spec(cfg), rules, mesh),
+            "caches": _cache_bytes(cfg, batch, max_len, torch.bfloat16,
+                                   rules, mesh)}
+
+
+def _local_batch(batch: int, dp: int) -> int:
+    """A data rank's batch: its piece where ``dp`` divides the batch,
+    else all of it (the rules' divisibility policy)."""
+    return batch // dp if batch % dp == 0 else batch
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(map(_nbytes, tree))
+
+
 def resident_bytes(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                    rules: Rules, mesh: MeshShape = ONE_CARD,
                    accum: int = 1) -> Dict[str, int]:
-    """Bytes that stay on each card through the step, by part, and their
-    ``total`` (see the module docstring; no activations)."""
-    n = bytes_per_device(tf.model_spec(cfg), rules, mesh) // 4  # fp32 specs
+    """Bytes that stay on rank 0 of ``mesh`` through the step in the
+    port's layout, by part, and their ``total`` (see the module
+    docstring; no activations); ``batch`` is the global batch."""
+    rank = traced_rank(mesh)
+    axes = data_axes(mesh, rules)
+    dp, tp = dp_size(mesh, axes), tp_size(mesh, axes)
+    params = tf.abstract_params(cfg, dtype=torch.float32,
+                                mesh=rank if tp > 1 else None, rules=rules)
+    n = sum(p.numel() for p in params.parameters())
     out: Dict[str, int] = {}
     if kind == "train":
         state = getattr(torch, cfg.opt_state_dtype).itemsize
-        out.update(params=4 * n, grads=4 * n, adamw=2 * state * n)
+        lo, hi = shard_range(n, dp, 0)
+        out.update(params=4 * n, grads=4 * n, adamw=2 * state * (hi - lo))
         if state != 4 and accum > 1:
             out["accum_buffer"] = state * n
     else:
         dt = getattr(torch, cfg.param_dtype)
-        out.update(params=dt.itemsize * n,
-                   caches=_cache_bytes(cfg, batch, max_len, dt, rules, mesh))
+        out.update(params=dt.itemsize * n, caches=_nbytes(tf.abstract_caches(
+            cfg, _local_batch(batch, dp), max_len, dt,
+            enc_len=max_len // inp.STUB_DIV, model=tp)))
     out["total"] = sum(out.values())
     return out
 
@@ -299,46 +358,63 @@ def _counted(fn, slstm: Optional[tuple]) -> opstats.OpStats:
 
 def trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
                accum: int = 1, max_len: Optional[int] = None,
-               scale: bool = True) -> opstats.OpStats:
+               scale: bool = True, mesh: Optional[MeshShape] = None,
+               rules: Optional[Rules] = None) -> opstats.OpStats:
     """The step of one cell on the meta device under
     :func:`~repro_torch.launch.opstats.counting`: a train step of
     ``accum`` microbatches, a prefill into caches of ``max_len`` (default
     ``seq``) positions, or one decode step at position ``seq - 1``
-    against caches of ``max_len`` positions.  A stack of more than 2
-    periods is traced at 1 and at 2 periods, and the second's counts are
-    added for each of the rest (the periods are identical: the counterpart
-    of the reference's scan over them).  With ``scale`` False every
-    period, microbatch and sLSTM time step is traced."""
+    against caches of ``max_len`` positions; ``batch`` is the rank's.
+    With ``mesh`` (a mesh shape of more than one device) the step is its
+    rank 0's (``sharding.traced_rank``), on its slices of the parameters
+    under ``rules`` (default the baseline's), its collectives counted.  A
+    stack of more than 2 periods is traced at 1 and at 2 periods, and the
+    second's counts are added for each of the rest (the periods are
+    identical: the counterpart of the reference's scan over them).  With
+    ``scale`` False every period, microbatch and sLSTM time step is
+    traced."""
     P = len(cfg.period)
     if scale and cfg.n_periods > 2:
         def at(n):
             return _trace_step(dataclasses.replace(
                 cfg, n_layers=n * P + len(cfg.remainder)), kind, batch, seq,
-                accum, max_len, scale)
+                accum, max_len, scale, mesh, rules)
 
         one = at(1)
         return opstats.add_repeats(one, one, at(2), cfg.n_periods - 1)
-    return _trace_step(cfg, kind, batch, seq, accum, max_len, scale)
+    return _trace_step(cfg, kind, batch, seq, accum, max_len, scale, mesh,
+                       rules)
 
 
 def _trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
-                accum: int, max_len: Optional[int], scale: bool
+                accum: int, max_len: Optional[int], scale: bool,
+                mesh: Optional[MeshShape], rules: Optional[Rules]
                 ) -> opstats.OpStats:
     max_len = max_len or seq
+    rank = traced_rank(mesh) if mesh is not None and mesh.size > 1 else None
+    axes = data_axes(rank, rules) if rank is not None else ()
+    tp = tp_size(rank, axes) if rank is not None else 1
     # every trace counts the making of the host tables, as a fresh
     # process's first step does
     tf.clear_host_tables()
     if kind == "train":
-        params = tf.abstract_params(cfg, dtype=torch.float32)
+        params = tf.abstract_params(cfg, dtype=torch.float32,
+                                    mesh=rank if tp > 1 else None,
+                                    rules=rules)
         opt_cfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
-        state = adamw_init(tf.make_trainable(params), opt_cfg)
+        flat = tf.make_trainable(params)
+        lo, hi = shard_range(flat.n, dp_size(rank, axes) if axes else 1, 0)
+        state = adamw_init(flat, opt_cfg)
+        state = state._replace(m=state.m[lo:hi], v=state.v[lo:hi])
         n_micro = min(accum, 3) if scale else accum
         b = _batch(cfg, kind, batch // accum * n_micro, seq, torch.float32)
         marks = []
 
         def step(st):
-            fn = make_train_step(cfg, opt_cfg, n_micro, on_microbatch=(
-                lambda i: marks.append(opstats.snapshot(st))))
+            fn = make_train_step(cfg, opt_cfg, n_micro, mesh=rank,
+                                 on_microbatch=(lambda i: marks.append(
+                                     opstats.snapshot(st))),
+                                 batch_axes=axes)
             fn(params, state, b)
 
         st = _counted(step, (cfg, batch // accum, torch.float32, True)
@@ -350,48 +426,70 @@ def _trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
             return opstats.add_repeats(st, marks[1], marks[2],
                                        accum - n_micro)
         return st
-    params = tf.abstract_params(cfg)
+    params = tf.abstract_params(cfg, mesh=rank if tp > 1 else None,
+                                rules=rules)
     dt = getattr(torch, cfg.param_dtype)
     b = _batch(cfg, kind, batch, seq, dt)
     slstm = (cfg, batch, dt, False) if scale else None
-    with torch.no_grad():
+    with torch.no_grad(), use_mesh(rank):
         if kind == "prefill":
             return _counted(lambda st: tf.prefill(cfg, params, b, max_len),
                             slstm)
         caches = tf.abstract_caches(cfg, batch, max_len, dt,
-                                    enc_len=max_len // inp.STUB_DIV)
+                                    enc_len=max_len // inp.STUB_DIV,
+                                    model=tp)
         return _counted(lambda st: tf.decode_step(
             cfg, params, caches, b["tokens"], seq - 1,
             b.get("mrope_positions")), slstm)
 
 
+def _own_layout_note(cfg: ModelConfig, tp: int) -> str:
+    """What the port's layout keeps whole along ``"model"``."""
+    whole = sorted({m for m, _ in tf.layer_kinds(cfg)
+                    if m in tf.WHOLE_MIXERS})
+    if tp == 1 or not whole:
+        return ""
+    return (f"{'/'.join(whole)} mixers whole on every model rank "
+            f"(ROADMAP.md item 1.6c)")
+
+
 def dry_run(cfg: ModelConfig, shape: inp.ShapeSpec, *,
             accum: Optional[int] = None, max_len: Optional[int] = None,
-            rules: Optional[Rules] = None, scale: bool = True) -> dict:
-    """One cell at one card: trace, resident bytes and roofline."""
+            rules: Optional[Rules] = None, scale: bool = True,
+            mesh: MeshShape = ONE_CARD) -> dict:
+    """One cell on rank 0 of ``mesh``: trace, resident bytes (the
+    port's layout and the reference's rule count), collectives and
+    roofline."""
     rules = rules if rules is not None else inp.rules_for(cfg, shape)
     kind = shape.kind
+    axes = data_axes(mesh, rules)
+    dp, tp = dp_size(mesh, axes), tp_size(mesh, axes)
     if kind == "train" and accum is None:
-        accum = inp.grad_accum_for(cfg, shape, 1)
+        accum = inp.grad_accum_for(cfg, shape, dp)
     accum = accum or 1
     max_len = max_len or shape.seq
+    batch = _local_batch(shape.batch, dp)
     t0 = time.perf_counter()
-    st = trace_step(cfg, kind, shape.batch, shape.seq, accum, max_len,
-                    scale)
+    st = trace_step(cfg, kind, batch, shape.seq, accum, max_len, scale,
+                    mesh, rules)
     trace_s = time.perf_counter() - t0
-    res = resident_bytes(cfg, kind, shape.batch, max_len, rules,
+    res = resident_bytes(cfg, kind, shape.batch, max_len, rules, mesh,
                          accum=accum)
-    param_b = res["params"]
-    rep = roofline_from_stats(st, cfg, shape, kind, accum, 1, param_b,
-                              res.get("caches", 0))
+    rep = roofline_from_stats(st, cfg, shape, kind, accum, mesh.size,
+                              res["params"], res.get("caches", 0),
+                              token_ranks=dp)
     return dict(
-        status="OK", n_devices=1, accum=accum if kind == "train" else None,
-        seq=shape.seq, batch=shape.batch, max_len=max_len,
+        status="OK", n_devices=mesh.size, dp=dp, tp=tp,
+        accum=accum if kind == "train" else None,
+        seq=shape.seq, batch=shape.batch, rank_batch=batch, max_len=max_len,
         trace_s=trace_s, resident_bytes=res,
+        rule_bytes=rule_bytes(cfg, shape.batch, max_len, rules, mesh),
+        own_layout_note=_own_layout_note(cfg, tp),
         fits_hbm=bool(res["total"] <= HBM_PER_DEVICE),
         dot_flops=st.dot_flops, dot_flops_by_dtype=st.dot_flops_by_dtype,
         leaf_flops=st.leaf_flops, leaves=st.leaves,
-        traffic_bytes=st.traffic_bytes,
+        traffic_bytes=st.traffic_bytes, collectives=rep.collectives,
+        wire_bytes_per_dev=rep.wire_bytes_per_dev,
         mem_bytes_per_dev=rep.mem_bytes_per_dev,
         compute_s=rep.compute_s, memory_s=rep.memory_s,
         collective_s=rep.collective_s, bottleneck=rep.bottleneck,
@@ -403,7 +501,12 @@ def _describe(label: str, rec: dict) -> str:
     res = rec["resident_bytes"]
     parts = " ".join(f"{k}={v / 2**30:.2f}" for k, v in res.items()
                      if k != "total")
+    rules = " ".join(f"{k}={v / 2**30:.3f}" for k, v in
+                     rec["rule_bytes"].items())
+    coll = " ".join(f"{op}:n={d['count']:g},wire={d['wire_bytes']:.3e}"
+                    for op, d in sorted(rec["collectives"].items()))
     return (f"[{label}] OK resident={res['total'] / 2**30:.2f}GiB ({parts}) "
+            f"rule_count=({rules}) collectives=({coll or 'none'}) "
             f"fits={rec['fits_hbm']} bottleneck={rec['bottleneck']} "
             f"terms=(c={rec['compute_s']:.4f}s m={rec['memory_s']:.4f}s "
             f"coll={rec['collective_s']:.4f}s) useful="
@@ -414,15 +517,13 @@ def _describe(label: str, rec: dict) -> str:
 
 def run_cell(arch: str, shape_name: str, variant: str = "baseline",
              multi_pod: bool = False, verbose: bool = True,
-             scale: bool = True) -> dict:
-    """One (arch x shape) cell of the reference's list at one card."""
-    if multi_pod:
-        raise NotImplementedError(
-            "the multi-pod mesh needs the multi-rank dry run: ROADMAP.md "
-            "item 1.6a")
+             scale: bool = True, mesh: str = "one_card") -> dict:
+    """One (arch x shape) cell of the reference's list on rank 0 of
+    ``MESHES[mesh]`` (``multi_pod``: the 2x16x16 mesh)."""
+    m = MESHES["2x16x16" if multi_pod else mesh]
     shape = inp.SHAPES[shape_name]
     cfg0 = get_config(arch)
-    rec = {"arch": arch, "shape": shape_name, "mesh": str(ONE_CARD),
+    rec = {"arch": arch, "shape": shape_name, "mesh": str(m),
            "variant": variant}
     ok, why = inp.cell_is_runnable(cfg0, shape)
     if not ok:
@@ -430,9 +531,9 @@ def run_cell(arch: str, shape_name: str, variant: str = "baseline",
     else:
         cfg = inp.adjusted_config(cfg0, shape)
         cfg, rules, accum, note = apply_variant(
-            cfg, inp.rules_for(cfg, shape), variant)
+            cfg, inp.rules_for(cfg, shape), variant, m)
         rec.update(dry_run(cfg, shape, accum=accum, rules=rules,
-                           scale=scale))
+                           scale=scale, mesh=m))
         rec.update(variant_note=note, attn_chunk=cfg.attn_chunk,
                    ssm_chunk=cfg.ssm_chunk)
     if verbose:
@@ -448,12 +549,12 @@ def cell_list() -> Iterator[Tuple[str, str]]:
 
 def _cell_or_failure(item) -> dict:
     """:func:`run_cell` (silent), or the failure as a record."""
-    arch, shape_name, variant, scale = item
+    arch, shape_name, variant, scale, mesh = item
     try:
         return run_cell(arch, shape_name, variant, verbose=False,
-                        scale=scale)
+                        scale=scale, mesh=mesh)
     except Exception as e:  # noqa: BLE001 - recorded, counted, exit 1
-        return {"arch": arch, "shape": shape_name, "mesh": str(ONE_CARD),
+        return {"arch": arch, "shape": shape_name, "mesh": str(MESHES[mesh]),
                 "variant": variant, "status": "FAIL",
                 "error": f"{type(e).__name__}: {e}",
                 "traceback": traceback.format_exc()}
@@ -485,8 +586,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=None, choices=ARCH_IDS)
     ap.add_argument("--shape", default=None, choices=list(inp.SHAPES))
+    ap.add_argument("--mesh", default="one_card", choices=list(MESHES),
+                    help="plan each cell on rank 0 of this mesh")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: raises (ROADMAP.md item 1.6a)")
+                    help="the same as --mesh 2x16x16")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--unscaled", action="store_true",
@@ -497,10 +600,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="write one JSON record a cell into this directory")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the (2, 16, 16) mesh needs the multi-rank dry "
-            "run, ROADMAP.md item 1.6a")
+    mesh = "2x16x16" if args.multi_pod else args.mesh
     if not args.all and not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
     cells = (list(cell_list()) if args.all
@@ -508,7 +608,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     fails, t0 = 0, time.perf_counter()
-    work = [(arch, shape_name, args.variant, not args.unscaled)
+    work = [(arch, shape_name, args.variant, not args.unscaled, mesh)
             for arch, shape_name in cells]
     if args.jobs > 1:
         import multiprocessing as mp

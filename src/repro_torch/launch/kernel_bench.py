@@ -140,9 +140,15 @@ def device_profile(torch, fn, reps: int = 20, warmup: int = 3,
     if between is not None:
         skip = {e.name for e in _device_kernels(torch, between, 1, 1)}
         call = lambda: (between(), fn())  # noqa: E731
-    kernels = [e for e in _device_kernels(torch, call, reps, warmup)
-               if e.name not in skip]
-    if not kernels:
+    # CUPTI now and then hands back a profile without its device records
+    # (every kernel of it missing): such a profile is taken again, at most
+    # twice more
+    for _ in range(3):
+        kernels = [e for e in _device_kernels(torch, call, reps, warmup)
+                   if e.name not in skip]
+        if kernels:
+            break
+    else:
         raise RuntimeError("torch.profiler recorded no device kernels")
     return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps,
             len(kernels) / reps)

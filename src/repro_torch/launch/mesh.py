@@ -3,8 +3,10 @@
 Counterpart of ``repro.launch.mesh``.  The reference builds JAX meshes of
 host devices.  Here the production shapes are axis names and sizes
 (:class:`~repro_torch.distributed.sharding.MeshShape`), which is all the
-dry run's cell list, rule resolution and byte counts read;
-:func:`make_mesh` builds a mesh of ``torch.distributed`` ranks (a
+rule resolution and byte counts read, and what the multi-rank dry run
+traces a rank of (``sharding.traced_rank``: a rank whose groups exist
+only in a trace, on the meta device); :func:`make_mesh` builds a mesh of
+``torch.distributed`` ranks (a
 :class:`~repro_torch.distributed.sharding.Mesh`, which is also a
 ``MeshShape``) over an initialised process group.  Shapes:
 

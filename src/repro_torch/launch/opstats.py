@@ -13,7 +13,16 @@ otherwise):
     ``2 * prod(out) * prod(contract)`` FLOPs, by the output's dtype;
   * every op that is not a view counts its operand and output bytes (in
     eager these are the traffic of the op, not a fusion-level proxy);
-  * the collectives' dicts stay empty: one rank (ROADMAP.md item 1.6a).
+  * every collective of more than one rank, which the port runs through
+    :mod:`repro_torch.distributed.collectives` only, counts under the
+    reference's op name (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, ``all-to-all``): its count, its operand bytes and
+    its wire bytes by the reference's ring model
+    (``collectives.wire_bytes``: all-reduce ``2 B (g-1)/g``, all-gather
+    ``result (g-1)/g``, reduce-scatter and all-to-all ``operand
+    (g-1)/g``), and its operand and result bytes as traffic, as the
+    reference's ``hloparse`` does.  A traced rank's collectives
+    (``sharding.traced_rank``) report as a real group's do.
 
 Each entry point of :mod:`repro_torch.kernels.ops` is one leaf: the
 wrapper is replaced for the trace by a function that counts the work of
@@ -41,6 +50,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from ..distributed import collectives as coll
 from ..kernels import ops, ref
 from . import kernel_bench as kb
 
@@ -75,6 +85,16 @@ class OpStats:
     @property
     def total_coll_operand(self) -> float:
         return sum(self.coll_operand_bytes.values())
+
+    def add_collective(self, op: str, operand: float, result: float,
+                       g: int) -> None:
+        """One collective of ``g`` ranks (see the module docstring)."""
+        self.coll_counts[op] = self.coll_counts.get(op, 0) + 1
+        self.coll_operand_bytes[op] = self.coll_operand_bytes.get(op, 0.0) \
+            + operand
+        self.coll_wire_bytes[op] = self.coll_wire_bytes.get(op, 0.0) + \
+            coll.wire_bytes(op, operand, result, g)
+        self.traffic_bytes += operand + result
 
     def add_dot(self, flops: float, dtype) -> None:
         self.dot_flops += flops
@@ -247,6 +267,7 @@ def counting(flop_counter: bool = False) -> Iterator[OpStats]:
         for name in ops.KERNELS:
             setattr(ops, name, _leaf(name, st, counter))
         stack.callback(lambda: [setattr(ops, n, f) for n, f in saved.items()])
+        stack.enter_context(coll.observing(st.add_collective))
         stack.enter_context(counter)
         yield st
     if fc is not None:

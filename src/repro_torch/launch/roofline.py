@@ -11,10 +11,11 @@ cell, in seconds, per device:
   collective = wire bytes / NVLink's rate
 
 The FLOPs come from :mod:`repro_torch.launch.opstats` (the counterpart of
-the reference's ``hloparse``).  The reference also parses the collectives
-of a compiled SPMD program (``collective_stats``); the port's dry run
-traces one rank until ROADMAP.md item 1.6a, so that parser has no
-counterpart yet and the collective term is 0.
+the reference's ``hloparse``), and so do the collectives: the reference
+parses them out of a compiled SPMD program, the port's dry run counts
+the ones a traced rank's step issues through
+``distributed.collectives``, with the reference's ring model of their
+wire bytes.  One rank issues none, and its collective term is 0.
 
 MODEL_FLOPS uses the 6ND convention (+ logits matmul term), with MoE
 parameters scaled by top_k / n_experts (active fraction).
@@ -23,7 +24,7 @@ parameters scaled by top_k / n_experts (active fraction).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -140,11 +141,16 @@ def compute_seconds(flops_by_dtype: Dict[str, float]) -> float:
 def roofline_from_stats(
     st, cfg: ModelConfig, shape, kind: str, accum: int, n_dev: int,
     param_bytes_local: float, cache_bytes_local: float,
+    token_ranks: Optional[int] = None,
 ) -> RooflineReport:
     """The three terms from an :class:`~.opstats.OpStats` (its products'
-    FLOPs by dtype; its collectives, empty for one rank)."""
+    FLOPs by dtype; its collectives' wire bytes, none for one rank).
+    ``token_ranks`` (default ``n_dev``) is how many ranks the tokens are
+    split over in the memory model: the data ranks, where the ``"model"``
+    ranks of a tensor-parallel step hold the same tokens."""
     mflops = model_flops(cfg, shape, kind)
-    mem_bytes = analytic_memory_bytes(cfg, shape, kind, accum, n_dev,
+    mem_bytes = analytic_memory_bytes(cfg, shape, kind, accum,
+                                      token_ranks or n_dev,
                                       param_bytes_local, cache_bytes_local)
     compute_s = compute_seconds(st.dot_flops_by_dtype)
     memory_s = mem_bytes / HBM_BW

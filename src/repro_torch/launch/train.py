@@ -2,8 +2,11 @@
 
 Counterpart of ``repro.launch.train`` with the same flags, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
-path, for tests).  The production-mesh check is the multi-rank dry run,
-ROADMAP.md item 1.6a.
+path, for tests).  It trains on one rank; a step on a mesh of ranks
+(tensor-parallel along ``"model"``, ZeRO over the data axes) is
+``launch.steps.build_train``, and the production meshes' plan is the
+multi-rank dry run (``python -m repro_torch.launch.dryrun --mesh 16x16``
+or ``--multi-pod``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b \\
       --reduced --steps 50 --ckpt /tmp/ckpt [--device cpu]

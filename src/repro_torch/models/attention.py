@@ -19,6 +19,21 @@ memory, so ``attn_chunk`` changes nothing there.  One-token decode, against the 
 precomputed cross K/V, stays ordinary torch ops (:func:`_grouped_attn`),
 as it is jnp outside any kernel in the reference.
 
+Tensor parallelism along ``"model"`` (:func:`~.common.model_axis`): when
+a rank's ``wq`` holds fewer heads than the config (its slice, cut by
+``transformer.shard_params``), the q, k and v projections are
+column-parallel over its heads (the normed input enters through
+``collectives.replicated_param``, whose backward sums the ranks' partial
+input gradients), attention runs on the local heads (the flash kernel
+unchanged) and ``wo`` is row-parallel, followed by
+``collectives.reduce``.  Where the KV heads do not split but the q heads
+do (2 KV heads on 4 ranks), each rank holds the whole ``wk`` and ``wv``
+and uses the KV heads its q heads read; those weights, and the QK-norm
+scales, enter through ``replicated_param``, so their gradient is summed
+over ``"model"`` (each rank's holds only its heads' share).  Caches hold
+the local KV heads (:func:`local_heads`).  Cross-attention follows the
+same pattern, its context entering as the normed input does.
+
 Sliding-window ("local") layers keep a ring-buffer KV cache of ``window``
 slots.  Decode writes the new token's K/V into the cache tensors in place
 (the reference returns updated copies); the caller hands the same cache to
@@ -33,11 +48,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives as coll
 from ..kernels import ops
-from .common import ParamSpec
+from .common import ModelAxis, ParamSpec, model_axis
 from .layers import apply_mrope, apply_rope, rmsnorm
 
-__all__ = ["attn_spec", "cross_attn_spec", "KVCache", "init_cache",
+__all__ = ["attn_spec", "cross_attn_spec", "KVCache", "local_heads",
+           "init_cache",
            "project_qkv", "project_cross_kv", "attend", "train_attention",
            "attention", "cross_attention", "decode_attention",
            "decode_cross_attention", "precompute_cross_kv"]
@@ -76,18 +93,72 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def _kv_range(nq: int, g: int, index: int) -> Tuple[int, int]:
+    """(first, count) of the KV heads read by q heads ``[index * nq,
+    (index + 1) * nq)`` with ``g`` q heads per KV head."""
+    if nq % g and g % nq:
+        raise ValueError(f"{nq} query heads a rank straddle groups of {g} "
+                         f"query heads per KV head")
+    return index * nq // g, max(nq // g, 1)
+
+
+def local_heads(cfg: ModelConfig, model: int = 1) -> Tuple[int, int]:
+    """A rank's (q heads, KV heads) with ``model`` ranks along
+    ``"model"``: the heads split where they divide (the rules'
+    divisibility policy), else whole; KV heads that do not divide while
+    the q heads do are the ones this rank's q heads read."""
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    if model == 1 or nq % model:
+        return nq, nkv
+    if nkv % model == 0:
+        return nq // model, nkv // model
+    return nq // model, _kv_range(nq // model, nq // nkv, 0)[1]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               window: Optional[int], dtype, device=None) -> KVCache:
+               window: Optional[int], dtype, device=None,
+               n_kv: Optional[int] = None) -> KVCache:
+    """An empty cache of ``n_kv`` heads (default the config's)."""
     S = max_len if window is None else min(window, max_len)
-    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    shape = (batch, S, n_kv or cfg.n_kv_heads, cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _qk_normed(cfg: ModelConfig, params, q, k):
+def _split(cfg: ModelConfig, params) -> Optional[ModelAxis]:
+    """The ``"model"`` axis when this layer's heads are split over it."""
+    ax = model_axis()
+    if ax is None or params["wq"].shape[1] == cfg.n_heads:
+        return None
+    return ax
+
+
+def _enter(x: torch.Tensor, ax: Optional[ModelAxis]) -> torch.Tensor:
+    """The input of a column-parallel product (see the module
+    docstring)."""
+    return x if ax is None else coll.replicated_param(x, ax.group)
+
+
+def _kv_weights(cfg: ModelConfig, params, ax: Optional[ModelAxis]):
+    """``wk`` and ``wv`` for this rank's heads."""
+    wk, wv = params["wk"], params["wv"]
+    if ax is None or wk.shape[1] < cfg.n_kv_heads:
+        return wk, wv
+    first, n = _kv_range(params["wq"].shape[1],
+                         cfg.n_heads // cfg.n_kv_heads, ax.index)
+    return (_enter(wk, ax)[:, first:first + n],
+            _enter(wv, ax)[:, first:first + n])
+
+
+def _qk_normed(cfg: ModelConfig, params, q, k,
+               ax: Optional[ModelAxis] = None):
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        if q is not None:
+            q = rmsnorm({"scale": _enter(params["q_norm"]["scale"], ax)}, q,
+                        cfg.norm_eps)
+        if k is not None:
+            k = rmsnorm({"scale": _enter(params["k_norm"]["scale"], ax)}, k,
+                        cfg.norm_eps)
     return q, k
 
 
@@ -110,28 +181,43 @@ def _rotate(cfg: ModelConfig, t: torch.Tensor,
 def project_qkv(cfg: ModelConfig, params, x: torch.Tensor,
                 positions: torch.Tensor):
     """q (B,S,nq,hd), k and v (B,S,nkv,hd) after QK-norm and RoPE (M-RoPE
-    for (B, 3, S) positions)."""
+    for (B, 3, S) positions); this rank's heads under a split."""
+    ax = _split(cfg, params)
+    x = _enter(x, ax)
+    wk, wv = _kv_weights(cfg, params, ax)
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
-    q, k = _qk_normed(cfg, params, q, k)
+    k = _proj(x, wk)
+    v = _proj(x, wv)
+    q, k = _qk_normed(cfg, params, q, k, ax)
     if cfg.pos_embed == "rope":
         q = _rotate(cfg, q, positions)
         k = _rotate(cfg, k, positions)
     return q, k, v
 
 
-def project_cross_kv(params, ctx_k: torch.Tensor, ctx_v: torch.Tensor):
+def project_cross_kv(cfg: ModelConfig, params, ctx_k: torch.Tensor,
+                     ctx_v: torch.Tensor):
     """Cross-attention's k and v (B,T,nkv,hd) projected from the context:
     no norm and no RoPE (the products the reference's
-    ``_precompute_cross_kv_all`` caches)."""
-    return _proj(ctx_k, params["wk"]), _proj(ctx_v, params["wv"])
+    ``_precompute_cross_kv_all`` caches); this rank's heads under a
+    split."""
+    ax = _split(cfg, params)
+    wk, wv = _kv_weights(cfg, params, ax)
+    return _proj(_enter(ctx_k, ax), wk), _proj(_enter(ctx_v, ax), wv)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bsnh,nhd->bsd")``."""
     n, h, d = wo.shape
     return out.flatten(-2) @ wo.reshape(n * h, d)
+
+
+def _out(cfg: ModelConfig, params, out: torch.Tensor) -> torch.Tensor:
+    """The output projection, summed over ``"model"`` under a split
+    (row-parallel ``wo``)."""
+    y = _out_proj(out, params["wo"])
+    ax = _split(cfg, params)
+    return y if ax is None else coll.reduce(y, ax.group)
 
 
 def attend(cfg: ModelConfig, params, q, k, v, *, causal: bool = True,
@@ -145,7 +231,7 @@ def attend(cfg: ModelConfig, params, q, k, v, *, causal: bool = True,
     else:
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=cfg.attn_softcap)
-    return _out_proj(out, params["wo"])
+    return _out(cfg, params, out)
 
 
 def train_attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
@@ -217,7 +303,7 @@ def attention(
     the reference's all-ones mask does (no window)."""
     if kv is not None:
         return cross_attention(cfg, params, x,
-                               *project_cross_kv(params, *kv))
+                               *project_cross_kv(cfg, params, *kv))
     q, k, v = project_qkv(cfg, params, x, positions)
     if not causal:
         window = None
@@ -229,7 +315,9 @@ def cross_attention(cfg: ModelConfig, params, x: torch.Tensor,
     """Full-sequence cross-attention of ``x`` (B,S,d) against the context's
     projected k and v (:func:`project_cross_kv`): QK-norm on q and k, no
     RoPE, every key visible (the flash kernel with ``causal=False``)."""
-    q, k = _qk_normed(cfg, params, _proj(x, params["wq"]), k)
+    ax = _split(cfg, params)
+    q, k = _qk_normed(cfg, params, _proj(_enter(x, ax), params["wq"]), k,
+                      ax)
     return attend(cfg, params, q, k, v, causal=False)
 
 
@@ -240,19 +328,20 @@ def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def _grouped_attn(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
-    """q: (B,S,nq,hd); k,v: (B,T,nkv,hd); mask broadcastable to
-    (B,nkv,g,S,T).  Repeated KV heads are never materialized."""
-    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    """q: (B,S,nq,hd); k,v: (B,T,nkv,hd) (a rank's heads under a split);
+    mask broadcastable to (B,nkv,g,S,T).  Repeated KV heads are never
+    materialized."""
+    B, S, nq, hd = q.shape
+    nkv = k.shape[2]
     g = nq // nkv
-    B, S = q.shape[0], q.shape[1]
-    qg = q.reshape(B, S, nkv, g, cfg.hd)
-    scale = torch.tensor(cfg.hd ** -0.5, dtype=q.dtype)
+    qg = q.reshape(B, S, nkv, g, hd)
+    scale = torch.tensor(hd ** -0.5, dtype=q.dtype)
     scores = torch.einsum("bsngh,btnh->bngst", qg * scale, k)
     scores = _softcap(scores.to(f32), cfg.attn_softcap)
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bngst,btnh->bsngh", w, v)
-    return out.reshape(B, S, nq, cfg.hd)
+    return out.reshape(B, S, nq, hd)
 
 
 def decode_attention(
@@ -289,8 +378,12 @@ def decode_attention(
         back = (slot - idx) % S_cache
         p_j = pos - back
         mask = (p_j >= 0) & (pos - p_j < S_cache)
-    out = _grouped_attn(cfg, q, cache.k, cache.v, mask)
-    return _out_proj(out, params["wo"]), cache
+    # a cache kept in another dtype (bfloat16 beside float32 weights, as
+    # the step builders' prefill writes it) is read in q's, as the
+    # reference's einsum promotes it
+    out = _grouped_attn(cfg, q, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                        mask)
+    return _out(cfg, params, out), cache
 
 
 def decode_cross_attention(cfg: ModelConfig, params, x: torch.Tensor,
@@ -299,13 +392,13 @@ def decode_cross_attention(cfg: ModelConfig, params, x: torch.Tensor,
     """Decoder cross-attention of ``x`` (B,1,d) against precomputed encoder
     K/V: q-norm on q, every key visible (:func:`_grouped_attn`, as the
     reference's jnp)."""
-    q = _proj(x, params["wq"])
-    if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    ax = _split(cfg, params)
+    q, _ = _qk_normed(cfg, params, _proj(_enter(x, ax), params["wq"]), None,
+                      ax)
     mask = torch.ones((x.shape[1], cross_k.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = _grouped_attn(cfg, q, cross_k, cross_v, mask)
-    return _out_proj(out, params["wo"])
+    return _out(cfg, params, out)
 
 
 def precompute_cross_kv(cfg: ModelConfig, params, enc_out: torch.Tensor):
@@ -313,7 +406,6 @@ def precompute_cross_kv(cfg: ModelConfig, params, enc_out: torch.Tensor):
     config has QK-norm (the reference's ``precompute_cross_kv``; the
     stack's prefill caches :func:`project_cross_kv`'s, without the norm,
     as the reference's ``_precompute_cross_kv_all`` does)."""
-    k, v = project_cross_kv(params, enc_out, enc_out)
-    if cfg.qk_norm:
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    k, v = project_cross_kv(cfg, params, enc_out, enc_out)
+    _, k = _qk_normed(cfg, params, None, k, _split(cfg, params))
     return k, v

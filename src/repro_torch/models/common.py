@@ -8,9 +8,14 @@ reference's random draws come from ``jax.random`` and differ from these;
 tests that compare the two packages carry the reference's arrays over
 with :func:`repro_torch.convert.lm_params_from_arrays` instead.
 
-:func:`use_mesh` activates a mesh of ranks for the calls under it and
+:func:`use_mesh` activates a mesh of ranks for the calls under it,
 :func:`current_mesh` reads it (the MoE layers take the expert-parallel
-all-to-all under a mesh with a ``"model"`` axis).  The reference's
+all-to-all under a mesh with a ``"model"`` axis) and :func:`model_axis`
+gives the layers its ``"model"`` group, size and this rank's index.  A
+layer splits its work over ``"model"`` where its parameters are this
+rank's slices (narrower than the config's whole widths, as
+``transformer.shard_params`` cuts them); with whole parameters, or with
+no mesh, every layer is the one-rank code.  The reference's
 ``axis_rules`` also activates a rule table for its ``shard`` activation
 constraints, which have no counterpart: a rank computes on its own local
 tensors, so no layer reads a rule.
@@ -30,7 +35,8 @@ from __future__ import annotations
 import contextlib
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -40,7 +46,7 @@ from .._device import to_device
 
 __all__ = ["ParamSpec", "ParamTree", "FlatLeaf", "FlatParams", "leaves",
            "materialize", "stack_specs", "tree_map", "use_mesh",
-           "current_mesh"]
+           "current_mesh", "ModelAxis", "model_axis"]
 
 Axes = Tuple[Optional[str], ...]
 
@@ -61,6 +67,25 @@ def use_mesh(mesh):
 
 def current_mesh():
     return getattr(_ctx, "mesh", None)
+
+
+class ModelAxis(NamedTuple):
+    """The active mesh's ``"model"`` axis: its process group, its size
+    and this rank's index on it."""
+
+    group: Any
+    size: int
+    index: int
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The active mesh's ``"model"`` axis, or None without a mesh, without
+    that axis or when it holds one rank."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return ModelAxis(mesh.group("model"), mesh.shape["model"],
+                     mesh.coord("model"))
 
 
 @dataclass(frozen=True)
@@ -161,42 +186,45 @@ class ParamTree(nn.Module):
 class FlatLeaf:
     """One leaf of the reference's parameter tree inside a flat vector:
     its path, its shape there (stacked leaves keep their leading
-    ``n_periods``) and its slice ``[start, stop)``."""
+    ``n_periods``), its slice ``[start, stop)`` and whether it holds the
+    whole leaf (False for this rank's ``"model"`` slice of it)."""
 
     path: Tuple[str, ...]
     shape: Tuple[int, ...]
     start: int
     stop: int
+    whole: bool = True
 
 
 class FlatParams:
-    """Parameters as views into one flat float32 buffer, in a given order.
+    """Parameters as views into one flat float32 buffer (``dtype``; a
+    float64 one holds an exact yardstick), in a given order.
 
     ``segments`` lists, leaf by leaf, the reference path and shape of a
     leaf and the parameters that make it up, in order (a stacked leaf is
-    the same parameter of every period).  Each parameter's data is copied
-    into its slice of :attr:`theta` and rebound to that view, its
-    ``.grad`` is set to the same slice of :attr:`grad` (autograd then
-    accumulates into it in place) and it is made trainable.  So
-    :meth:`unravel` is one copy (and cast) into :attr:`theta`, and a
-    backward pass leaves the flat gradient in :attr:`grad`.  Zero it with
-    ``flat.grad.zero_()``, never ``Module.zero_grad()``, which would unbind
-    the views.
+    the same parameter of every period), and optionally whether they
+    hold the whole leaf (:attr:`FlatLeaf.whole`, default True). Each
+    parameter's data is copied into its slice of :attr:`theta` and
+    rebound to that view, its ``.grad`` is set to the same slice of
+    :attr:`grad` (autograd then accumulates into it in place) and it is
+    made trainable. So :meth:`unravel` is one copy (and cast) into
+    :attr:`theta`, and a backward pass leaves the flat gradient in
+    :attr:`grad`. Zero it with ``flat.grad.zero_()``, never
+    ``Module.zero_grad()``, which would unbind the views.
     """
 
-    def __init__(self, segments: Sequence[Tuple[Tuple[str, ...],
-                                                Tuple[int, ...],
-                                                Sequence[nn.Parameter]]]):
-        params = [p for _, _, parts in segments for p in parts]
+    def __init__(self, segments: Sequence[Tuple],
+                 dtype: torch.dtype = torch.float32):
+        params = [p for seg in segments for p in seg[2]]
         if not params:
             raise ValueError("no parameters to flatten")
         device = params[0].device
         n = sum(p.numel() for p in params)
-        self.theta = torch.empty(n, dtype=torch.float32, device=device)
-        self.grad = torch.zeros(n, dtype=torch.float32, device=device)
+        self.theta = torch.empty(n, dtype=dtype, device=device)
+        self.grad = torch.zeros(n, dtype=dtype, device=device)
         self.leaves: List[FlatLeaf] = []
         off = 0
-        for path, shape, parts in segments:
+        for path, shape, parts, *whole in segments:
             start = off
             for p in parts:
                 k = p.numel()
@@ -211,7 +239,8 @@ class FlatParams:
                 raise ValueError(f"{'/'.join(path)}: parameters hold "
                                  f"{off - start} elements, shape {shape}")
             self.leaves.append(FlatLeaf(tuple(path), tuple(shape), start,
-                                        off))
+                                        off, bool(whole[0]) if whole
+                                        else True))
         self.n = n
         self.params = params
 

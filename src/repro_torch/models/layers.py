@@ -6,6 +6,17 @@ params (a dict or :class:`~repro_torch.models.common.ParamTree` with the
 reference's keys and einsum layouts: ``wi (d, 2, f)`` for gated MLPs,
 ``embedding (vocab, d)``), so a parameter tree carried over from the JAX
 package needs no transposes.
+
+Tensor parallelism along ``"model"`` (:func:`~.common.model_axis`),
+where a rank holds slices narrower than the whole widths: an MLP's
+``wi`` (the gated ``(d, 2, f)`` layout split along ``f``) is column-
+parallel, its input entering through ``collectives.replicated_param``,
+and ``wo`` row-parallel, followed by ``collectives.reduce`` (the partial
+sums all-reduced in the activations' dtype: bfloat16 for a bfloat16
+model); the embedding is vocab-parallel (``collectives.vocab_embed``: a
+masked lookup of this rank's rows, summed over the ranks), and
+:func:`logits` returns this rank's vocabulary columns (the softcap is
+elementwise). Gemma's tied head reads the same local rows.
 """
 
 from __future__ import annotations
@@ -19,10 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import ParamSpec
+from ..distributed import collectives as coll
+from .common import ModelAxis, ParamSpec, model_axis
 
 __all__ = ["rmsnorm_spec", "rmsnorm", "mlp_spec", "mlp", "embed_spec",
-           "embed", "logits", "rope_freqs", "apply_rope", "apply_mrope",
+           "embed", "logits", "vocab_axis", "rope_freqs", "apply_rope",
+           "apply_mrope",
            "sinusoidal_positions"]
 
 f32 = torch.float32
@@ -60,10 +73,25 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
     }
 
 
-def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
+def vocab_axis(cfg: ModelConfig, n_vocab: int) -> Optional[ModelAxis]:
+    """The ``"model"`` axis when ``n_vocab`` entries (an embedding's rows,
+    logits' columns) are a rank's slice of the vocabulary."""
+    ax = model_axis()
+    return None if ax is None or n_vocab == cfg.vocab_size else ax
+
+
+def mlp(params, x: torch.Tensor, act: str,
+        d_ff: Optional[int] = None) -> torch.Tensor:
     """Gated (SwiGLU/GeGLU) or 2-matrix (GELU/ReLU²) MLP.  GELU is the
-    tanh approximation, ``jax.nn.gelu``'s default."""
+    tanh approximation, ``jax.nn.gelu``'s default.  ``d_ff``, the whole
+    hidden width, marks a rank's ``wi``/``wo`` slices (narrower) under a
+    mesh: the product is then split over ``"model"``."""
     wi = params["wi"]
+    ax = model_axis()
+    if ax is None or d_ff is None or wi.shape[-1] == d_ff:
+        ax = None
+    else:
+        x = coll.replicated_param(x, ax.group)
     if act in ("swiglu", "geglu"):
         d, _, f = wi.shape
         h = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
@@ -79,7 +107,8 @@ def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
             h = F.relu(h).square()
         else:
             raise ValueError(act)
-    return h @ params["wo"]
+    y = h @ params["wo"]
+    return y if ax is None else coll.reduce(y, ax.group)
 
 
 # --------------------------------------------------------------------- #
@@ -95,7 +124,13 @@ def embed_spec(cfg: ModelConfig) -> Dict:
 
 
 def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embedding"][tokens]
+    table = params["embedding"]
+    ax = vocab_axis(cfg, table.shape[0])
+    if ax is None:
+        x = table[tokens]
+    else:
+        x = coll.vocab_embed(table, tokens, ax.group,
+                             ax.index * table.shape[0])
     if cfg.scale_embed:
         # sqrt(d) rounded to x's dtype first, as the reference does
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -103,10 +138,13 @@ def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        out = x @ params["embedding"].T
-    else:
-        out = x @ params["unembed"]
+    """Logits over the vocabulary: this rank's columns under a split."""
+    w = (params["embedding"].T if cfg.tie_embeddings
+         else params["unembed"])
+    ax = vocab_axis(cfg, w.shape[1])
+    if ax is not None:
+        x = coll.replicated_param(x, ax.group)
+    out = x @ w
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         out = c * torch.tanh(out / c)

@@ -25,6 +25,18 @@ experts' weights are read (all ``E`` in the reference).
 The expert-parallel all-to-all is :mod:`repro_torch.models.moe_shard_map`
 (taken under a mesh with a ``"model"`` axis); ``cfg.moe.a2a`` without a
 mesh runs :func:`moe_ffn`, as in the reference.
+
+Under a mesh whose ``"model"`` ranks each hold a slice of the experts
+(``transformer.shard_params``: ``E / |model|`` experts, the ``experts ->
+model`` rule), :func:`moe_ffn` runs that slice: every rank routes all of
+its tokens with the whole router (tiny, the same on every rank), keeps
+the global capacity decisions, runs its own experts' slots, combines the
+assignments to them (the rest weigh 0) and the ranks' partial sums are
+reduced (``collectives.reduce``).  The tokens and the routing weights
+enter the experts through ``collectives.replicated_param``, whose
+backward sums the ranks' partial gradients, so the router's gradient,
+its auxiliary losses' included, is whole on every rank.  Shared experts
+split along their hidden width as a dense MLP does.
 """
 
 from __future__ import annotations
@@ -35,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import ParamSpec
+from ..distributed import collectives as coll
+from .common import ParamSpec, model_axis
 from .layers import mlp, mlp_spec
 
 __all__ = ["moe_spec", "Routing", "route", "capacity", "capacity_positions",
@@ -129,11 +142,16 @@ def capacity_positions(top_e: torch.Tensor) -> torch.Tensor:
 
 
 def _capacity_combine(cfg: ModelConfig, params, xt: torch.Tensor,
-                      r: Routing) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch into (E, C, d), the experts, and the weighted combine;
-    also the number of assignments dropped by capacity."""
+                      r: Routing, top_p: torch.Tensor,
+                      e0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch into (E, C, d), the experts, and the weighted combine
+    (weights ``top_p``); also the number of assignments dropped by
+    capacity.  ``params`` may
+    hold the experts ``[e0, e0 + E')`` only: then only their slots run
+    and the other assignments weigh 0."""
     T, d = xt.shape
     E, k = cfg.moe.padded_experts, cfg.moe.top_k
+    E_loc = params["wi"].shape[0]
     C = capacity(cfg, T)
     flat_e = r.top_e.reshape(-1)
     order, sorted_e, pos_in_e = _slots(flat_e)
@@ -145,35 +163,42 @@ def _capacity_combine(cfg: ModelConfig, params, xt: torch.Tensor,
     dst = torch.where(ok, sorted_e * C + pos_in_e,
                       E * C + torch.arange(n, device=xt.device))
     table = torch.full((E * C + n,), T, dtype=torch.long, device=xt.device)
-    table = table.scatter_(0, dst, order // k)[:E * C].view(E, C)
+    table = table.scatter_(0, dst, order // k)[e0 * C:(e0 + E_loc) * C]
     xpad = torch.cat([xt, xt.new_zeros(1, d)])
-    out_e = _expert_ffn(cfg, params, xpad[table])  # (E, C, d)
+    out_e = _expert_ffn(cfg, params, xpad[table.view(E_loc, C)])
     # combine: invert the slotting
     inv_pos = torch.empty_like(pos_in_e).scatter_(0, order, pos_in_e)
-    valid = (inv_pos < C)[:, None]
-    picked = out_e[flat_e, inv_pos.clamp(0, C - 1)]  # (T*k, d)
+    e_loc = flat_e - e0
+    valid = ((inv_pos < C) & (e_loc >= 0) & (e_loc < E_loc))[:, None]
+    picked = out_e[e_loc.clamp(0, E_loc - 1), inv_pos.clamp(0, C - 1)]
     picked = torch.where(valid, picked, picked.new_zeros(()))
     combined = torch.einsum("tkd,tk->td", picked.view(T, k, d),
-                            r.top_p.to(picked.dtype))
+                            top_p.to(picked.dtype))
     return combined, (~ok).sum()
 
 
 def _dropless_combine(cfg: ModelConfig, params, xt: torch.Tensor,
-                      r: Routing) -> torch.Tensor:
+                      r: Routing, top_p: torch.Tensor,
+                      e0: int = 0) -> torch.Tensor:
     """The reference's ``C = T`` combine on the experts the tokens picked:
-    every token through each of ``min(E, T*k)`` experts that include all
-    picked ones (the rest get no weight), then each assignment's row."""
+    every token through each of ``min(E', T*k)`` experts that include all
+    picked ones (the rest get no weight), then each assignment's row.
+    ``params`` may hold the experts ``[e0, e0 + E')`` only, as
+    :func:`_capacity_combine`'s."""
     T, d = xt.shape
-    E = cfg.moe.padded_experts
-    K = min(E, r.top_e.numel())
-    used = torch.zeros(E, dtype=torch.int32, device=xt.device)
-    used.index_fill_(0, r.top_e.reshape(-1), 1)
-    sel = torch.argsort(used, descending=True, stable=True)[:K]
+    E_loc = params["wi"].shape[0]
+    K = min(E_loc, r.top_e.numel())
+    e_loc = r.top_e - e0
+    mine = (e_loc >= 0) & (e_loc < E_loc)
+    used = torch.zeros(E_loc + 1, dtype=torch.int32, device=xt.device)
+    used.index_fill_(0, torch.where(mine, e_loc, E_loc).reshape(-1), 1)
+    sel = torch.argsort(used[:E_loc], descending=True, stable=True)[:K]
     out = _expert_ffn(cfg, {"wi": params["wi"][sel], "wo": params["wo"][sel]},
                       xt.expand(K, T, d))  # (K, T, d)
-    j = (r.top_e[..., None] == sel).to(torch.int32).argmax(-1)  # (T, k)
+    j = (e_loc[..., None] == sel).to(torch.int32).argmax(-1)  # (T, k)
     picked = out[j, torch.arange(T, device=xt.device)[:, None]]  # (T, k, d)
-    return torch.einsum("tkd,tk->td", picked, r.top_p.to(picked.dtype))
+    picked = torch.where(mine[..., None], picked, picked.new_zeros(()))
+    return torch.einsum("tkd,tk->td", picked, top_p.to(picked.dtype))
 
 
 def moe_ffn(cfg: ModelConfig, params, x: torch.Tensor,
@@ -191,13 +216,25 @@ def moe_ffn(cfg: ModelConfig, params, x: torch.Tensor,
     E = moe.padded_experts
     xt = x.reshape(T, d)
     r = route(cfg, params, xt)
+    # a rank's slice of the experts under a mesh (see the module
+    # docstring): tokens and weights enter, the partial sums are reduced
+    ax = model_axis()
+    if ax is None or params["wi"].shape[0] == E:
+        ax, xe, top_p, e0 = None, xt, r.top_p, 0
+    else:
+        xe = coll.replicated_param(xt, ax.group)
+        top_p = coll.replicated_param(r.top_p, ax.group)
+        e0 = ax.index * params["wi"].shape[0]
     if dropless:
-        combined = _dropless_combine(cfg, params, xt, r)
+        combined = _dropless_combine(cfg, params, xe, r, top_p, e0)
         dropped = torch.zeros((), dtype=torch.long, device=x.device)
     else:
-        combined, dropped = _capacity_combine(cfg, params, xt, r)
+        combined, dropped = _capacity_combine(cfg, params, xe, r, top_p, e0)
+    if ax is not None:
+        combined = coll.reduce(combined, ax.group)
     if moe.n_shared:
-        combined = combined + mlp(params["shared"], xt, cfg.ffn_act)
+        combined = combined + mlp(params["shared"], xt, cfg.ffn_act,
+                                  d_ff=moe.n_shared * cfg.d_ff)
     aux = {"moe_dropped": dropped}
     if losses:  # Switch-style load balance + router z
         me = r.probs.mean(0)  # (E,)

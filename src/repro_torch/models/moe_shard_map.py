@@ -4,7 +4,9 @@ Counterpart of ``repro.models.moe_shard_map``, which writes the exchange
 with ``shard_map`` + ``lax.all_to_all``.  Here it is one rank of an SPMD
 program over a :class:`~repro_torch.distributed.sharding.Mesh` with a
 ``"model"`` axis.  A rank is given its data rank's tokens ``x`` (the same
-on every ``"model"`` rank of that data rank) and the whole MoE weights:
+on every ``"model"`` rank of that data rank), the whole router and either
+the whole expert weights or its own ``E/|model|`` experts (the
+``experts -> model`` placement of ``transformer.shard_params``):
 
   1. it takes its ``1/|model|`` piece of the tokens (``T_loc`` rows);
   2. routes them with the full router (tiny) in float32;
@@ -18,7 +20,9 @@ on every ``"model"`` rank of that data rank) and the whole MoE weights:
   6. sends the results back with the reverse all-to-all, combines each
      token's ``k`` rows with its routing weights, and all-gathers the
      pieces over ``"model"``, so every rank leaves with the whole
-     ``(B, S, d)``; shared experts run on the whole ``x``.
+     ``(B, S, d)``; shared experts run on the whole ``x`` (split along
+     their hidden width where their weights are a rank's slices, as a
+     dense MLP's).
 
 Capacity is enforced per (source, destination) pair, ``cap =
 ceil(T_loc * k * cf / |model|)``, and per local expert, ``C2 =
@@ -29,15 +33,17 @@ index repeats.  (The reference writes dropped assignments to slot
 ``cap - 1`` with duplicate indices, which can replace the kept token
 there by the padding row: the fault ``models.moe`` also avoids.)
 
-Gradients (``distributed.collectives``): the router and expert weights
-enter as :func:`~repro_torch.distributed.collectives.replicated_param`
-(their gradient is summed over ``"model"``, so every rank holds the
-whole gradient), the token piece as ``split`` and the result leaves as
-``gather``.  So a sharded step averages gradients over the data ranks
-only.  The auxiliary losses are each rank's, averaged over every rank,
-as the reference's ``pmean``; their gradient is scaled by
+Gradients (``distributed.collectives``): the router and whole expert
+weights enter as
+:func:`~repro_torch.distributed.collectives.replicated_param` (their
+gradient is summed over ``"model"``, so every rank holds the whole
+gradient; a rank's own experts see all their tokens here, so their
+gradient is whole without a sum), the token piece as ``split`` and the
+result leaves as ``gather``. So a sharded step averages gradients over
+the data ranks only. The auxiliary losses are each rank's, averaged over
+every rank, as the reference's ``pmean``; their gradient is scaled by
 ``1/|model|`` so that this averaging over the data ranks gives the
-gradient of that mean.  ``moe_dropped`` counts the assignments of ``x``
+gradient of that mean. ``moe_dropped`` counts the assignments of ``x``
 dropped by either capacity (summed over ``"model"``).
 """
 
@@ -98,8 +104,12 @@ def moe_ffn_a2a(cfg: ModelConfig, params, x: torch.Tensor, mesh,
     # 1-2. this rank's tokens, routed over all E experts
     xt = coll.split(x.reshape(B * S, d), group)
     T_loc = xt.shape[0]
-    p = {name: coll.replicated_param(params[name], group)
-         for name in ("router", "wi", "wo")}
+    p = {"router": coll.replicated_param(params["router"], group)}
+    if params["wi"].shape[0] == E:
+        p.update({name: coll.replicated_param(params[name], group)
+                  [m * E_loc:(m + 1) * E_loc] for name in ("wi", "wo")})
+    else:  # this rank's experts
+        p.update(wi=params["wi"], wo=params["wo"])
     r = route(cfg, p, xt)
 
     # 3. per-destination send buffers (n_model, cap, d)
@@ -121,9 +131,7 @@ def moe_ffn_a2a(cfg: ModelConfig, params, x: torch.Tensor, mesh,
     n_rx = rx.shape[0]
     table2, inv2 = _slot_table(re, E_loc, C2, n_rx)
     rxpad = torch.cat([rx, rx.new_zeros(1, d)])
-    local = {"wi": p["wi"][m * E_loc:(m + 1) * E_loc],
-             "wo": p["wo"][m * E_loc:(m + 1) * E_loc]}
-    out_e = _expert_ffn(cfg, local, rxpad[table2])
+    out_e = _expert_ffn(cfg, p, rxpad[table2])
 
     # 6. back to the receive slots, the reverse exchange and the combine
     v2 = (inv2 < C2) & (re < E_loc)
@@ -137,7 +145,8 @@ def moe_ffn_a2a(cfg: ModelConfig, params, x: torch.Tensor, mesh,
                             r.top_p.to(picked.dtype))
     out = coll.gather(combined, group).view(B, S, d)
     if moe.n_shared:
-        out = out + mlp(params["shared"], x, cfg.ffn_act)
+        out = out + mlp(params["shared"], x, cfg.ffn_act,
+                        d_ff=moe.n_shared * cfg.d_ff)
 
     # auxiliary losses: each rank's, averaged over every rank
     me = r.probs.mean(0)

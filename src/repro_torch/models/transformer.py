@@ -39,10 +39,23 @@ reference computes them).  Qwen2-VL merges precomputed vision patch
 embeddings into the token stream (``vision_embeds``) and takes M-RoPE
 position ids (``positions`` (B, 3, S); ``mrope_positions`` (B, 3, 1) in
 decode).
+
+Tensor parallelism along ``"model"``: :func:`shard_params` cuts a whole
+model into a rank's slices (the rules' ``"model"`` placements of
+:func:`model_spec` with ``tp_axes``: heads, KV heads, FFN columns, the
+vocabulary and the routed experts split where the ``"model"`` size
+divides them; the router, the norms, and the Mamba and xLSTM mixers
+whole), and under ``models.common.use_mesh`` the layers split their
+products over the ranks (see :mod:`.attention`, :mod:`.layers`,
+:mod:`.moe`).  Logits are then this rank's vocabulary columns:
+:func:`lm_loss` takes a vocab-parallel cross-entropy and
+:func:`gather_logits` gathers whole ones for greedy decoding; caches hold
+the local KV heads (``init_caches(..., model=)``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -52,14 +65,15 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig, Sublayer as SublayerKind
+from ..distributed import collectives as coll
 from . import attention as attn_mod
 from . import layers as layers_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .attention import KVCache
-from .common import (FlatParams, ParamTree, current_mesh, leaves, materialize,
-                     stack_specs, tree_map)
+from .common import (FlatParams, ParamTree, current_mesh, leaves,
+                     materialize, stack_specs, tree_map, use_mesh)
 from .layers import (
     embed,
     embed_spec,
@@ -69,14 +83,16 @@ from .layers import (
     rmsnorm,
     rmsnorm_spec,
     sinusoidal_positions,
+    vocab_axis,
 )
 
 __all__ = ["check_ported", "sublayer_spec", "model_spec", "Sublayer",
            "Encoder", "DecoderLM", "CrossCache", "layer_kinds",
-           "init_params", "abstract_params", "init_caches",
+           "init_params", "abstract_params", "shard_params", "init_caches",
            "abstract_caches", "make_trainable",
            "apply_sublayer_full", "apply_sublayer_decode", "forward_train",
-           "lm_loss", "prefill", "decode_step", "clear_host_tables"]
+           "lm_loss", "gather_logits", "prefill", "decode_step",
+           "clear_host_tables"]
 
 _MIXERS = ("attn", "local", "mamba", "mlstm", "slstm")
 _FFNS = ("mlp", "moe", "none")
@@ -120,13 +136,29 @@ def _mixer_spec(cfg: ModelConfig, mixer: str) -> Dict:
     return attn_mod.attn_spec(cfg)
 
 
+#: mixers that run whole on every ``"model"`` rank (their ``"inner"``
+#: split is ROADMAP.md item 1.6c)
+WHOLE_MIXERS = ("mamba", "mlstm", "slstm")
+
+
+def _unplaced(tree):
+    return tree_map(lambda s: dataclasses.replace(
+        s, axes=(None,) * len(s.axes)), tree)
+
+
 def sublayer_spec(cfg: ModelConfig, sub: SublayerKind,
-                  cross: bool = False) -> Dict:
+                  cross: bool = False, tp_axes: bool = False) -> Dict:
+    """One layer's parameter specs.  ``tp_axes`` gives the logical axes
+    of the port's tensor-parallel placement: the same, but none on the
+    leaves that stay whole on every ``"model"`` rank (a Mamba or xLSTM
+    mixer, a MoE router)."""
     mixer, ffn = sub
     s: Dict = {
         "norm1": rmsnorm_spec(cfg.d_model),
         "mixer": _mixer_spec(cfg, mixer),
     }
+    if tp_axes and mixer in WHOLE_MIXERS:
+        s["mixer"] = _unplaced(s["mixer"])
     if cross:
         s["norm_x"] = rmsnorm_spec(cfg.d_model)
         s["cross"] = attn_mod.cross_attn_spec(cfg)
@@ -136,24 +168,27 @@ def sublayer_spec(cfg: ModelConfig, sub: SublayerKind,
     elif ffn == "moe":
         s["norm2"] = rmsnorm_spec(cfg.d_model)
         s["ffn"] = moe_mod.moe_spec(cfg)
+        if tp_axes:
+            s["ffn"]["router"] = _unplaced(s["ffn"]["router"])
     return s
 
 
-def model_spec(cfg: ModelConfig) -> Dict:
+def model_spec(cfg: ModelConfig, tp_axes: bool = False) -> Dict:
     """The reference's parameter tree: ``embed``, ``final_norm``, the
     period stacked over ``n_periods`` under ``stack`` and the remainder
     under ``rest``; an encoder-decoder's decoder layers also hold
     ``norm_x`` and ``cross``, and ``encoder`` holds its (attn, mlp) layer
-    stacked over ``n_enc_layers`` and its ``final_norm``."""
+    stacked over ``n_enc_layers`` and its ``final_norm``.  ``tp_axes``:
+    see :func:`sublayer_spec`."""
     check_ported(cfg)
     cross = cfg.kind == "encdec"
     s: Dict = {"embed": embed_spec(cfg), "final_norm": rmsnorm_spec(cfg.d_model)}
     if cfg.n_periods > 0:
         s["stack"] = stack_specs(
-            {str(i): sublayer_spec(cfg, sub, cross)
+            {str(i): sublayer_spec(cfg, sub, cross, tp_axes)
              for i, sub in enumerate(cfg.period)}, cfg.n_periods)
     s["rest"] = {
-        str(i): sublayer_spec(cfg, sub, cross)
+        str(i): sublayer_spec(cfg, sub, cross, tp_axes)
         for i, sub in enumerate(cfg.remainder)
     }
     if cross:
@@ -249,10 +284,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return DecoderLM(cfg, emb, layers, final, encoder)
 
 
-def abstract_params(cfg: ModelConfig, dtype=None) -> DecoderLM:
+def abstract_params(cfg: ModelConfig, dtype=None, mesh=None,
+                    rules=None) -> DecoderLM:
     """:func:`init_params`' model on the meta device: every parameter's
     shape and dtype (``cfg.param_dtype`` unless ``dtype``), no storage
-    (the dry run's parameters; the reference's ``abstract_params``)."""
+    (the dry run's parameters; the reference's ``abstract_params``);
+    with ``mesh``, the rank's slices (:func:`shard_params`)."""
+    if mesh is not None:
+        return shard_params(abstract_params(cfg, dtype), mesh, rules)
     check_ported(cfg)
     dt = dtype or getattr(torch, cfg.param_dtype)
 
@@ -272,24 +311,64 @@ def abstract_params(cfg: ModelConfig, dtype=None) -> DecoderLM:
                      mk(rmsnorm_spec(cfg.d_model)), encoder)
 
 
+def _tree_of(module: ParamTree) -> Dict:
+    return {k: (_tree_of(module[k]) if isinstance(module[k], ParamTree)
+                else module[k].detach()) for k in module.keys()}
+
+
+def shard_params(params: DecoderLM, mesh, rules=None) -> DecoderLM:
+    """This rank's tensor-parallel slices of a whole model: every
+    parameter cut along ``"model"`` as the ``"model"`` part of ``rules``
+    (default the baseline's) places :func:`model_spec`'s leaves with
+    ``tp_axes`` (``distributed.sharding.model_slice``), copied, so the
+    whole model can be freed.  Leaves stay whole along the data axes."""
+    from ..distributed.sharding import (BASE_RULES, model_rules,
+                                        model_slice, spec_tree_to_shardings)
+
+    cfg = params.cfg
+    rules = model_rules(BASE_RULES if rules is None else rules)
+    cross = cfg.kind == "encdec"
+
+    def cut(module, spec):
+        shard = spec_tree_to_shardings(spec, rules, mesh)
+        return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format),
+                        model_slice(_tree_of(module), shard))
+
+    encoder = None
+    if params.encoder is not None:
+        encoder = ([cut(layer, sublayer_spec(cfg, ENC_SUBLAYER, tp_axes=True))
+                    for layer in params.encoder.layers],
+                   cut(params.encoder.final_norm, rmsnorm_spec(cfg.d_model)))
+    return DecoderLM(
+        cfg, cut(params.embed, embed_spec(cfg)),
+        [cut(layer, sublayer_spec(cfg, layer.kind, cross, tp_axes=True))
+         for layer in params.layers],
+        cut(params.final_norm, rmsnorm_spec(cfg.d_model)), encoder)
+
+
 def _param_at(tree, path: Sequence[str]) -> nn.Parameter:
     for k in path:
         tree = tree[k]
     return tree
 
 
-def make_trainable(params: DecoderLM) -> FlatParams:
+def make_trainable(params: DecoderLM,
+                   dtype: torch.dtype = torch.float32) -> FlatParams:
     """Bind every parameter of ``params`` into one flat buffer laid out as
     the reference's ``ravel_pytree`` of its parameter tree: the leaves in
     sorted-key order (``embed``, ``encoder`` where there is one,
     ``final_norm``, ``rest``, ``stack``), a stacked leaf being the same
-    parameter of every period (every encoder layer), period by period.  The parameters become trainable views (see
+    parameter of every period (every encoder layer), period by period;
+    a rank's slices (:func:`shard_params`) in their local shapes, each
+    :class:`~repro_torch.models.common.FlatLeaf` saying whether it is
+    whole.  The parameters become trainable views (see
     :class:`~repro_torch.models.common.FlatParams`); the result is kept as
     ``params.flat``, and a second call returns it while its parameters
     are still bound to it; a copy (``copy.deepcopy``, ``Module.to``) of a
-    trainable model gets a new flat buffer holding its current values."""
+    trainable model gets a new flat buffer holding its current values.
+    ``dtype``: the buffers' (float32, the port's training dtype)."""
     flat = getattr(params, "flat", None)
-    if flat is not None and flat.bound():
+    if flat is not None and flat.bound() and flat.theta.dtype == dtype:
         return flat
     cfg = params.cfg
     L, n_stacked = len(cfg.period), cfg.n_periods * len(cfg.period)
@@ -312,13 +391,17 @@ def make_trainable(params: DecoderLM) -> FlatParams:
         else:  # "rest"
             parts = [_param_at(params.layers[n_stacked + int(rest[0])],
                                rest[1:])]
-        segments.append((path, spec.shape, parts))
-    params.flat = FlatParams(segments)
+        # a rank's slice of a leaf has its local shape
+        shape = tuple(parts[0].shape)
+        if len(spec.shape) > len(shape):  # stacked over periods / layers
+            shape = (len(parts),) + shape
+        segments.append((path, shape, parts, shape == tuple(spec.shape)))
+    params.flat = FlatParams(segments, dtype)
     return params.flat
 
 
 def _sublayer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
-                    dtype, device) -> Cache:
+                    dtype, device, model: int = 1) -> Cache:
     if mixer == "mamba":
         return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
     if mixer == "mlstm":
@@ -327,38 +410,44 @@ def _sublayer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
         return xlstm_mod.init_slstm_state(cfg, batch, device)
     return attn_mod.init_cache(cfg, batch, max_len,
                                cfg.window if mixer == "local" else None,
-                               dtype, device)
+                               dtype, device,
+                               attn_mod.local_heads(cfg, model)[1])
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                device=None) -> List[Cache]:
+                device=None, model: int = 1) -> List[Cache]:
     """One empty decode cache per layer on ``device`` (None: the card): a
     KV cache for attention (a ring buffer for local layers), a Mamba
     state (its conv window in ``dtype``, its ssm state float32), a
     float32 mLSTM or sLSTM state.  An encoder-decoder's
     layers get a :class:`CrossCache` whose cross K/V hold one zero
     position (the reference's placeholder: the encoder's length is known
-    at prefill, which writes its K/V)."""
+    at prefill, which writes its K/V).  ``model``: the ``"model"`` size of
+    a tensor-parallel rank, whose KV caches hold its local heads
+    (``attention.local_heads``); recurrent states stay whole."""
     device = resolve_device(device)
-    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, device)
+    n_kv = attn_mod.local_heads(cfg, model)[1]
+    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, device,
+                              model)
               for mixer, _ in layer_kinds(cfg)]
     if cfg.kind == "encdec":
         caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, 1, None,
-                                                    dtype, device))
+                                                    dtype, device, n_kv))
                   for c in caches]
     return caches
 
 
 def abstract_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                    enc_len: int = 1) -> List[Cache]:
+                    enc_len: int = 1, model: int = 1) -> List[Cache]:
     """:func:`init_caches`' caches on the meta device (no storage); an
     encoder-decoder's cross K/V hold ``enc_len`` positions."""
     meta = torch.device("meta")
-    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, meta)
+    n_kv = attn_mod.local_heads(cfg, model)[1]
+    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, meta, model)
               for mixer, _ in layer_kinds(cfg)]
     if cfg.kind == "encdec":
         caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, enc_len,
-                                                    None, dtype, meta))
+                                                    None, dtype, meta, n_kv))
                   for c in caches]
     return caches
 
@@ -393,7 +482,7 @@ def _apply_ffn(cfg, params, sub, x, aux: Optional[Dict], decode=False):
         if aux is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     else:
-        out = mlp(params["ffn"], h, cfg.ffn_act)
+        out = mlp(params["ffn"], h, cfg.ffn_act, d_ff=cfg.d_ff)
     return x + out, aux
 
 
@@ -445,7 +534,7 @@ def apply_sublayer_full(
     x = x + out
     if cross_kv is not None:
         hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
-        ck, cv = attn_mod.project_cross_kv(params["cross"], *cross_kv)
+        ck, cv = attn_mod.project_cross_kv(cfg, params["cross"], *cross_kv)
         x = x + attn_mod.cross_attention(cfg, params["cross"], hx, ck, cv)
         if collect_cache:
             new_cache = CrossCache(new_cache, KVCache(ck, cv))
@@ -491,7 +580,7 @@ def _prefill_kv_cache(cfg, k, v, window, max_len, dtype) -> KVCache:
     """The decode cache of one layer from its prefill K/V (after RoPE)."""
     B, S = k.shape[0], k.shape[1]
     cache = attn_mod.init_cache(cfg, B, max_len, window, dtype or k.dtype,
-                                k.device)
+                                k.device, k.shape[2])
     S_c = cache.k.shape[1]
     if window is None or S <= S_c:
         cache.k[:, :S] = k
@@ -628,6 +717,14 @@ def _period(cfg, layers, positions, cross_kv, x, *aux):
     return (x, *aux.values())
 
 
+def _period_on(mesh, *args):
+    """:func:`_period` under ``mesh``: a period recomputed in the backward
+    pass (which may run outside the caller's ``use_mesh``, or on
+    autograd's own thread) splits its work as its forward did."""
+    with use_mesh(mesh):
+        return _period(*args)
+
+
 def forward_train(cfg: ModelConfig, params: DecoderLM,
                   batch: Dict) -> Tuple[torch.Tensor, Dict]:
     """Teacher-forced logits over the full sequence (float32) and the
@@ -643,9 +740,11 @@ def forward_train(cfg: ModelConfig, params: DecoderLM,
     aux = tuple(x.new_zeros((), dtype=torch.float32) for _ in ZERO_AUX)
     L = len(cfg.period)
     recompute = torch.is_grad_enabled()
+    mesh = current_mesh()
     for p in range(cfg.n_periods):
-        fn = functools.partial(_period, cfg, params.layers[p * L:(p + 1) * L],
-                               positions, cross_kv)
+        fn = functools.partial(_period_on, mesh, cfg,
+                               params.layers[p * L:(p + 1) * L], positions,
+                               cross_kv)
         x, *aux = (checkpoint(fn, x, *aux, use_reentrant=False) if recompute
                    else fn(x, *aux))
     x, *aux = _period(cfg, params.layers[cfg.n_periods * L:], positions,
@@ -661,17 +760,31 @@ def lm_loss(cfg: ModelConfig, params: DecoderLM,
     auxiliary losses; returns ``(total, aux)`` with ``aux["ce_loss"]``."""
     logits, aux = forward_train(cfg, params, batch)
     tgt = batch["tokens"][:, 1:].long()
-    ll = torch.log_softmax(logits[:, :-1], dim=-1)
-    loss = -torch.gather(ll, -1, tgt[..., None])[..., 0].mean()
+    ax = vocab_axis(cfg, logits.shape[-1])
+    if ax is None:
+        ll = torch.log_softmax(logits[:, :-1], dim=-1)
+        loss = -torch.gather(ll, -1, tgt[..., None])[..., 0].mean()
+    else:  # this rank's vocabulary columns
+        loss = coll.vocab_cross_entropy(logits[:, :-1], tgt, ax.group,
+                                        ax.index * logits.shape[-1]).mean()
     total = loss + sum(aux.values())
     return total, dict(aux, ce_loss=loss)
+
+
+def gather_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Whole-vocabulary logits from this rank's columns (all-gathered
+    over ``"model"``; the same tensor without a split), for greedy
+    decoding."""
+    ax = vocab_axis(cfg, logits.shape[-1])
+    return logits if ax is None else coll.all_gather(logits, ax.group, -1)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict, max_len: int,
             cache_dtype=None):
-    """Full forward emitting the last position's logits (B, 1, vocab) and
-    one decode cache per layer (:func:`init_caches`' kinds; an
+    """Full forward emitting the last position's logits (B, 1, vocab; a
+    rank's columns under a vocabulary split) and one decode cache per
+    layer (:func:`init_caches`' kinds; an
     encoder-decoder's hold the cross K/V of the encoder run on
     ``batch["audio_embeds"]``)."""
     cross_kv = _cross_context(cfg, params, batch)

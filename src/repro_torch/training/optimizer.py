@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import host_float
+from ..distributed import collectives as coll
 from ..models.common import FlatParams
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "lr_schedule",
@@ -99,9 +100,23 @@ def _chunks(params: FlatParams, lo: int, hi: int):
             yield s, min(s + _CHUNK, b), decay
 
 
+def _split_sq(grads: torch.Tensor, params: FlatParams,
+              lo: int) -> torch.Tensor:
+    """The sum of squares of ``grads`` (θ's ``[lo, lo + len)``) over the
+    leaves that are a rank's slices (:attr:`FlatLeaf.whole` False)."""
+    sq = grads.new_zeros((), dtype=f32)
+    hi = lo + grads.numel()
+    for leaf in params.leaves:
+        a, b = max(leaf.start, lo), min(leaf.stop, hi)
+        if not leaf.whole and a < b:
+            sq = sq + global_norm(grads[a - lo:b - lo]).square()
+    return sq
+
+
 @torch.no_grad()
 def adamw_update(grads: torch.Tensor, state: AdamWState, params: FlatParams,
-                 cfg: AdamWConfig, *, lo: int = 0, group=None
+                 cfg: AdamWConfig, *, lo: int = 0, group=None,
+                 count_whole: bool = True
                  ) -> Tuple[FlatParams, AdamWState, Dict[str, float]]:
     """One AdamW step on ``params.theta`` and the moments, in place.
     ``grads`` is a flat gradient (float32, or ``state_dtype`` when it was
@@ -111,15 +126,17 @@ def adamw_update(grads: torch.Tensor, state: AdamWState, params: FlatParams,
     A sharded step (ZeRO over the flat buffer) passes one rank's chunk:
     ``grads``, ``state.m`` and ``state.v`` then cover ``theta[lo:lo +
     len(grads)]`` only, and the gradient's global norm sums the squares
-    of every chunk over the process group ``group``."""
+    of every chunk over the process group ``group``.  Where ranks along
+    ``"model"`` hold slices of θ, ``group`` spans them too and a whole
+    leaf (the same on each of them) counts on one of them only: the
+    others pass ``count_whole=False``."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if count_whole:
+        gnorm = global_norm(grads)
+    else:
+        gnorm = _split_sq(grads, params, lo).sqrt()
     if group is not None:
-        import torch.distributed as dist
-
-        sq = gnorm.square()
-        dist.all_reduce(sq, group=group)
-        gnorm = sq.sqrt()
+        gnorm = coll.all_reduce_sum(gnorm.square(), group).sqrt()
     scale = None
     if cfg.grad_clip is not None:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)

@@ -583,10 +583,14 @@ def test_dryrun_cli_one_cell_and_multi_pod(tmp_path, capsys):
     assert len(list(tmp_path.glob("*.json"))) == 1
     assert dryrun.main(["--arch", "gemma_2b", "--shape", "long_500k"]) == 0
     assert "SKIP" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="1.6"):
-        dryrun.main(["--all", "--multi-pod"])
-    with pytest.raises(NotImplementedError, match="1.6"):
-        dryrun.run_cell("gemma_2b", "train_4k", multi_pod=True)
+    assert dryrun.main(["--arch", "gemma_2b", "--shape", "decode_32k",
+                        "--multi-pod"]) == 0
+    line = capsys.readouterr().out
+    assert "[gemma_2b x decode_32k x 2x16x16 x baseline] OK" in line
+    assert "all-reduce:n=" in line
+    rec = dryrun.run_cell("gemma_2b", "decode_32k", multi_pod=True,
+                          verbose=False)
+    assert rec["n_devices"] == 512 and rec["collective_s"] > 0
 
 
 def test_variants():
