@@ -263,8 +263,28 @@ and no result line is printed):
    slices, within 1e-4; the loss falls over ``TP_TRAIN_STEPS`` steps).
    NCCL with two ranks is not run: it refuses two ranks on one card;
 26. multi-rank dry run — ``[dryrun-mesh]``: ``DRYRUN_MESH_CELLS`` at
-   16x16 and 2x16x16, traced in a process that sees no card beside
-   ``[tp]``: both byte counts, the collectives and the three terms.
+   16x16 and 2x16x16 (and Jamba ``decode_32k``, xLSTM ``long_500k`` at
+   16x16), traced in a process that sees no card beside ``[tp]`` and
+   ``[tp-inner]``: both byte counts, the collectives and the three terms;
+27. the ``"inner"`` split and sequence-split caches — ``[tp-inner]``:
+   two processes on the card over ``gloo`` at mesh (1, 2), each
+   building only its slices from the seed (``init_params(mesh=)``):
+   Jamba-1.5-Large at its published widths, depth 5 (every sublayer
+   kind), bfloat16, a 2 x 8192 prefill and ``TPI_DECODE`` decode steps:
+   4 ``selective_scan`` launches a rank at (2, 8192, 8192) and one flash
+   launch at q (2, 8192, 32, 128), the collectives of one prefill equal
+   to the dry run's count, seconds a prefill, ms a decode step and peak
+   memory a process; the same widths at depth 2 with every sublayer kind
+   (``TPI_PARITY_LAYERS``) against the one-rank run in float32 (1e-4)
+   and, in bfloat16, no further from that float32 answer than
+   ``TPI_BF16_FACTOR`` times the one-rank bfloat16 run's; xLSTM-125M
+   whole, float32, 2 x 1024 + ``TPI_DECODE`` steps, no further from the
+   float64 run of the same weights than ``TPI_XLSTM_FACTOR`` times the
+   one-rank float32 run's; and Gemma-3-4B's batch-1 decode against
+   524,288-position caches filled from a seed (no prefill), each rank
+   holding half the positions of every layer under
+   ``long_decode_rules``, ``TPI_LONG_STEPS`` steps, no further from the
+   float32 run's logits than ``TP_EXACT_FACTOR`` times one rank's.
 
 To fit a 900 s time limit on one H100, the runs that repeat a main path under
 another feature take ``SIDE_UPDATES`` updates (200 before ``[tp]`` was
@@ -714,11 +734,25 @@ def scan_row(torch, dev, bound, fp32):
               f"selective_scan {part}: kernel max/RMS {km:.3e}/{kr:.3e} vs "
               f"float64 beyond {SCAN_ERR_FACTOR} x the plain float32 scan's "
               f"{pm:.3e}/{pr:.3e}")
+    # a (1, 2) rank's channels ([tp-inner]'s prefill): the first half
+    rdi = di // TPI_MESH[1]
+    rargs = (dt[..., :rdi].contiguous(), xc[..., :rdi].contiguous(), Bm, Cm,
+             A[:rdi].contiguous())
+    y_rank = y[..., :rdi].clone()
     del y, h
     torch.cuda.empty_cache()
 
     def kernel():
         return ops.selective_scan(dt, xc, Bm, Cm, A)
+
+    def kernel_rank():
+        return ops.selective_scan(*rargs)
+
+    rank_err = float((kernel_rank()[0] - y_rank).abs().max())
+    check(rank_err == 0.0, f"selective_scan at a rank's channels: "
+          f"{rank_err:.3e} from the whole call's")
+    r_bytes, r_flops, r_exp = selective_scan_work(B, S, rdi, ds, 2)
+    rb_ms, rb_by = bound(r_bytes, r_flops, fp32)
 
     Bv, Cv = scan_inputs(torch, dev, gen, B, S, di, ds, torch.bfloat16,
                          proj=SCAN_PROJ)[2:4]
@@ -763,6 +797,17 @@ def scan_row(torch, dev, bound, fp32):
     row.update(bound_share=b_ms / row["ms"],
                device_bound_share=b_ms / row["device_ms"],
                exp_floor_share=exp_ms / row["device_ms"])
+    rank = dict(shape=[B, S, rdi, ds, "bfloat16"],
+                ms=time_ms(torch, kernel_rank),
+                device_ms=device_profile(torch, kernel_rank)[0],
+                plain_ms=time_ms(torch, lambda: ref.selective_scan(
+                    *rargs, chunk=JAMBA_SSM_CHUNK), reps=1, warmup=1),
+                bound_ms=rb_ms, bound_by=rb_by, bytes=r_bytes,
+                exp_floor_ms=exp_floor_ms(r_exp, sms, clock),
+                max_abs_err_vs_whole=rank_err)
+    rank.update(bound_share=rb_ms / rank["ms"],
+                device_bound_share=rb_ms / rank["device_ms"])
+    row["rank"] = rank
     print(f"[kernels] selective_scan sweep ({len(SCAN_SWEEP)} shapes x d_state"
           f" 8/16 x float32/bfloat16 x h0): max rel err {sweep_err:.2e} "
           f"(tol 1e-05)")
@@ -782,7 +827,15 @@ def scan_row(torch, dev, bound, fp32):
           f"{n_exp:.3e} exponentials at 16 a clock an SM, {sms} SMs, "
           f"{clock / 1e6:.0f} MHz: {exp_ms:.4f} ms "
           f"({100 * row['exp_floor_share']:.1f}% of the device time)")
-    del dt, xc, Bm, Cm, A, Bv, Cv
+    print(f"[kernels] selective_scan at a {TPI_MESH} rank's channels "
+          f"{rank['shape']}: equal to the whole call's channels; kernel "
+          f"{rank['ms']:.4f} ms (device {rank['device_ms']:.4f}), plain at "
+          f"chunk {JAMBA_SSM_CHUNK} {rank['plain_ms']:.3f} ms; bound "
+          f"{rb_ms:.4f} ms ({rb_by}, {100 * rank['bound_share']:.1f}% by "
+          f"events, {100 * rank['device_bound_share']:.1f}% by device "
+          f"time); exponentials' floor {rank['exp_floor_ms']:.4f} ms at "
+          f"{sms} SMs")
+    del dt, xc, Bm, Cm, A, Bv, Cv, rargs, y_rank
     torch.cuda.empty_cache()
     return row
 
@@ -3845,7 +3898,9 @@ TP_TRAIN_TOL = 1e-4
 DRYRUN_MESH_CELLS = [(arch, shape, mesh) for mesh in ("16x16", "2x16x16")
                      for arch, shape in (("gemma2_2b", "train_4k"),
                                          ("qwen2_moe_a2p7b", "prefill_32k"),
-                                         ("gemma3_4b", "long_500k"))]
+                                         ("gemma3_4b", "long_500k"))] + [
+    ("jamba_1p5_large_398b", "decode_32k", "16x16"),
+    ("xlstm_125m", "long_500k", "16x16")]
 
 
 def _tp_logits(torch, cfg, params, tokens, nxt, max_len):
@@ -4114,6 +4169,456 @@ def phase_tp(torch, dev):
     check(losses[-1] < losses[0], f"tp: the loss did not fall {losses}")
 
 
+# --------------------------------------------------------------------- #
+# [tp-inner]: the "inner" split of Mamba and xLSTM, sequence-split caches
+# --------------------------------------------------------------------- #
+#: [tp-inner]: its mesh, decode steps, time limit (s), Jamba's depth
+TPI_MESH, TPI_DECODE, TPI_TIMEOUT, TPI_JAMBA_DEPTH = (1, 2), 8, 420, 5
+#: the parity runs: Jamba's widths at depth 2 with every sublayer kind
+#: (one (mamba, moe) and one (attn, mlp) layer), 4 experts (16 at depth
+#: 2 hold 39 GB in float32 alone), 2 x 2048 tokens; float32 within
+#: ``TPI_F32_TOL`` of one rank's run
+TPI_PARITY_LAYERS = (("mamba", "moe"), ("attn", "mlp"))
+TPI_PARITY_EXPERTS, TPI_PARITY_PROMPT, TPI_F32_TOL = 4, 2048, 1e-4
+#: the parity run in bfloat16: its distance from the float32 answer (the
+#: same weights upcast, one rank) at most this many times one rank's.
+#: Each partial sum a rank all-reduces (``x_proj``'s, ``out_proj``'s,
+#: the FFN's, ``wo``'s) is rounded to bfloat16 once before the sum, one
+#: rounding more than one rank's product takes; ``x_proj``'s feeds dt's
+#: exponentials.  Measured (NVIDIA H100 80GB HBM3, 700.00 W): 1.32x
+#: (1.514e-2 against 1.145e-2), where [tp]'s Gemma-2 gives 1.00-1.10x
+TPI_BF16_FACTOR = 2.0
+#: xLSTM-125M (float32, 2 x 1024): the (1, 2) run's distance from the
+#: float64 run of the same weights at most this many times the one-rank
+#: float32 run's (the model amplifies float32 rounding: [lm-xlstm-parity])
+TPI_XLSTM_PROMPT, TPI_XLSTM_FACTOR = 1024, 2.0
+#: batch-1 long decode: Gemma-3-4B against caches of this many positions
+#: filled from a seed, this many steps
+TPI_LONG_ARCH, TPI_LONG_LEN, TPI_LONG_STEPS = "gemma3_4b", 524288, 4
+
+
+def _barrier(torch, mesh, dev):
+    from repro_torch.distributed import collectives as coll
+
+    coll.all_reduce_sum(torch.zeros(1, device=dev), mesh.group("model"))
+
+
+def _tpi_run(torch, cfg, params, tokens, nxt, mesh=None, rules=None):
+    """Prefill and teacher-forced decode logits (float32, gathered over the
+    vocabulary), one rank's or under ``mesh``."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import use_mesh
+
+    B, S = tokens.shape
+    with use_mesh(mesh, rules, B), torch.no_grad():
+        logits, caches = tf.prefill(cfg, params, {"tokens": tokens},
+                                    max_len=S + nxt.shape[0])
+        out = [tf.gather_logits(cfg, logits).float()]
+        for t in range(nxt.shape[0]):
+            logits, caches = tf.decode_step(cfg, params, caches, nxt[t],
+                                            S + t)
+            out.append(tf.gather_logits(cfg, logits).float())
+    return out
+
+
+def _tpi_tokens(torch, dev, cfg, B, S, steps):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return (torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                          device=dev),
+            torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen,
+                          device=dev))
+
+
+def _tpi_parity(torch, dev, mesh):
+    """Jamba's widths at depth 2 (``TPI_PARITY_LAYERS``), bfloat16 weights:
+    model rank 0 runs the whole model, and its float32 answer (the same
+    weights upcast), then both ranks their slices of the same draws, in
+    bfloat16 and upcast; rank 0 returns each run's distances."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    base = get_config(LM_JAMBA)
+    cfg = dataclasses.replace(
+        base, n_layers=len(TPI_PARITY_LAYERS), period=TPI_PARITY_LAYERS,
+        moe=dataclasses.replace(base.moe, n_experts=TPI_PARITY_EXPERTS,
+                                pad_to=TPI_PARITY_EXPERTS))
+    tokens, nxt = _tpi_tokens(torch, dev, cfg, LM_BATCH, TPI_PARITY_PROMPT,
+                              TPI_DECODE)
+    one = mesh.coord("model") == 0
+    want, got = {}, {}
+    if one:
+        whole = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16, device=dev)
+        want[torch.bfloat16] = _tpi_run(torch, cfg, whole, tokens, nxt)
+        want[torch.float32] = _tpi_run(torch, cfg, whole.float(), tokens,
+                                       nxt)
+        del whole
+        torch.cuda.empty_cache()
+    _barrier(torch, mesh, dev)
+    mine = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.bfloat16, device=dev, mesh=mesh)
+    got[torch.bfloat16] = _tpi_run(torch, cfg, mine, tokens, nxt, mesh)
+    got[torch.float32] = _tpi_run(torch, cfg, mine.float(), tokens, nxt, mesh)
+    del mine
+    torch.cuda.empty_cache()
+    out = dict(logits=[g.cpu() for g in got[torch.bfloat16]])
+    if one:
+        f32 = want[torch.float32]
+        out.update(f32=_rel_max(got[torch.float32], f32),
+                   one_bf16=_rel_max(want[torch.bfloat16], f32),
+                   mine_bf16=_rel_max(got[torch.bfloat16], f32))
+    return out
+
+
+def _tpi_jamba(torch, dev, mesh):
+    """Jamba at its published widths, depth ``TPI_JAMBA_DEPTH``, bfloat16,
+    the rank's slices drawn leaf by leaf: one timed prefill (launches and
+    their shapes, collectives, seconds) and ``TPI_DECODE`` timed decode
+    steps; the process's peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import BASE_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import use_mesh
+
+    cfg = dataclasses.replace(get_config(LM_JAMBA), n_layers=TPI_JAMBA_DEPTH)
+    B, S = LM_BATCH, LM_PROMPT
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, mesh=mesh)
+    tokens, nxt = _tpi_tokens(torch, dev, cfg, B, S, TPI_DECODE)
+    shapes = {"selective_scan": set(), "flash_attention": set()}
+    real = {k: getattr(ops, k) for k in shapes}
+
+    def spy(name):
+        def fn(*a, **kw):
+            shapes[name].add(tuple(a[0].shape) if name == "selective_scan"
+                             else (tuple(a[0].shape), tuple(a[1].shape)))
+            return real[name](*a, **kw)
+        return fn
+
+    for k in shapes:
+        setattr(ops, k, spy(k))
+    try:
+        with use_mesh(mesh, BASE_RULES, B), torch.no_grad():
+            # a short warm-up (kernels loaded, the collectives' first
+            # use), then the timed prefill
+            tf.prefill(cfg, params, {"tokens": tokens[:, :256]},
+                       max_len=256 + TPI_DECODE)
+            _barrier(torch, mesh, dev)
+            for v in shapes.values():
+                v.clear()
+            ops.reset_launch_counts()
+            with coll.tally() as moved:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = tf.prefill(cfg, params, {"tokens": tokens},
+                                            max_len=S + TPI_DECODE)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            launches = {k: v for k, v in ops.launch_counts().items()
+                        if k in shapes}
+            out = [tf.gather_logits(cfg, logits).float()]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(TPI_DECODE):
+                logits, caches = tf.decode_step(cfg, params, caches, nxt[t],
+                                                S + t)
+                out.append(tf.gather_logits(cfg, logits).float())
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / TPI_DECODE
+    finally:
+        for k, fn in real.items():
+            setattr(ops, k, fn)
+    return dict(prefill_s=secs, decode_ms=step_ms,
+                peak=torch.cuda.max_memory_allocated(), launches=launches,
+                shapes={k: sorted(v) for k, v in shapes.items()},
+                moved=moved, finite=all(bool(torch.isfinite(o).all())
+                                        for o in out),
+                n_params=sum(p.numel() for p in params.parameters()),
+                logits=[o.cpu() for o in out])
+
+
+@contextlib.contextmanager
+def _float64_points(torch):
+    """The layers' float32 points in float64 (``xlstm.f32`` as
+    [lm-xlstm-parity] sets it, and its neighbours'), so that a float64
+    model computes in float64 throughout."""
+    from repro_torch.models import attention, layers, mamba, moe, xlstm
+    from repro_torch.models import transformer as tf
+
+    mods = (layers, attention, mamba, xlstm, moe)
+    tf.clear_host_tables()
+    for m in mods:
+        m.f32 = torch.float64
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.f32 = torch.float32
+        tf.clear_host_tables()
+
+
+def _tpi_xlstm(torch, dev, mesh):
+    """xLSTM-125M whole in float32: model rank 0 runs the whole model and
+    its float64 answer, then both ranks their slices (heads split)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(LM_XLSTM)
+    tokens, nxt = _tpi_tokens(torch, dev, cfg, LM_BATCH, TPI_XLSTM_PROMPT,
+                              TPI_DECODE)
+    one = mesh.coord("model") == 0
+    out = {}
+    if one:
+        whole = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.float32, device=dev)
+        want = _tpi_run(torch, cfg, whole, tokens, nxt)
+        with _float64_points(torch):
+            want64 = _tpi_run(torch, cfg, whole.double(), tokens, nxt)
+        del whole
+        torch.cuda.empty_cache()
+    _barrier(torch, mesh, dev)
+    mine = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.float32, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = _tpi_run(torch, cfg, mine, tokens, nxt, mesh)
+    torch.cuda.synchronize()
+    out.update(secs=time.perf_counter() - t0, logits=[g.cpu() for g in got],
+               finite=all(bool(torch.isfinite(g).all()) for g in got))
+    if one:
+        out.update(one=_rel_max(want, want64), mine=_rel_max(got, want64),
+                   vs_one=_rel_max(got, want))
+    return out
+
+
+def _tpi_caches(torch, dev, cfg, gen, dtype):
+    """Gemma-3's whole decode caches at ``TPI_LONG_LEN`` positions, filled
+    layer by layer from ``gen`` (standard normal, K and V)."""
+    from repro_torch.models import transformer as tf
+
+    caches = tf.init_caches(cfg, 1, TPI_LONG_LEN, dtype, device=dev)
+    for c in caches:
+        for t in c:
+            t.normal_(generator=gen)
+    return caches
+
+
+def _tpi_long(torch, dev, mesh):
+    """Batch-1 decode against 524,288-position caches under
+    ``long_decode_rules``: model rank 0 runs one rank's decode in
+    bfloat16 and with the same weights upcast to float32 on the same
+    caches, then both ranks their halves in bfloat16."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import long_decode_rules
+    from repro_torch.launch import inputs, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import use_mesh
+
+    cfg = get_config(TPI_LONG_ARCH)
+    rules = long_decode_rules()
+    L, n = TPI_LONG_LEN, TPI_LONG_STEPS
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (n, 1, 1), generator=gen,
+                         device=dev)
+    one = mesh.coord("model") == 0
+    out = {}
+
+    def fresh():  # every run starts from the same seeded caches (a ring
+        # slot a run writes would look valid to the next one)
+        return _tpi_caches(torch, dev, cfg,
+                           torch.Generator(device=dev).manual_seed(5),
+                           torch.bfloat16)
+
+    if one:
+        runs = {}
+        params = tf.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            params, cs, logits = params.to(dtype), fresh(), []
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(n):
+                    lg, cs = tf.decode_step(cfg, params, cs, toks[t],
+                                            L - n + t)
+                    logits.append(lg.float())
+                torch.cuda.synchronize()
+            runs[dtype] = (logits, (time.perf_counter() - t0) * 1e3 / n)
+            del cs
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    mine = tf.shard_caches(cfg, fresh(), mesh, rules, batch=1)
+    torch.cuda.empty_cache()
+    _barrier(torch, mesh, dev)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, mesh=mesh)
+    decode = steps.build_decode(cfg, inputs.ShapeSpec("long", L, 1, "decode"),
+                                mesh, rules)[0]
+    got = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs = mine
+    for t in range(n):
+        lg, cs = decode(params, cs, toks[t], L - n + t)
+        with use_mesh(mesh):
+            got.append(tf.gather_logits(cfg, lg).float())
+    torch.cuda.synchronize()
+    out.update(step_ms=(time.perf_counter() - t0) * 1e3 / n,
+               cache_bytes=sum(t.numel() * t.element_size()
+                               for c in mine for t in c),
+               split=[type(c).__name__ for c in mine],
+               logits=[g.cpu() for g in got])
+    if one:
+        f32, ms32 = runs[torch.float32]
+        bf16, ms16 = runs[torch.bfloat16]
+        out.update(one=_rel_max(bf16, f32), mine=_rel_max(got, f32),
+                   vs_one=_rel_max(got, bf16), one_ms=ms16, f32_ms=ms32)
+    return out
+
+
+def _tpi_rank(rank, world, out_dir, device):
+    """One of [tp-inner]'s processes on ``device``."""
+    import torch
+    from repro_torch.distributed.sharding import make_mesh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(TPI_MESH, ("data", "model"))
+    res = {}
+    for key, fn in (("parity", _tpi_parity), ("jamba", _tpi_jamba),
+                    ("xlstm", _tpi_xlstm), ("long", _tpi_long)):
+        t0 = time.perf_counter()
+        res[key] = fn(torch, dev, mesh)
+        res[key]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def phase_tp_inner(torch, dev):
+    """[tp-inner]: two gloo processes on the card run the (1, 2) mesh's
+    split Mamba, MoE router, xLSTM and sequence-split caches (see the
+    module docstring); returns the Jamba prefill's kernel launches (both
+    ranks')."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks.run("chip_smoke:_tpi_rank", TPI_MESH[1], args=[tmp, str(dev)],
+                  path=[str(ROOT)], timeout=TPI_TIMEOUT)
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(TPI_MESH[1])]
+    run_s = time.perf_counter() - t0
+    gib = 2 ** 30
+    walls = ", ".join(f"{k} {got[0][k]['wall_s']:.1f} s" for k in got[0])
+    print(f"[tp-inner] {TPI_MESH[1]} gloo processes on {dev} ({CARD}): "
+          f"{run_s:.1f} s ({walls} on rank 0)")
+
+    def same(key):  # the gathered logits are the same on every rank
+        return all(all(torch.equal(a, b) for a, b in zip(
+            g[key]["logits"], got[0][key]["logits"])) for g in got[1:])
+
+    # Jamba at depth 5
+    cfg = dataclasses.replace(get_config(LM_JAMBA), n_layers=TPI_JAMBA_DEPTH)
+    B, S = LM_BATCH, LM_PROMPT
+    n_mamba = sum(m == "mamba" for m, _ in cfg.period[:TPI_JAMBA_DEPTH])
+    n_attn = TPI_JAMBA_DEPTH - n_mamba
+    di = cfg.mamba.expand * cfg.d_model // TPI_MESH[1]
+    for r, g in enumerate(got):
+        j = g["jamba"]
+        moved = ", ".join(f"{op} x{d['count']}: {d['operand_bytes']:.0f} B"
+                          for op, d in sorted(j["moved"].items()))
+        print(f"[tp-inner] jamba rank {r} of mesh {TPI_MESH} ({cfg.name}, "
+              f"{TPI_JAMBA_DEPTH} layers, bfloat16, {j['n_params']:,} "
+              f"parameters a rank, {B} x {S} tokens; {CARD}): prefill "
+              f"{j['prefill_s']:.3f} s, decode {j['decode_ms']:.2f} ms a "
+              f"step, peak memory {j['peak'] / gib:.2f} GiB; launches "
+              f"{j['launches']} at {j['shapes']}; the collectives of one "
+              f"prefill: {moved}")
+        check(j["finite"], "tp-inner jamba: non-finite logits")
+        check(j["launches"].get("selective_scan") == n_mamba
+              and j["launches"].get("flash_attention") == n_attn,
+              f"tp-inner jamba: launches {j['launches']}, not {n_mamba} "
+              f"scans and {n_attn} flash")
+        check(j["shapes"]["selective_scan"] == [(B, S, di)]
+              and j["shapes"]["flash_attention"] == [(
+                  (B, S, cfg.n_heads // TPI_MESH[1], cfg.hd),
+                  (B, S, cfg.n_kv_heads // TPI_MESH[1], cfg.hd))],
+              f"tp-inner jamba: shapes {j['shapes']}")
+    check(same("jamba"), "tp-inner jamba: the ranks' logits differ")
+    check(all(g["jamba"]["moved"] == got[0]["jamba"]["moved"] for g in got),
+          "tp-inner jamba: the ranks' collectives differ")
+    st = dryrun.trace_step(cfg, "prefill", B, S, max_len=S + TPI_DECODE,
+                           mesh=MeshShape(("data", "model"), TPI_MESH))
+    counted = {op: (st.coll_counts[op], st.coll_operand_bytes[op])
+               for op in st.coll_counts}
+    seen = {op: (d["count"], d["operand_bytes"])
+            for op, d in got[0]["jamba"]["moved"].items()}
+    print(f"[tp-inner] jamba: the dry run's collectives (count, operand "
+          f"bytes) for the same cell at {TPI_MESH}: {counted}; the gloo "
+          f"run's: {seen}")
+    check(counted == seen, "tp-inner jamba: the bytes moved are not the dry "
+          "run's count")
+    # parity at depth 2
+    p = got[0]["parity"]
+    print(f"[tp-inner] parity ({cfg.name} widths, layers "
+          f"{list(TPI_PARITY_LAYERS)}, {TPI_PARITY_EXPERTS} experts, "
+          f"{LM_BATCH} x {TPI_PARITY_PROMPT} tokens + {TPI_DECODE} decode "
+          f"steps; {CARD}): float32 (1, 2) against one rank "
+          f"{p['f32']:.3e} (tol {TPI_F32_TOL:g}); against the float32 "
+          f"answer: one-rank bfloat16 {p['one_bf16']:.3e}, the {TPI_MESH} "
+          f"bfloat16 run {p['mine_bf16']:.3e} (limit {TPI_BF16_FACTOR:g} x "
+          f"the one-rank run's)")
+    check(same("parity"), "tp-inner parity: the ranks' logits differ")
+    check(p["f32"] <= TPI_F32_TOL, f"tp-inner parity: float32 {p['f32']}")
+    check(p["mine_bf16"] <= TPI_BF16_FACTOR * p["one_bf16"],
+          f"tp-inner parity: bfloat16 {p['mine_bf16']:.3e} from the answer")
+    # xLSTM
+    x = got[0]["xlstm"]
+    print(f"[tp-inner] xlstm ({LM_XLSTM}, whole, float32, {LM_BATCH} x "
+          f"{TPI_XLSTM_PROMPT} tokens + {TPI_DECODE} decode steps; {CARD}): "
+          f"prefill and decode {x['secs']:.2f} s on the mesh; against the "
+          f"float64 run of the same weights: one rank {x['one']:.3e}, the "
+          f"{TPI_MESH} run {x['mine']:.3e} (limit {TPI_XLSTM_FACTOR:g} x "
+          f"one rank's); the {TPI_MESH} run against one rank "
+          f"{x['vs_one']:.3e}")
+    check(x["finite"] and same("xlstm"), "tp-inner xlstm: logits")
+    check(x["mine"] <= TPI_XLSTM_FACTOR * x["one"],
+          f"tp-inner xlstm: {x['mine']:.3e} from the float64 answer")
+    # batch-1 long decode
+    lg = got[0]["long"]
+    print(f"[tp-inner] long decode ({TPI_LONG_ARCH}, batch 1, "
+          f"{TPI_LONG_LEN} positions, long_decode_rules, {TPI_LONG_STEPS} "
+          f"steps, bfloat16; {CARD}): caches a rank "
+          f"{lg['cache_bytes'] / gib:.2f} GiB "
+          f"({sum(k == 'SeqKVCache' for k in lg['split'])} of "
+          f"{len(lg['split'])} split along the sequence), "
+          f"{lg['step_ms']:.2f} ms a step on the mesh, one rank "
+          f"{lg['one_ms']:.2f} ms (float32 {lg['f32_ms']:.2f}); against the "
+          f"float32 run: one rank {lg['one']:.3e}, the {TPI_MESH} run "
+          f"{lg['mine']:.3e} (limit {TP_EXACT_FACTOR:g} x); against one "
+          f"rank {lg['vs_one']:.3e}")
+    check(same("long"), "tp-inner long: the ranks' logits differ")
+    check(all(k == "SeqKVCache" for k in lg["split"]),
+          "tp-inner long: a cache is not split along the sequence")
+    check(lg["mine"] <= TP_EXACT_FACTOR * lg["one"],
+          f"tp-inner long: {lg['mine']:.3e} from the float32 answer")
+    launches = {}
+    for g in got:
+        for k, v in g["jamba"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 @contextlib.contextmanager
 def dryrun_mesh():
     """[dryrun-mesh]'s cells traced in one background process that sees
@@ -4237,6 +4742,7 @@ def main() -> int:
     run("shard", lambda: phase_shard(torch, dev))
     with dryrun_mesh() as mesh_proc:
         run("tp", lambda: phase_tp(torch, dev))
+        run("tp-inner", lambda: phase_tp_inner(torch, dev))
         run("dryrun-mesh", lambda: phase_dryrun_mesh(mesh_proc))
     from repro_torch.core import pool_stats, shutdown_pools
 

@@ -99,13 +99,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, softcap=None,
                     q_offset: int = 0) -> torch.Tensor:
     """Grouped-query attention, q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd),
-    computed in float32 and returned in q's dtype.  Query row i sits at
-    position ``i + q_offset``; key j at position j."""
+    computed in float32 (float64 for float64 inputs) and returned in q's
+    dtype.  Query row i sits at position ``i + q_offset``; key j at
+    position j."""
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
-    qg = q.reshape(B, Sq, nkv, g, hd).float()
-    s = torch.einsum("bsngh,btnh->bngst", qg * hd ** -0.5, k.float())
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(B, Sq, nkv, g, hd).to(ct)
+    s = torch.einsum("bsngh,btnh->bngst", qg * hd ** -0.5, k.to(ct))
     if softcap is not None:
         s.div_(softcap).tanh_().mul_(softcap)
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
@@ -118,7 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s.masked_fill_(~mask, -2.0e38)
     w = torch.softmax(s, dim=-1)
     del s
-    out = torch.einsum("bngst,btnh->bsngh", w, v.float())
+    out = torch.einsum("bngst,btnh->bsngh", w, v.to(ct))
     # fully-masked rows: zero output (the kernel's convention)
     out.masked_fill_(~mask.any(-1)[None, :, None, None, None], 0.0)
     return out.reshape(B, Sq, nq, hd).to(q.dtype)
@@ -138,18 +140,20 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor):
 
 def selective_scan(dt: torch.Tensor, xc: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor, A: torch.Tensor, h0=None, *,
-                   chunk=None, acc=torch.float32):
+                   chunk=None, acc=None):
     """Mamba's selective scan: ``h_t = exp(dt_t A) h_{t-1} + (dt_t xc_t)
     B_t``, ``y_t = C_t . h_t``, from ``h0`` (zero when None).  dt, xc (B,
     S, d_inner) and Bm, Cm (B, S, d_state) in the model's type, A (d_inner,
     d_state) float32; ``dt * xc`` is rounded to that type, everything
-    after it is computed in ``acc`` (float32, as the reference; float64
-    for an error yardstick).  Chunks of ``chunk`` steps when it divides S
+    after it is computed in ``acc`` (default float32, as the reference, or
+    float64 for float64 inputs; float64 for an error yardstick).  Chunks
+    of ``chunk`` steps when it divides S
     (the reference's rule: its unchunked form is the one chunk S), each a
     doubling scan over (B, chunk, d_inner, d_state) tensors.  Returns
     ``(y (B, S, d_inner), h_S (B, d_inner, d_state))`` in ``acc``."""
     B, S, _ = dt.shape
     L = chunk if chunk and S % chunk == 0 else S
+    acc = acc or torch.promote_types(dt.dtype, torch.float32)
     A = A.to(acc)
     h = None if h0 is None else h0.to(acc)
     ys = []

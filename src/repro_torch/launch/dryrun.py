@@ -26,13 +26,15 @@ the step issues.  Resident bytes per rank are given twice:
            (``cfg.opt_state_dtype``), plus the accumulation buffer where
            that dtype is not float32
   prefill  its slice of the parameters (``cfg.param_dtype``) and the
-           caches it emits (its batch piece, its KV heads)
+           caches it emits
   decode   its parameters and the caches it reads
 
-  The slice is the rules' ``"model"`` placement; θ stays whole along the
-  data axes, and the Mamba and xLSTM mixers and the MoE router stay whole
-  (``own_layout_note`` says so where a cell has them; ROADMAP.md item
-  1.6c).  ``fits`` compares the total with the card's 80 GB.
+  The slice is the rules' ``"model"`` placement and θ stays whole along
+  the data axes; the caches are the rank's pieces under the cell's
+  rules (``transformer.cache_shardings``: the reference's cache rule,
+  the batch split as the step builders split it), so where the batch
+  divides the data axes the two counts' caches agree.  ``fits``
+  compares the total with the card's 80 GB.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2_2b --shape train_4k
@@ -47,9 +49,10 @@ loop trip counts: a step of more than 3 microbatches is traced with 3
 and the second's counts (from its start to the third's, its share of
 the accumulation included) are added for each of the rest; a stack of
 more than 2 periods is traced at 1 and 2 periods; the sLSTM's loop over
-time is traced at 3 and 4 steps (its product FLOPs exact, its other
-counts but a few zero-fills).  ``--unscaled`` traces every microbatch,
-period and time step instead (slow: it shows what the scaling saves).
+time (``xlstm._slstm_scan``) is traced at 3 and 4 steps (its product
+FLOPs exact, its other counts but a few zero-fills).  ``--unscaled``
+traces every microbatch, period and time step instead (slow: it shows
+what the scaling saves).
 ``--jobs N`` traces ``--all``'s cells in N processes (CPU only).  Variants that
 change only sharding rules take effect on a mesh (on one card the record
 says they do nothing): the rule count follows them, and so does the
@@ -198,6 +201,7 @@ def resident_bytes(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                 mesh=rank if tp > 1 else None, rules=rules)
     n = sum(p.numel() for p in params.parameters())
     out: Dict[str, int] = {}
+    rank = rank if mesh.size > 1 else None
     if kind == "train":
         state = getattr(torch, cfg.opt_state_dtype).itemsize
         lo, hi = shard_range(n, dp, 0)
@@ -207,8 +211,8 @@ def resident_bytes(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     else:
         dt = getattr(torch, cfg.param_dtype)
         out.update(params=dt.itemsize * n, caches=_nbytes(tf.abstract_caches(
-            cfg, _local_batch(batch, dp), max_len, dt,
-            enc_len=max_len // inp.STUB_DIV, model=tp)))
+            cfg, batch, max_len, dt, enc_len=max_len // inp.STUB_DIV,
+            mesh=rank, rules=rules)))
     out["total"] = sum(out.values())
     return out
 
@@ -229,32 +233,23 @@ def _fwd_bwd(fn, grad: bool, out_shape, dtype, device):
     return fwd, opstats.add_repeats(st, fwd, opstats.OpStats(), 1)
 
 
-def _slstm_counts(cfg, params, x, grad: bool):
-    """Counts of the real sLSTM block without its output product (``h @
-    wo``, which the traced block runs itself), forward and, when
-    ``grad``, backward, at each probe length: {S: (forward, backward)}.
-    As in a train step, the weights already hold a gradient, which the
-    backward adds to."""
-    w = {}
-    for k in ("wx", "wr", "bias", "wo"):
-        w[k] = torch.empty_like(params[k]).requires_grad_(grad)
-        if grad:
-            w[k].grad = torch.empty_like(w[k])
-    B, _, d = x.shape
-    di = w["wo"].shape[0]
+def _slstm_counts(wr, bias, xp, grad: bool):
+    """Counts of the real sLSTM loop over time (``xlstm._slstm_scan``),
+    forward and, when ``grad``, backward from a cotangent of its h, at
+    each probe length: {S: (forward, backward)}.  As in a train step,
+    the bias already holds a gradient, which the backward adds to."""
+    wr32 = torch.empty_like(wr, dtype=torch.float32).requires_grad_(grad)
+    b = torch.empty_like(bias).requires_grad_(grad)
+    if grad:
+        b.grad = torch.empty_like(b)
+    B, _, _, di = xp.shape
     out = {}
     for S in _SLSTM_PROBES:
-        def new(*shape):
-            return torch.empty(shape, dtype=x.dtype, device=x.device,
-                               requires_grad=grad)
-
-        xs, hs = new(B, S, d), new(B, S, di)
-        block = _fwd_bwd(lambda: _REAL_SLSTM(cfg, w, xs)[0], grad,
-                         (B, S, d), x.dtype, x.device)
-        product = _fwd_bwd(lambda: hs @ w["wo"], grad, (B, S, d), x.dtype,
-                           x.device)
-        out[S] = tuple(opstats.add_repeats(a, b, opstats.OpStats(), 1)
-                       for a, b in zip(block, product))
+        xs = torch.empty((B, S, 4, di), dtype=xp.dtype, device=xp.device,
+                         requires_grad=grad)
+        st = xlstm._zero_slstm(B, di, xp.device)
+        out[S] = _fwd_bwd(lambda: _REAL_SCAN(wr32, b, xs, st)[0], grad,
+                          (B, S, di), torch.float32, xp.device)
     return out
 
 
@@ -263,70 +258,75 @@ def _at_length(counts, part: int, S: int) -> opstats.OpStats:
     return opstats.add_repeats(a, a, b, S - _SLSTM_PROBES[0])
 
 
-_REAL_SLSTM = xlstm.slstm_block_with_state
+_REAL_SCAN = xlstm._slstm_scan
+
+
+def _scan_key(wr, batch: int, dtype, grad: bool):
+    return batch, wr.shape[0] * wr.shape[1], tuple(wr.shape), dtype, grad
 
 
 @contextlib.contextmanager
-def _scaled_slstm(live, cfg: ModelConfig, batch: int, dtype, grad: bool):
-    """For the trace: the sLSTM block's loop over time, identical at every
-    step, traced at 3 and 4 steps (before the step runs, so that a
-    checkpoint's recomputation sees the same ops) and its counts scaled to
-    the sequence (forward, and backward through an autograd function that
-    returns shapes only); the block's output product runs as is.
-    ``live()`` is the trace's OpStats; ``batch``, ``dtype`` and ``grad``
-    are the block input's.  The eager counterpart of the reference's scan
-    trip count."""
+def _scaled_slstm(live, params, batch: int, dtype, grad: bool):
+    """For the trace: the sLSTM's loop over time, identical at every
+    step, traced at 3 and 4 steps (before the step runs, on the loop's
+    shapes in ``params``' sLSTM layers: the rank's heads, or every head
+    where they do not split; so that a checkpoint's recomputation sees
+    the same ops) and its counts scaled to the sequence (forward, and
+    backward through an autograd function that returns shapes only); the
+    block's projections and collectives run as they are.  ``live()`` is
+    the trace's OpStats; ``batch``, ``dtype`` and ``grad`` are the loop
+    input's.  The eager counterpart of the reference's scan trip
+    count."""
     cache = {}
-    if any(m == "slstm" for m, _ in tf.layer_kinds(cfg)):
-        spec = tf.sublayer_spec(cfg, ("slstm", "none"))["mixer"]
-        params = {k: torch.empty(v.shape, dtype=dtype, device=META)
-                  for k, v in spec.items()}
-        x = torch.empty(batch, 1, cfg.d_model, dtype=dtype, device=META)
-        cache[(batch, cfg.d_model, dtype, grad)] = _slstm_counts(
-            cfg, params, x, grad)
+    for layer in params.layers:
+        if layer.kind[0] == "slstm":
+            wr = layer["mixer"]["wr"]
+            key = _scan_key(wr, batch, dtype, grad)
+            if key not in cache:
+                di = key[1]
+                cache[key] = _slstm_counts(
+                    wr, torch.empty((4, di), dtype=dtype, device=META),
+                    torch.empty((batch, 1, 4, di), dtype=dtype,
+                                device=META), grad)
 
     class Loop(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, key, S, di, x, *weights):
+        def forward(ctx, key, xp, wr32, bias, *state):
             # a saved input, so that a checkpoint's recomputation runs the
-            # loop again, as it runs the real block's saved steps
-            ctx.save_for_backward(x)
-            ctx.key, ctx.S = key, S
-            ctx.n_weights = len(weights)
-            opstats.add_into(live(), _at_length(cache[key], 0, S))
-            B = x.shape[0]
+            # loop again, as it runs the real loop's saved steps
+            ctx.save_for_backward(xp, wr32, bias)
+            ctx.key, ctx.S = key, xp.shape[1]
+            ctx.n_state = len(state)
+            opstats.add_into(live(), _at_length(cache[key], 0, ctx.S))
+            B, S, _, di = xp.shape
             with _uncounted():
-                return (torch.empty(B, S, di, dtype=x.dtype, device=META),
+                return (torch.empty(B, S, di, dtype=torch.float32,
+                                    device=META),
                         *(torch.empty(B, di, dtype=torch.float32,
                                       device=META) for _ in range(4)))
 
         @staticmethod
         def backward(ctx, *grads):
-            # the weights' gradients were added to their .grad in the
-            # calibrated counts; only x's flows on
             opstats.add_into(live(), _at_length(cache[ctx.key], 1, ctx.S))
-            x, = ctx.saved_tensors
+            xp, wr32, bias = ctx.saved_tensors
             with _uncounted():
-                gx = torch.empty_like(x)
-            return (None, None, None, gx) + (None,) * ctx.n_weights
+                gs = tuple(torch.empty_like(t) for t in (xp, wr32, bias))
+            return (None,) + gs + (None,) * ctx.n_state
 
-    def block(cfg, params, x):
-        S = x.shape[1]
-        if x.device != META or S <= max(_SLSTM_PROBES):
-            return _REAL_SLSTM(cfg, params, x)
-        names = ("wx", "wr", "bias")
-        grad = torch.is_grad_enabled() and (
-            x.requires_grad or any(params[k].requires_grad for k in names))
-        key = (x.shape[0], x.shape[2], x.dtype, grad)
-        h, *state = Loop.apply(key, S, params["wo"].shape[0], x,
-                               *(params[k] for k in names))
-        return h @ params["wo"], xlstm.SLSTMState(*state)
+    def scan(wr32, bias, xp, st):
+        if xp.device != META or xp.shape[1] <= max(_SLSTM_PROBES):
+            return _REAL_SCAN(wr32, bias, xp, st)
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xp, wr32, bias))
+        key = _scan_key(wr32, xp.shape[0], xp.dtype, grad)
+        h, *state = Loop.apply(key, xp, wr32, bias, *st)
+        return h, xlstm.SLSTMState(*state)
 
-    xlstm.slstm_block_with_state = block
+    xlstm._slstm_scan = scan
     try:
         yield
     finally:
-        xlstm.slstm_block_with_state = _REAL_SLSTM
+        xlstm._slstm_scan = _REAL_SCAN
 
 
 def _uncounted():
@@ -347,8 +347,8 @@ def _batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
 def _counted(fn, slstm: Optional[tuple]) -> opstats.OpStats:
     """``fn(st)`` under :func:`~repro_torch.launch.opstats.counting`, whose
     OpStats ``st`` it is given, with the sLSTM loop scaled unless
-    ``slstm`` is None (else :func:`_scaled_slstm`'s cfg, batch, dtype and
-    grad)."""
+    ``slstm`` is None (else :func:`_scaled_slstm`'s params, batch, dtype
+    and grad)."""
     scaled = (_scaled_slstm(lambda: st, *slstm) if slstm is not None
               else contextlib.nullcontext())
     with scaled, opstats.counting() as st:
@@ -359,7 +359,8 @@ def _counted(fn, slstm: Optional[tuple]) -> opstats.OpStats:
 def trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
                accum: int = 1, max_len: Optional[int] = None,
                scale: bool = True, mesh: Optional[MeshShape] = None,
-               rules: Optional[Rules] = None) -> opstats.OpStats:
+               rules: Optional[Rules] = None,
+               global_batch: Optional[int] = None) -> opstats.OpStats:
     """The step of one cell on the meta device under
     :func:`~repro_torch.launch.opstats.counting`: a train step of
     ``accum`` microbatches, a prefill into caches of ``max_len`` (default
@@ -367,7 +368,9 @@ def trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
     against caches of ``max_len`` positions; ``batch`` is the rank's.
     With ``mesh`` (a mesh shape of more than one device) the step is its
     rank 0's (``sharding.traced_rank``), on its slices of the parameters
-    under ``rules`` (default the baseline's), its collectives counted.  A
+    under ``rules`` (default the baseline's), its collectives counted, its
+    caches placed for ``global_batch`` (default ``batch`` times the data
+    ranks: the batch split over them).  A
     stack of more than 2 periods is traced at 1 and at 2 periods, and the
     second's counts are added for each of the rest (the periods are
     identical: the counterpart of the reference's scan over them).  With
@@ -378,18 +381,18 @@ def trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
         def at(n):
             return _trace_step(dataclasses.replace(
                 cfg, n_layers=n * P + len(cfg.remainder)), kind, batch, seq,
-                accum, max_len, scale, mesh, rules)
+                accum, max_len, scale, mesh, rules, global_batch)
 
         one = at(1)
         return opstats.add_repeats(one, one, at(2), cfg.n_periods - 1)
     return _trace_step(cfg, kind, batch, seq, accum, max_len, scale, mesh,
-                       rules)
+                       rules, global_batch)
 
 
 def _trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
                 accum: int, max_len: Optional[int], scale: bool,
-                mesh: Optional[MeshShape], rules: Optional[Rules]
-                ) -> opstats.OpStats:
+                mesh: Optional[MeshShape], rules: Optional[Rules],
+                global_batch: Optional[int]) -> opstats.OpStats:
     max_len = max_len or seq
     rank = traced_rank(mesh) if mesh is not None and mesh.size > 1 else None
     axes = data_axes(rank, rules) if rank is not None else ()
@@ -417,7 +420,7 @@ def _trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
                                  batch_axes=axes)
             fn(params, state, b)
 
-        st = _counted(step, (cfg, batch // accum, torch.float32, True)
+        st = _counted(step, (params, batch // accum, torch.float32, True)
                       if scale else None)
         if accum > n_micro:
             # microbatch 1 runs whole between the second and third marks,
@@ -430,27 +433,20 @@ def _trace_step(cfg: ModelConfig, kind: str, batch: int, seq: int,
                                 rules=rules)
     dt = getattr(torch, cfg.param_dtype)
     b = _batch(cfg, kind, batch, seq, dt)
-    slstm = (cfg, batch, dt, False) if scale else None
-    with torch.no_grad(), use_mesh(rank):
-        if kind == "prefill":
-            return _counted(lambda st: tf.prefill(cfg, params, b, max_len),
-                            slstm)
-        caches = tf.abstract_caches(cfg, batch, max_len, dt,
+    slstm = (params, batch, dt, False) if scale else None
+    if global_batch is None:  # the step builders' split over the data axes
+        global_batch = batch * (dp_size(rank, axes) if axes else 1)
+    with torch.no_grad(), use_mesh(rank, rules, global_batch):
+        if kind == "prefill":  # caches in bfloat16, as build_prefill's
+            return _counted(lambda st: tf.prefill(
+                cfg, params, b, max_len, cache_dtype=torch.bfloat16), slstm)
+        caches = tf.abstract_caches(cfg, global_batch if rank is not None
+                                    else batch, max_len, dt,
                                     enc_len=max_len // inp.STUB_DIV,
-                                    model=tp)
+                                    mesh=rank, rules=rules)
         return _counted(lambda st: tf.decode_step(
             cfg, params, caches, b["tokens"], seq - 1,
             b.get("mrope_positions")), slstm)
-
-
-def _own_layout_note(cfg: ModelConfig, tp: int) -> str:
-    """What the port's layout keeps whole along ``"model"``."""
-    whole = sorted({m for m, _ in tf.layer_kinds(cfg)
-                    if m in tf.WHOLE_MIXERS})
-    if tp == 1 or not whole:
-        return ""
-    return (f"{'/'.join(whole)} mixers whole on every model rank "
-            f"(ROADMAP.md item 1.6c)")
 
 
 def dry_run(cfg: ModelConfig, shape: inp.ShapeSpec, *,
@@ -471,7 +467,7 @@ def dry_run(cfg: ModelConfig, shape: inp.ShapeSpec, *,
     batch = _local_batch(shape.batch, dp)
     t0 = time.perf_counter()
     st = trace_step(cfg, kind, batch, shape.seq, accum, max_len, scale,
-                    mesh, rules)
+                    mesh, rules, shape.batch)
     trace_s = time.perf_counter() - t0
     res = resident_bytes(cfg, kind, shape.batch, max_len, rules, mesh,
                          accum=accum)
@@ -484,7 +480,6 @@ def dry_run(cfg: ModelConfig, shape: inp.ShapeSpec, *,
         seq=shape.seq, batch=shape.batch, rank_batch=batch, max_len=max_len,
         trace_s=trace_s, resident_bytes=res,
         rule_bytes=rule_bytes(cfg, shape.batch, max_len, rules, mesh),
-        own_layout_note=_own_layout_note(cfg, tp),
         fits_hbm=bool(res["total"] <= HBM_PER_DEVICE),
         dot_flops=st.dot_flops, dot_flops_by_dtype=st.dot_flops_by_dtype,
         leaf_flops=st.leaf_flops, leaves=st.leaves,

@@ -14,9 +14,9 @@ piece of each global tensor the rank holds.  The port's layout:
 * along ``"model"`` each rank holds its tensor-parallel slice of the
   parameters (:func:`tp_shardings`: the rules' ``"model"`` placements,
   ``transformer.shard_params`` cuts them) and the layers split heads,
-  FFN columns, the vocabulary and the experts over the ranks (the MoE
-  layers' all-to-all where ``moe.a2a`` asks for it); Mamba and xLSTM
-  mixers and the MoE router run whole;
+  FFN columns, the vocabulary, the experts (and their router columns)
+  and the Mamba and xLSTM ``inner`` channels over the ranks (the MoE
+  layers' all-to-all where ``moe.a2a`` asks for it);
 * along the data axes θ is whole: the rank's slice lives in the model's
   flat buffer (:func:`~repro_torch.models.transformer.make_trainable`);
   its gradient is reduce-scattered over the data ranks, AdamW updates
@@ -25,9 +25,11 @@ piece of each global tensor the rank holds.  The port's layout:
   buffer allows), and it is all-gathered.  So m and v are placed as the
   rank's flat vector split over the data axes (:func:`opt_shardings`);
 * prefill and decode caches are split over the data axes along the
-  batch and hold the rank's KV heads; logits are split over the data
-  axes and, where the vocabulary is, over ``"model"`` (the reference's
-  ``("batch", None, "vocab")``).
+  batch and otherwise as the reference's cache rule places them
+  (``transformer.cache_shardings``: KV caches along the sequence over
+  the rules' cache axes, recurrent states along ``inner``); logits are
+  split over the data axes and, where the vocabulary is, over
+  ``"model"`` (the reference's ``("batch", None, "vocab")``).
 
 Every collective goes through :mod:`~repro_torch.distributed.collectives`,
 where the dry run counts it.  A step over a
@@ -60,7 +62,6 @@ from ..distributed.sharding import (
     traced_rank,
 )
 from ..models import transformer as tf
-from ..models.attention import local_heads
 from ..models.common import leaves, use_mesh
 from ..training.optimizer import AdamWConfig, AdamWState, adamw_update
 from . import inputs as inp
@@ -249,12 +250,11 @@ def param_shardings(cfg: ModelConfig, mesh, rules: Rules):
 def tp_shardings(cfg: ModelConfig, mesh, rules: Rules):
     """The parameter tree's placements in the port's tensor-parallel
     layout: the ``"model"`` part of ``rules`` on :func:`model_spec`'s
-    leaves with ``tp_axes`` (whole along the data axes; the Mamba and
-    xLSTM mixers and the MoE router whole).  What
+    leaves (whole along the data axes).  What
     ``transformer.shard_params`` and ``convert.lm_params_from_arrays``
     cut."""
-    return spec_tree_to_shardings(tf.model_spec(cfg, tp_axes=True),
-                                  model_rules(rules), mesh)
+    return spec_tree_to_shardings(tf.model_spec(cfg), model_rules(rules),
+                                  mesh)
 
 
 def opt_shardings(mesh, axes=None) -> AdamWState:
@@ -277,25 +277,18 @@ def abstract_opt_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return AdamWState(0, mk(), mk())
 
 
-def _batch_split(tree, mesh, batch: int, axes, heads: bool = False,
-                 _kv: bool = False):
+def _batch_split(tree, mesh, batch: int, axes):
     """Each tensor leaf (nested lists, tuples, NamedTuples) split over the
     data axes ``axes`` along dim 0 when that is ``batch`` long and they
-    divide it, else whole; with ``heads`` an attention cache's
-    (B, S, heads, hd) leaves are also split along dim 2 over ``"model"``
-    (the rank's KV heads: its block of them, or the one block its query
-    heads read where the KV heads do not divide)."""
+    divide it, else whole."""
     if isinstance(tree, (list, tuple)):
-        out = [_batch_split(t, mesh, batch, axes, heads,
-                            isinstance(tree, tf.KVCache)) for t in tree]
+        out = [_batch_split(t, mesh, batch, axes) for t in tree]
         return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(
             out)
     spec = [None] * tree.ndim
     if (tree.ndim and tree.shape[0] == batch
             and batch % dp_size(mesh, axes) == 0):
         spec[0] = _flat_sharding(mesh, axes).spec[0]
-    if heads and _kv:
-        spec[2] = "model"
     return Sharding(mesh, tuple(spec))
 
 
@@ -338,16 +331,16 @@ def build_train(cfg: ModelConfig, shape, mesh, rules: Rules,
         "accum": accum, "dp": dp, "tp": tp_size(mesh, axes)}
 
 
-def _serve_outputs(cfg: ModelConfig, mesh, axes, batch: int, caches):
-    """Placements of a serving step's logits and caches (see the module
-    docstring)."""
+def _serve_outputs(cfg: ModelConfig, mesh, axes, rules: Rules, batch: int,
+                   caches):
+    """Placements of a serving step's logits and (whole) caches (see the
+    module docstring)."""
     tp = tp_size(mesh, axes)
-    heads = local_heads(cfg, tp)[0] < cfg.n_heads
     vocab = tp > 1 and cfg.vocab_size % tp == 0
     logits = torch.empty((batch, 1, cfg.vocab_size), device="meta")
     ls = _batch_split(logits, mesh, batch, axes)
     ls = Sharding(mesh, ls.spec[:2] + ("model" if vocab else None,))
-    return ls, _batch_split(caches, mesh, batch, axes, heads)
+    return ls, tf.cache_shardings(cfg, caches, mesh, rules)
 
 
 def build_prefill(cfg: ModelConfig, shape, mesh, rules: Rules):
@@ -359,20 +352,20 @@ def build_prefill(cfg: ModelConfig, shape, mesh, rules: Rules):
     mesh = _rank_of(mesh)
     axes = data_axes(mesh, rules)
     max_len = shape.seq
+    B = shape.batch
 
     def fn(params, batch):
-        with use_mesh(mesh), torch.no_grad():
+        with use_mesh(mesh, rules, B), torch.no_grad():
             return tf.prefill(cfg, params, batch, max_len=max_len,
                               cache_dtype=torch.bfloat16)
 
     b_shard, batch = _inputs(cfg, shape, mesh, axes)
-    B = shape.batch
     caches = tf.abstract_caches(
         cfg, B, max_len, torch.bfloat16,
         enc_len=batch["audio_embeds"].shape[1]
         if "audio_embeds" in batch else 1)
     in_shardings = (tp_shardings(cfg, mesh, rules), b_shard)
-    out_shardings = _serve_outputs(cfg, mesh, axes, B, caches)
+    out_shardings = _serve_outputs(cfg, mesh, axes, rules, B, caches)
     return fn, in_shardings, out_shardings, (
         tf.abstract_params(cfg, mesh=mesh, rules=rules), batch), {}
 
@@ -380,22 +373,23 @@ def build_prefill(cfg: ModelConfig, shape, mesh, rules: Rules):
 def build_decode(cfg: ModelConfig, shape, mesh, rules: Rules):
     """``(fn, in, out, abstract_args, {})``: ``fn(params, caches, tokens,
     pos, mrope_positions=None) -> (logits, caches)`` on this rank's slices
-    of the parameters, piece of the batch and caches (its KV heads)."""
+    of the parameters, piece of the batch and caches
+    (``transformer.cache_shardings``)."""
     mesh = _rank_of(mesh)
     axes = data_axes(mesh, rules)
+    B = shape.batch
 
     def fn(params, caches, tokens, pos, mrope_positions=None):
-        with use_mesh(mesh):
+        with use_mesh(mesh, rules, B):
             return tf.decode_step(cfg, params, caches, tokens, pos,
                                   mrope_positions=mrope_positions)
 
-    B = shape.batch
     b_shard, batch = _inputs(cfg, shape, mesh, axes)
     logit_shard, c_shard = _serve_outputs(
-        cfg, mesh, axes, B, tf.abstract_caches(cfg, B, shape.seq,
-                                               torch.bfloat16))
-    caches = tf.abstract_caches(cfg, batch["tokens"].shape[0], shape.seq,
-                                torch.bfloat16, model=tp_size(mesh, axes))
+        cfg, mesh, axes, rules, B, tf.abstract_caches(cfg, B, shape.seq,
+                                                      torch.bfloat16))
+    caches = tf.abstract_caches(cfg, B, shape.seq, torch.bfloat16,
+                                mesh=mesh, rules=rules)
     in_shardings = [tp_shardings(cfg, mesh, rules), c_shard,
                     b_shard["tokens"], Sharding(mesh, ())]
     args = [tf.abstract_params(cfg, mesh=mesh, rules=rules), caches,

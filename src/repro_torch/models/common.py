@@ -9,16 +9,21 @@ tests that compare the two packages carry the reference's arrays over
 with :func:`repro_torch.convert.lm_params_from_arrays` instead.
 
 :func:`use_mesh` activates a mesh of ranks for the calls under it,
-:func:`current_mesh` reads it (the MoE layers take the expert-parallel
-all-to-all under a mesh with a ``"model"`` axis) and :func:`model_axis`
-gives the layers its ``"model"`` group, size and this rank's index.  A
-layer splits its work over ``"model"`` where its parameters are this
-rank's slices (narrower than the config's whole widths, as
-``transformer.shard_params`` cuts them); with whole parameters, or with
-no mesh, every layer is the one-rank code.  The reference's
-``axis_rules`` also activates a rule table for its ``shard`` activation
-constraints, which have no counterpart: a rank computes on its own local
-tensors, so no layer reads a rule.
+with the rule table and the global batch of its caches, :func:`current_mesh`
+reads it (the MoE layers take the expert-parallel all-to-all under a
+mesh with a ``"model"`` axis) and :func:`model_axis` gives the layers
+its ``"model"`` group, size and this rank's index.  A layer splits its
+work over ``"model"`` where its parameters are this rank's slices
+(narrower than the config's whole widths, as ``transformer.shard_params``
+cuts them); with whole parameters, or with no mesh, every layer is the
+one-rank code.  :func:`cache_axis` gives the mesh axes that a cache's
+sequence dimension (``"cache_seq"``, or ``"enc_seq"`` for Whisper's
+cross K/V) lands on under the active rules (``"model"``, or ``("data",
+"model")`` under ``long_decode_rules``), their joint group and this
+rank's index on them: the rule table is read for the caches' layout
+only.  The reference's ``axis_rules`` also places activations through
+its ``shard`` constraints, which have no counterpart: a rank computes on
+its own local tensors.
 :class:`ParamTree` holds a materialized tree as an ``nn.Module`` whose
 ``tree["key"]`` access matches the reference's parameter dicts, so the
 layer functions read either.
@@ -46,7 +51,9 @@ from .._device import to_device
 
 __all__ = ["ParamSpec", "ParamTree", "FlatLeaf", "FlatParams", "leaves",
            "materialize", "stack_specs", "tree_map", "use_mesh",
-           "current_mesh", "ModelAxis", "model_axis"]
+           "current_mesh", "current_rules", "ModelAxis", "model_axis",
+           "enter", "leave",
+           "SeqAxis", "cache_axis", "seq_axis"]
 
 Axes = Tuple[Optional[str], ...]
 
@@ -54,19 +61,34 @@ _ctx = threading.local()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, rules=None, batch: Optional[int] = None):
     """Activate a mesh of ranks (a ``distributed.sharding.Mesh``; None is
-    one rank) for this thread's calls under it."""
-    prev = current_mesh()
-    _ctx.mesh = mesh
+    one rank) for this thread's calls under it.  ``rules`` (default the
+    baseline's) and ``batch``, the global batch (default: one that the
+    data axes divide, as the step builders split it), place the caches
+    the calls make (:func:`cache_axis`)."""
+    prev = (current_mesh(), getattr(_ctx, "rules", None),
+            getattr(_ctx, "batch", None))
+    _ctx.mesh, _ctx.rules, _ctx.batch = mesh, rules, batch
     try:
         yield
     finally:
-        _ctx.mesh = prev
+        _ctx.mesh, _ctx.rules, _ctx.batch = prev
 
 
 def current_mesh():
     return getattr(_ctx, "mesh", None)
+
+
+def current_rules():
+    """The active rule table (the baseline's unless :func:`use_mesh` was
+    given one)."""
+    rules = getattr(_ctx, "rules", None)
+    if rules is None:
+        from ..distributed.sharding import BASE_RULES
+
+        rules = BASE_RULES
+    return rules
 
 
 class ModelAxis(NamedTuple):
@@ -78,6 +100,28 @@ class ModelAxis(NamedTuple):
     index: int
 
 
+def enter(x: torch.Tensor, ax: Optional[ModelAxis]) -> torch.Tensor:
+    """The input of a region split over ``ax`` (a column-parallel product,
+    or a whole weight each rank uses for its share of the work): ``x``,
+    whose gradient is summed over the ranks
+    (``collectives.replicated_param``); ``x`` itself without a split."""
+    if ax is None:
+        return x
+    from ..distributed import collectives as coll
+
+    return coll.replicated_param(x, ax.group)
+
+
+def leave(y: torch.Tensor, ax: Optional[ModelAxis]) -> torch.Tensor:
+    """The output of a row-parallel product: the ranks' partial sums
+    added (``collectives.reduce``); ``y`` itself without a split."""
+    if ax is None:
+        return y
+    from ..distributed import collectives as coll
+
+    return coll.reduce(y, ax.group)
+
+
 def model_axis() -> Optional[ModelAxis]:
     """The active mesh's ``"model"`` axis, or None without a mesh, without
     that axis or when it holds one rank."""
@@ -86,6 +130,56 @@ def model_axis() -> Optional[ModelAxis]:
         return None
     return ModelAxis(mesh.group("model"), mesh.shape["model"],
                      mesh.coord("model"))
+
+
+class SeqAxis(NamedTuple):
+    """The mesh axes a cache's sequence dimension is split over (in the
+    partition spec's order, the major first, as they are in the mesh),
+    their joint process group, its size and this rank's index in it (the
+    piece of the sequence it holds)."""
+
+    axes: Tuple[str, ...]
+    group: Any
+    size: int
+    index: int
+
+
+def seq_axis(axes, mesh=None) -> Optional[SeqAxis]:
+    """:class:`SeqAxis` of ``axes`` (a partition-spec entry: None, a mesh
+    axis or a tuple of them) on ``mesh`` (default the active one); None
+    when they hold one rank."""
+    mesh = current_mesh() if mesh is None else mesh
+    if axes is None or mesh is None:
+        return None
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    if tuple(a for a in mesh.axes if a in axes) != axes:
+        raise ValueError(f"cache axes {axes} are not in the mesh's order "
+                         f"{mesh.axes}")
+    size = int(np.prod([mesh.shape[a] for a in axes], dtype=np.int64))
+    if size == 1:
+        return None
+    return SeqAxis(axes, mesh.group(axes), size, mesh.coord(axes))
+
+
+def cache_axis(name: str, length: int) -> Optional[SeqAxis]:
+    """Where the ``name`` dimension (``"cache_seq"`` or ``"enc_seq"``) of a
+    ``(batch, length, kv_heads, head_dim)`` cache lands under the active
+    rules and mesh: the port's ``resolve_axes`` of ``("batch", name)``
+    on ``(global batch, length)`` (so an axis drops out when the mesh
+    lacks it, when the batch took it, or when it does not divide
+    ``length``); None without a mesh or where the dimension stays
+    whole."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    from ..distributed.sharding import resolve_axes
+
+    batch = getattr(_ctx, "batch", None)
+    if batch is None:  # split over every data axis
+        batch = int(np.prod(mesh.sizes, dtype=np.int64))
+    spec = resolve_axes(("batch", name), (batch, length), current_rules(),
+                        mesh)
+    return seq_axis(spec[1], mesh)
 
 
 @dataclass(frozen=True)
@@ -124,12 +218,26 @@ def leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def materialize(tree, generator: torch.Generator, device=None, dtype=None):
+def materialize(tree, generator: torch.Generator, device=None, dtype=None,
+                shardings=None):
     """Instantiate a ParamSpec tree as tensors on ``device``.
 
     Normal-initialized leaves are drawn from ``generator`` (which must live
-    on ``device``) in sorted-key order, then scaled in place.
+    on ``device``) in sorted-key order, then scaled in place.  With
+    ``shardings`` (a matching tree of ``distributed.sharding.Sharding``
+    on a mesh of ranks) each leaf is drawn whole and only this rank's
+    piece of it is kept (a copy), so the draws are the whole tree's and no
+    more than one whole leaf is held at a time.
     """
+    cut = None
+    if shardings is not None:
+        from ..distributed.sharding import local_slice
+
+        flat = dict(leaves(shardings))
+
+        def cut(path, t):
+            return local_slice(t, flat[path]).clone(
+                memory_format=torch.contiguous_format)
     out: Dict = {}
     for path, spec in leaves(tree):
         dt = dtype or spec.dtype
@@ -140,6 +248,8 @@ def materialize(tree, generator: torch.Generator, device=None, dtype=None):
         else:
             t = torch.randn(spec.shape, generator=generator, dtype=dt,
                             device=device).mul_(float(spec.scale()))
+        if cut is not None:
+            t = cut(path, t)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})

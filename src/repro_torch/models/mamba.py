@@ -24,18 +24,33 @@ passes (``_ssm_apply`` and ``_prefill_mamba_state``); the port shares
 ``in_proj``, the conv and the scan between them
 (:func:`mamba_block_with_state`).  Decode is plain PyTorch, the
 reference's one recurrence step.
+
+Tensor parallelism along ``"model"`` (the ``inner -> model`` rule):
+where a rank's ``conv_b`` holds fewer channels than ``d_inner`` (its
+slices, cut by ``transformer.shard_params``), ``in_proj`` is
+column-parallel over the inner channels, both halves (the normed input
+enters through ``collectives.replicated_param``); the conv, ``dt_bias``,
+``A_log``, ``D`` and the scan act on the rank's channels (the
+``selective_scan`` kernel at ``(B, S, d_inner / model)``); ``x_proj``
+contracts over the split channels, so its ``(..., dt_rank + 2 d_state)``
+output is a partial sum that ``collectives.reduce`` completes before
+``dt_proj`` (column-parallel) and the scan read it (entering again
+through ``replicated_param``: each rank's gradient of it covers its own
+channels); ``out_proj`` is row-parallel, followed by ``reduce``.  A
+:class:`MambaState` then holds the rank's channels; decode takes the
+same steps on one token.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
-from .common import ParamSpec
+from .common import ModelAxis, ParamSpec, enter, leave, model_axis
 
 __all__ = ["MambaState", "mamba_spec", "mamba_block",
            "mamba_block_with_state", "ssm_final_state", "init_mamba_state",
@@ -72,8 +87,20 @@ def mamba_spec(cfg: ModelConfig) -> Dict:
     }
 
 
+def _split(cfg: ModelConfig, params) -> Optional[ModelAxis]:
+    """The ``"model"`` axis when this block's channels are split over
+    it."""
+    ax = model_axis()
+    if ax is None or params["conv_b"].shape[0] == _dims(cfg)[0]:
+        return None
+    return ax
+
+
+
+
 def _in_proj(params, x: torch.Tensor):
-    """The inner stream and the gate, each (..., d_inner)."""
+    """The inner stream and the gate, each (..., d_inner) (the rank's
+    channels under a split)."""
     w = params["in_proj"]
     d, _, d_inner = w.shape
     h = (x @ w.reshape(d, 2 * d_inner)).unflatten(-1, (2, d_inner))
@@ -92,12 +119,16 @@ def _conv(params, xi: torch.Tensor, d_conv: int):
     return F.silu(xc + params["conv_b"]), xpad
 
 
-def _ssm_inputs(cfg: ModelConfig, params, xc: torch.Tensor):
+def _ssm_inputs(cfg: ModelConfig, params, xc: torch.Tensor,
+                ax: Optional[ModelAxis] = None):
     """Selective parameters from the (conv'd, activated) inner stream:
     dt (softplus, in the model's type), A (float32), B and C (views of
-    the ``x_proj`` output)."""
+    the ``x_proj`` output, summed over the ranks' channels under a
+    split)."""
     _, d_state, _, dt_rank = _dims(cfg)
     proj = xc @ params["x_proj"]
+    if ax is not None:
+        proj = enter(leave(proj, ax), ax)
     dt_r, Bm, Cm = proj.split([dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus(dt_r @ params["dt_proj"]
                     + params["dt_bias"].to(proj.dtype))
@@ -133,16 +164,17 @@ def mamba_block_with_state(cfg: ModelConfig, params, x: torch.Tensor
     (conv, ssm) state, from one scan."""
     S = x.shape[1]
     _, _, d_conv, _ = _dims(cfg)
-    xi, z = _in_proj(params, x)
+    ax = _split(cfg, params)
+    xi, z = _in_proj(params, enter(x, ax))
     xc, xpad = _conv(params, xi, d_conv)
-    dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc)
+    dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc, ax)
     y, h = _scan(cfg, dt, A, Bm, Cm, xc)
     y = y + params["D"].to(f32) * xc.to(f32)
     y = y.to(x.dtype) * F.silu(z)
     # the trailing d_conv - 1 raw inner inputs (copied: not a view that
     # keeps the whole padded stream alive in the cache)
-    return y @ params["out_proj"], MambaState(conv=xpad[:, S:].clone(),
-                                             ssm=h)
+    return leave(y @ params["out_proj"], ax), MambaState(
+        conv=xpad[:, S:].clone(), ssm=h)
 
 
 def mamba_block(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -152,6 +184,8 @@ def mamba_block(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype,
                      device) -> MambaState:
+    """Zero states of the whole ``d_inner`` channels
+    (``transformer.init_caches`` cuts a rank's out of their shapes)."""
     d_inner, d_state, d_conv, _ = _dims(cfg)
     return MambaState(
         conv=torch.zeros(batch, d_conv - 1, d_inner, dtype=dtype,
@@ -163,16 +197,17 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype,
 def mamba_decode(cfg: ModelConfig, params, x: torch.Tensor,
                  state: MambaState) -> Tuple[torch.Tensor, MambaState]:
     """One-token recurrent step, x (B, 1, d)."""
-    xi, z = _in_proj(params, x[:, 0])  # (B, d_inner)
+    ax = _split(cfg, params)
+    xi, z = _in_proj(params, enter(x[:, 0], ax))  # (B, d_inner)
     window = torch.cat([state.conv, xi[:, None]], dim=1)  # (B, d_conv, di)
     xc = F.silu(torch.einsum("bci,ci->bi", window, params["conv_w"])
                 + params["conv_b"])
-    dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc)
+    dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc, ax)
     a = torch.exp(dt.to(f32)[..., None] * A[None])  # (B, d_inner, d_state)
     b = (dt * xc).to(f32)[..., None] * Bm.to(f32)[:, None, :]
     new_ssm = a * state.ssm + b
     y = torch.einsum("bin,bn->bi", new_ssm, Cm.to(f32))
     y = y + params["D"].to(f32) * xc.to(f32)
     y = y.to(x.dtype) * F.silu(z)
-    out = (y @ params["out_proj"])[:, None, :]
+    out = leave(y @ params["out_proj"], ax)[:, None, :]
     return out, MambaState(conv=window[:, 1:], ssm=new_ssm)

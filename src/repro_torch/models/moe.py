@@ -27,16 +27,19 @@ The expert-parallel all-to-all is :mod:`repro_torch.models.moe_shard_map`
 mesh runs :func:`moe_ffn`, as in the reference.
 
 Under a mesh whose ``"model"`` ranks each hold a slice of the experts
-(``transformer.shard_params``: ``E / |model|`` experts, the ``experts ->
-model`` rule), :func:`moe_ffn` runs that slice: every rank routes all of
-its tokens with the whole router (tiny, the same on every rank), keeps
-the global capacity decisions, runs its own experts' slots, combines the
-assignments to them (the rest weigh 0) and the ranks' partial sums are
-reduced (``collectives.reduce``).  The tokens and the routing weights
-enter the experts through ``collectives.replicated_param``, whose
-backward sums the ranks' partial gradients, so the router's gradient,
-its auxiliary losses' included, is whole on every rank.  Shared experts
-split along their hidden width as a dense MLP does.
+(``transformer.shard_params``: ``E / |model|`` experts and the router's
+columns for them, the ``experts -> model`` rule), :func:`moe_ffn` runs
+that slice: every rank computes its experts' router logits for all of
+its tokens, the (T, E) float32 logits are gathered over ``"model"``
+before top-k (so routing, the capacity decisions and the auxiliary
+losses are the same on every rank), it runs its own experts' slots,
+combines the assignments to them (the rest weigh 0) and the ranks'
+partial sums are reduced (``collectives.reduce``).  The tokens enter
+the router and the experts, and the routing weights the experts,
+through ``collectives.replicated_param``, whose backward sums the ranks'
+partial gradients; the gather's backward keeps the rank's columns of the
+logits' gradient, which is the same on every rank.  Shared experts split
+along their hidden width as a dense MLP does.
 """
 
 from __future__ import annotations
@@ -99,10 +102,16 @@ class Routing(NamedTuple):
 
 
 def route(cfg: ModelConfig, params, xt: torch.Tensor) -> Routing:
-    """The router in float32 for the tokens ``xt`` (T, d)."""
+    """The router in float32 for the tokens ``xt`` (T, d).  A router that
+    holds this rank's experts' columns (under a mesh) gives the rank's
+    logits, gathered over ``"model"``; ``xt`` is then the same on every
+    rank and has entered through ``collectives.replicated_param``."""
     moe = cfg.moe
     E = moe.padded_experts
     logits = xt.to(f32) @ params["router"].to(f32)
+    if logits.shape[-1] < E:  # this rank's experts' columns
+        ax = model_axis()
+        logits = coll.gather(logits.t().contiguous(), ax.group).t()
     if E != moe.n_experts:  # mask the padding experts
         pad = torch.arange(E, device=xt.device) >= moe.n_experts
         logits = logits.masked_fill(pad, -1e30)
@@ -215,14 +224,16 @@ def moe_ffn(cfg: ModelConfig, params, x: torch.Tensor,
     T = B * S
     E = moe.padded_experts
     xt = x.reshape(T, d)
-    r = route(cfg, params, xt)
     # a rank's slice of the experts under a mesh (see the module
     # docstring): tokens and weights enter, the partial sums are reduced
     ax = model_axis()
     if ax is None or params["wi"].shape[0] == E:
-        ax, xe, top_p, e0 = None, xt, r.top_p, 0
+        ax, xe, e0 = None, xt, 0
+        r = route(cfg, params, xt)
+        top_p = r.top_p
     else:
         xe = coll.replicated_param(xt, ax.group)
+        r = route(cfg, params, xe)
         top_p = coll.replicated_param(r.top_p, ax.group)
         e0 = ax.index * params["wi"].shape[0]
     if dropless:

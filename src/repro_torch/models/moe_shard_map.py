@@ -4,12 +4,14 @@ Counterpart of ``repro.models.moe_shard_map``, which writes the exchange
 with ``shard_map`` + ``lax.all_to_all``.  Here it is one rank of an SPMD
 program over a :class:`~repro_torch.distributed.sharding.Mesh` with a
 ``"model"`` axis.  A rank is given its data rank's tokens ``x`` (the same
-on every ``"model"`` rank of that data rank), the whole router and either
-the whole expert weights or its own ``E/|model|`` experts (the
-``experts -> model`` placement of ``transformer.shard_params``):
+on every ``"model"`` rank of that data rank) and either the whole router
+and expert weights or its own ``E/|model|`` experts and their router
+columns (the ``experts -> model`` placement of
+``transformer.shard_params``):
 
   1. it takes its ``1/|model|`` piece of the tokens (``T_loc`` rows);
-  2. routes them with the full router (tiny) in float32;
+  2. routes them with the full router (tiny; its columns all-gathered
+     over ``"model"`` where the rank holds its own) in float32;
   3. packs per-destination send buffers ``(|model|, cap, d)``, the
      destination being ``expert // E_loc``, by a stable sort and
      ``searchsorted`` slots (no one-hot products);
@@ -104,7 +106,10 @@ def moe_ffn_a2a(cfg: ModelConfig, params, x: torch.Tensor, mesh,
     # 1-2. this rank's tokens, routed over all E experts
     xt = coll.split(x.reshape(B * S, d), group)
     T_loc = xt.shape[0]
-    p = {"router": coll.replicated_param(params["router"], group)}
+    router = params["router"]
+    if router.shape[1] < E:  # this rank's columns: the whole router
+        router = coll.gather(router.t().contiguous(), group).t()
+    p = {"router": coll.replicated_param(router, group)}
     if params["wi"].shape[0] == E:
         p.update({name: coll.replicated_param(params[name], group)
                   [m * E_loc:(m + 1) * E_loc] for name in ("wi", "wo")})

@@ -42,20 +42,22 @@ decode).
 
 Tensor parallelism along ``"model"``: :func:`shard_params` cuts a whole
 model into a rank's slices (the rules' ``"model"`` placements of
-:func:`model_spec` with ``tp_axes``: heads, KV heads, FFN columns, the
-vocabulary and the routed experts split where the ``"model"`` size
-divides them; the router, the norms, and the Mamba and xLSTM mixers
-whole), and under ``models.common.use_mesh`` the layers split their
+:func:`model_spec`: heads, KV heads, FFN columns, the vocabulary, the
+routed experts and their router columns, and the Mamba and xLSTM
+``inner`` channels split where the ``"model"`` size divides them; the
+norms whole), and under ``models.common.use_mesh`` the layers split their
 products over the ranks (see :mod:`.attention`, :mod:`.layers`,
-:mod:`.moe`).  Logits are then this rank's vocabulary columns:
-:func:`lm_loss` takes a vocab-parallel cross-entropy and
-:func:`gather_logits` gathers whole ones for greedy decoding; caches hold
-the local KV heads (``init_caches(..., model=)``).
+:mod:`.moe`, :mod:`.mamba`, :mod:`.xlstm`).  Logits are then this rank's
+vocabulary columns: :func:`lm_loss` takes a vocab-parallel cross-entropy
+and :func:`gather_logits` gathers whole ones for greedy decoding.  Every
+cache holds what the reference's cache rule gives the rank
+(:func:`cache_shardings`): KV caches split along the sequence over the
+rules' cache axes (``attention.SeqKVCache``), recurrent states along
+their ``inner`` dimension; :func:`init_caches` takes the mesh and rules.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -89,7 +91,8 @@ from .layers import (
 __all__ = ["check_ported", "sublayer_spec", "model_spec", "Sublayer",
            "Encoder", "DecoderLM", "CrossCache", "layer_kinds",
            "init_params", "abstract_params", "shard_params", "init_caches",
-           "abstract_caches", "make_trainable",
+           "abstract_caches", "cache_shardings", "shard_caches",
+           "make_trainable",
            "apply_sublayer_full", "apply_sublayer_decode", "forward_train",
            "lm_loss", "gather_logits", "prefill", "decode_step",
            "clear_host_tables"]
@@ -136,29 +139,14 @@ def _mixer_spec(cfg: ModelConfig, mixer: str) -> Dict:
     return attn_mod.attn_spec(cfg)
 
 
-#: mixers that run whole on every ``"model"`` rank (their ``"inner"``
-#: split is ROADMAP.md item 1.6c)
-WHOLE_MIXERS = ("mamba", "mlstm", "slstm")
-
-
-def _unplaced(tree):
-    return tree_map(lambda s: dataclasses.replace(
-        s, axes=(None,) * len(s.axes)), tree)
-
-
 def sublayer_spec(cfg: ModelConfig, sub: SublayerKind,
-                  cross: bool = False, tp_axes: bool = False) -> Dict:
-    """One layer's parameter specs.  ``tp_axes`` gives the logical axes
-    of the port's tensor-parallel placement: the same, but none on the
-    leaves that stay whole on every ``"model"`` rank (a Mamba or xLSTM
-    mixer, a MoE router)."""
+                  cross: bool = False) -> Dict:
+    """One layer's parameter specs."""
     mixer, ffn = sub
     s: Dict = {
         "norm1": rmsnorm_spec(cfg.d_model),
         "mixer": _mixer_spec(cfg, mixer),
     }
-    if tp_axes and mixer in WHOLE_MIXERS:
-        s["mixer"] = _unplaced(s["mixer"])
     if cross:
         s["norm_x"] = rmsnorm_spec(cfg.d_model)
         s["cross"] = attn_mod.cross_attn_spec(cfg)
@@ -168,27 +156,24 @@ def sublayer_spec(cfg: ModelConfig, sub: SublayerKind,
     elif ffn == "moe":
         s["norm2"] = rmsnorm_spec(cfg.d_model)
         s["ffn"] = moe_mod.moe_spec(cfg)
-        if tp_axes:
-            s["ffn"]["router"] = _unplaced(s["ffn"]["router"])
     return s
 
 
-def model_spec(cfg: ModelConfig, tp_axes: bool = False) -> Dict:
+def model_spec(cfg: ModelConfig) -> Dict:
     """The reference's parameter tree: ``embed``, ``final_norm``, the
     period stacked over ``n_periods`` under ``stack`` and the remainder
     under ``rest``; an encoder-decoder's decoder layers also hold
     ``norm_x`` and ``cross``, and ``encoder`` holds its (attn, mlp) layer
-    stacked over ``n_enc_layers`` and its ``final_norm``.  ``tp_axes``:
-    see :func:`sublayer_spec`."""
+    stacked over ``n_enc_layers`` and its ``final_norm``."""
     check_ported(cfg)
     cross = cfg.kind == "encdec"
     s: Dict = {"embed": embed_spec(cfg), "final_norm": rmsnorm_spec(cfg.d_model)}
     if cfg.n_periods > 0:
         s["stack"] = stack_specs(
-            {str(i): sublayer_spec(cfg, sub, cross, tp_axes)
+            {str(i): sublayer_spec(cfg, sub, cross)
              for i, sub in enumerate(cfg.period)}, cfg.n_periods)
     s["rest"] = {
-        str(i): sublayer_spec(cfg, sub, cross, tp_axes)
+        str(i): sublayer_spec(cfg, sub, cross)
         for i, sub in enumerate(cfg.remainder)
     }
     if cross:
@@ -259,29 +244,46 @@ class DecoderLM(nn.Module):
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                dtype=None, device=None) -> DecoderLM:
+                dtype=None, device=None, mesh=None, rules=None) -> DecoderLM:
     """Random parameters from ``generator`` (seed 0 on ``device`` when
     None), drawn layer by layer on ``device`` (None: the card) in the
     reference's top-level order: the embedding first, then (an
     encoder-decoder's) each encoder layer and the encoder's final norm,
-    then each decoder layer, then the final norm."""
+    then each decoder layer, then the final norm.  With ``mesh`` (a rank
+    of a mesh) the rank's slices, as :func:`shard_params` cuts them under
+    ``rules``, of the same draws: each leaf is cut as it is drawn, so a
+    model too large for the device whole can be built."""
     check_ported(cfg)
     device = resolve_device(device)
     dt = dtype or getattr(torch, cfg.param_dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     kw = dict(generator=generator, device=device, dtype=dt)
+
+    def mk(spec):
+        shard = None if mesh is None else _tp_shardings(spec, mesh, rules)
+        return materialize(spec, shardings=shard, **kw)
+
     cross = cfg.kind == "encdec"
-    emb = materialize(embed_spec(cfg), **kw)
+    emb = mk(embed_spec(cfg))
     encoder = None
     if cross:
-        encoder = ([materialize(sublayer_spec(cfg, ENC_SUBLAYER), **kw)
+        encoder = ([mk(sublayer_spec(cfg, ENC_SUBLAYER))
                     for _ in range(cfg.n_enc_layers)],
-                   materialize(rmsnorm_spec(cfg.d_model), **kw))
-    layers = [materialize(sublayer_spec(cfg, sub, cross), **kw)
-              for sub in layer_kinds(cfg)]
-    final = materialize(rmsnorm_spec(cfg.d_model), **kw)
+                   mk(rmsnorm_spec(cfg.d_model)))
+    layers = [mk(sublayer_spec(cfg, sub, cross)) for sub in layer_kinds(cfg)]
+    final = mk(rmsnorm_spec(cfg.d_model))
     return DecoderLM(cfg, emb, layers, final, encoder)
+
+
+def _tp_shardings(spec, mesh, rules=None):
+    """The ``"model"`` placements of a spec tree under ``rules`` (default
+    the baseline's)."""
+    from ..distributed.sharding import (BASE_RULES, model_rules,
+                                        spec_tree_to_shardings)
+
+    return spec_tree_to_shardings(
+        spec, model_rules(BASE_RULES if rules is None else rules), mesh)
 
 
 def abstract_params(cfg: ModelConfig, dtype=None, mesh=None,
@@ -319,29 +321,27 @@ def _tree_of(module: ParamTree) -> Dict:
 def shard_params(params: DecoderLM, mesh, rules=None) -> DecoderLM:
     """This rank's tensor-parallel slices of a whole model: every
     parameter cut along ``"model"`` as the ``"model"`` part of ``rules``
-    (default the baseline's) places :func:`model_spec`'s leaves with
-    ``tp_axes`` (``distributed.sharding.model_slice``), copied, so the
-    whole model can be freed.  Leaves stay whole along the data axes."""
-    from ..distributed.sharding import (BASE_RULES, model_rules,
-                                        model_slice, spec_tree_to_shardings)
+    (default the baseline's) places :func:`model_spec`'s leaves
+    (``distributed.sharding.model_slice``), copied, so the whole model
+    can be freed.  Leaves stay whole along the data axes."""
+    from ..distributed.sharding import model_slice
 
     cfg = params.cfg
-    rules = model_rules(BASE_RULES if rules is None else rules)
     cross = cfg.kind == "encdec"
 
     def cut(module, spec):
-        shard = spec_tree_to_shardings(spec, rules, mesh)
+        shard = _tp_shardings(spec, mesh, rules)
         return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format),
                         model_slice(_tree_of(module), shard))
 
     encoder = None
     if params.encoder is not None:
-        encoder = ([cut(layer, sublayer_spec(cfg, ENC_SUBLAYER, tp_axes=True))
+        encoder = ([cut(layer, sublayer_spec(cfg, ENC_SUBLAYER))
                     for layer in params.encoder.layers],
                    cut(params.encoder.final_norm, rmsnorm_spec(cfg.d_model)))
     return DecoderLM(
         cfg, cut(params.embed, embed_spec(cfg)),
-        [cut(layer, sublayer_spec(cfg, layer.kind, cross, tp_axes=True))
+        [cut(layer, sublayer_spec(cfg, layer.kind, cross))
          for layer in params.layers],
         cut(params.final_norm, rmsnorm_spec(cfg.d_model)), encoder)
 
@@ -401,7 +401,7 @@ def make_trainable(params: DecoderLM,
 
 
 def _sublayer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
-                    dtype, device, model: int = 1) -> Cache:
+                    dtype, device) -> Cache:
     if mixer == "mamba":
         return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
     if mixer == "mlstm":
@@ -410,46 +410,138 @@ def _sublayer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
         return xlstm_mod.init_slstm_state(cfg, batch, device)
     return attn_mod.init_cache(cfg, batch, max_len,
                                cfg.window if mixer == "local" else None,
-                               dtype, device,
-                               attn_mod.local_heads(cfg, model)[1])
+                               dtype, device)
+
+
+def _whole_caches(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+                  enc_len: int) -> List[Cache]:
+    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, device)
+              for mixer, _ in layer_kinds(cfg)]
+    if cfg.kind == "encdec":
+        caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, enc_len, None,
+                                                    dtype, device))
+                  for c in caches]
+    return caches
+
+
+def _cache_leaf_axes(cache, cross: bool = False):
+    """The reference's logical axes of each tensor of one layer's cache
+    (``launch.inputs.cache_axes`` of an unstacked layer)."""
+    if isinstance(cache, CrossCache):
+        return CrossCache(_cache_leaf_axes(cache.kv),
+                          _cache_leaf_axes(cache.cross, cross=True))
+    if isinstance(cache, KVCache):
+        kv = ("batch", "enc_seq" if cross else "cache_seq", "kv_heads", None)
+        return KVCache(kv, kv)
+    return type(cache)(*(("batch",) + ("inner",) * (t.ndim - 1)
+                         for t in cache))
+
+
+def cache_shardings(cfg: ModelConfig, caches, mesh, rules=None,
+                    batch: Optional[int] = None):
+    """The placements (``distributed.sharding.Sharding``) of every tensor
+    of whole caches (:func:`init_caches`' on one rank, any device) on
+    ``mesh`` under ``rules`` (default the baseline's): the reference's
+    cache rule, ``resolve_axes`` of ``("batch", "cache_seq", "kv_heads",
+    None)`` for a KV cache, ``enc_seq`` for the cross K/V, ``("batch",
+    "inner", ...)`` for a recurrent state, except that the batch is split
+    over the batch rule's mesh axes where they divide ``batch`` (default
+    the caches' batch) and else whole, as the step builders split it."""
+    from ..distributed.sharding import BASE_RULES, Sharding, resolve_axes
+
+    rules = BASE_RULES if rules is None else rules
+    rule = rules.get("batch") or ()
+    rule = rule if isinstance(rule, tuple) else (rule,)
+    data = tuple(a for a in mesh.axes if a in rule)
+    dp = 1
+    for a in data:
+        dp *= mesh.shape[a]
+
+    def one(t, axes):
+        B = batch if batch is not None else t.shape[0]
+        spec = list(resolve_axes(axes, (B,) + tuple(t.shape[1:]), rules,
+                                 mesh))
+        spec[0] = ((data if len(data) > 1 else data[0])
+                   if data and B % dp == 0 else None)
+        return Sharding(mesh, tuple(spec))
+
+    def walk(c, axes):
+        if isinstance(c, torch.Tensor):
+            return one(c, axes)
+        return type(c)(*(walk(t, a) for t, a in zip(c, axes)))
+
+    return [walk(c, _cache_leaf_axes(c)) for c in caches]
+
+
+def _placed(c, whole, shard, device, fill: bool = True):
+    """A rank's cache from the slices ``c`` of ``whole``: empty ones of
+    their shapes on ``device`` (zeros; an mLSTM or sLSTM stabiliser
+    -1e30), or, without ``fill``, copies of them; a KV cache split along
+    its sequence as a :class:`~.attention.SeqKVCache`."""
+    if isinstance(c, CrossCache):
+        return CrossCache(_placed(c.kv, whole.kv, shard.kv, device, fill),
+                          _placed(c.cross, whole.cross, shard.cross, device,
+                                  fill))
+    out = [torch.full(t.shape, -1e30 if f == "m" else 0, dtype=t.dtype,
+                      device=device) if fill else t.clone(
+                          memory_format=torch.contiguous_format)
+           for f, t in zip(c._fields, c)]
+    axes = shard.k.spec[1] if isinstance(c, KVCache) else None
+    if axes is None:
+        return type(c)(*out)
+    return attn_mod.SeqKVCache(*out, attn_mod.SeqSplit(
+        axes if isinstance(axes, tuple) else (axes,), whole.k.shape[1]))
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                device=None, model: int = 1) -> List[Cache]:
+                device=None, mesh=None, rules=None,
+                enc_len: int = 1) -> List[Cache]:
     """One empty decode cache per layer on ``device`` (None: the card): a
     KV cache for attention (a ring buffer for local layers), a Mamba
     state (its conv window in ``dtype``, its ssm state float32), a
-    float32 mLSTM or sLSTM state.  An encoder-decoder's
-    layers get a :class:`CrossCache` whose cross K/V hold one zero
-    position (the reference's placeholder: the encoder's length is known
-    at prefill, which writes its K/V).  ``model``: the ``"model"`` size of
-    a tensor-parallel rank, whose KV caches hold its local heads
-    (``attention.local_heads``); recurrent states stay whole."""
-    device = resolve_device(device)
-    n_kv = attn_mod.local_heads(cfg, model)[1]
-    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, device,
-                              model)
-              for mixer, _ in layer_kinds(cfg)]
-    if cfg.kind == "encdec":
-        caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, 1, None,
-                                                    dtype, device, n_kv))
-                  for c in caches]
-    return caches
+    float32 mLSTM or sLSTM state.  An encoder-decoder's layers get a
+    :class:`CrossCache` whose cross K/V hold ``enc_len`` zero positions
+    (one, the reference's placeholder: the encoder's length is known at
+    prefill, which writes its K/V).  With ``mesh`` (a rank of a mesh),
+    ``batch`` is the global batch and the caches are the rank's pieces
+    under ``rules`` (:func:`cache_shardings`)."""
+    device = torch.device("meta") if torch.device(
+        device or "cuda").type == "meta" else resolve_device(device)
+    if mesh is None:
+        return _whole_caches(cfg, batch, max_len, dtype, device, enc_len)
+    return _rank_caches(cfg, batch, max_len, dtype, device, mesh, rules,
+                        enc_len)
+
+
+def shard_caches(cfg: ModelConfig, caches: List[Cache], mesh, rules=None,
+                 batch: Optional[int] = None) -> List[Cache]:
+    """This rank's copy of whole caches (one rank's, filled) under
+    ``rules`` (:func:`cache_shardings`; ``batch`` the global batch,
+    default the caches'): what :func:`init_caches` with ``mesh`` makes,
+    holding their values."""
+    from ..distributed.sharding import local_tree
+
+    shard = cache_shardings(cfg, caches, mesh, rules, batch)
+    return [_placed(c, w, s, None, fill=False)
+            for c, w, s in zip(local_tree(caches, shard), caches, shard)]
+
+
+def _rank_caches(cfg, batch, max_len, dtype, device, mesh, rules, enc_len):
+    from ..distributed.sharding import local_tree
+
+    whole = _whole_caches(cfg, batch, max_len, dtype, torch.device("meta"),
+                          enc_len)
+    shard = cache_shardings(cfg, whole, mesh, rules)
+    return [_placed(c, w, s, device)
+            for c, w, s in zip(local_tree(whole, shard), whole, shard)]
 
 
 def abstract_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                    enc_len: int = 1, model: int = 1) -> List[Cache]:
+                    enc_len: int = 1, mesh=None, rules=None) -> List[Cache]:
     """:func:`init_caches`' caches on the meta device (no storage); an
     encoder-decoder's cross K/V hold ``enc_len`` positions."""
-    meta = torch.device("meta")
-    n_kv = attn_mod.local_heads(cfg, model)[1]
-    caches = [_sublayer_cache(cfg, mixer, batch, max_len, dtype, meta, model)
-              for mixer, _ in layer_kinds(cfg)]
-    if cfg.kind == "encdec":
-        caches = [CrossCache(c, attn_mod.init_cache(cfg, batch, enc_len,
-                                                    None, dtype, meta, n_kv))
-                  for c in caches]
-    return caches
+    return init_caches(cfg, batch, max_len, dtype, torch.device("meta"),
+                       mesh, rules, enc_len)
 
 
 # --------------------------------------------------------------------- #
@@ -529,15 +621,18 @@ def apply_sublayer_full(
         out = attn_mod.attend(cfg, params["mixer"], q, k, v, causal=causal,
                               window=window)
         if collect_cache:
-            new_cache = _prefill_kv_cache(cfg, k, v, window, max_len,
-                                          cache_dtype)
+            new_cache = attn_mod.prefill_cache(cfg, params["mixer"], h,
+                                               positions, k, v, window,
+                                               max_len, cache_dtype)
     x = x + out
     if cross_kv is not None:
         hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
         ck, cv = attn_mod.project_cross_kv(cfg, params["cross"], *cross_kv)
         x = x + attn_mod.cross_attention(cfg, params["cross"], hx, ck, cv)
         if collect_cache:
-            new_cache = CrossCache(new_cache, KVCache(ck, cv))
+            new_cache = CrossCache(new_cache, attn_mod.prefill_cache(
+                cfg, params["cross"], cross_kv[0], None, ck, cv, None,
+                ck.shape[1], name="enc_seq"))
     x, aux = _apply_ffn(cfg, params, sub, x, aux)
     return x, aux, new_cache
 
@@ -570,28 +665,10 @@ def apply_sublayer_decode(
     if cross is not None:
         hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
         x = x + attn_mod.decode_cross_attention(cfg, params["cross"], hx,
-                                                cross.k, cross.v)
+                                                cross.k, cross.v, cross)
         new_cache = CrossCache(new_cache, cross)
     x, _ = _apply_ffn(cfg, params, sub, x, None, decode=True)
     return x, new_cache
-
-
-def _prefill_kv_cache(cfg, k, v, window, max_len, dtype) -> KVCache:
-    """The decode cache of one layer from its prefill K/V (after RoPE)."""
-    B, S = k.shape[0], k.shape[1]
-    cache = attn_mod.init_cache(cfg, B, max_len, window, dtype or k.dtype,
-                                k.device, k.shape[2])
-    S_c = cache.k.shape[1]
-    if window is None or S <= S_c:
-        cache.k[:, :S] = k
-        cache.v[:, :S] = v
-        return cache
-    # ring: keep the last S_c positions at slots pos % S_c
-    start = S - S_c
-    slots = (start + torch.arange(S_c, device=k.device)) % S_c
-    cache.k[:, slots] = k[:, -S_c:].to(cache.k.dtype)
-    cache.v[:, slots] = v[:, -S_c:].to(cache.v.dtype)
-    return cache
 
 
 # --------------------------------------------------------------------- #
@@ -750,7 +827,8 @@ def forward_train(cfg: ModelConfig, params: DecoderLM,
     x, *aux = _period(cfg, params.layers[cfg.n_periods * L:], positions,
                       cross_kv, x, *aux)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return (compute_logits(params.embed, cfg, x).float(),
+    logits = compute_logits(params.embed, cfg, x)  # float64 stays float64
+    return (logits.to(torch.promote_types(logits.dtype, torch.float32)),
             dict(zip(ZERO_AUX, aux)))
 
 

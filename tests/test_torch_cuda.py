@@ -1121,3 +1121,82 @@ class TestJambaOnTheCard:
                         [want.prefill_logits] + want.step_logits):
             rel = float((a.cpu() - b).abs().max() / b.abs().max())
             assert rel <= 1e-4
+
+
+def _split_rank(rank, world, out_dir, device):
+    """One ``gloo`` rank on ``device`` of the (1, 2) mesh: reduced Jamba
+    (5 layers) and xLSTM prefill and 4 teacher-forced decode steps on its
+    slices, the gathered logits and the scan and flash launches saved."""
+    import dataclasses
+    import os
+
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import use_mesh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    out = {}
+    for arch, n_layers in (("jamba_1p5_large_398b", 5), ("xlstm_125m", 4)):
+        cfg = dataclasses.replace(lm_serve.make_config(arch, reduced=True),
+                                  n_layers=n_layers)
+        whole = lm_serve.make_params(cfg, torch.device("cpu"), seed=1)
+        params = tf.shard_params(whole.to(dev), mesh)
+        prompt = lm_serve.make_prompt(cfg, 2, 40, torch.device("cpu"))
+        ops.reset_launch_counts()
+        with use_mesh(mesh), torch.no_grad():
+            logits, caches = tf.prefill(
+                cfg, params, {"tokens": prompt.to(dev)}, max_len=44)
+            got = [tf.gather_logits(cfg, logits).cpu()]
+            for t in range(4):
+                tok = prompt[:, t:t + 1].to(dev)
+                logits, caches = tf.decode_step(cfg, params, caches, tok,
+                                                40 + t)
+                got.append(tf.gather_logits(cfg, logits).cpu())
+        out[arch] = (got, dict(ops.launch_counts()))
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+class TestInnerSplitOnTheCard:
+    def test_split_mixers_on_two_ranks_match_the_cpu(self, dev, tmp_path):
+        """Reduced Jamba (5 layers: Mamba, MoE, attention) and xLSTM split
+        over two ``gloo`` processes on the card (mesh (1, 2)): the
+        prefill's and 4 decode steps' logits within 1e-4 relative of one
+        rank on the CPU; a rank's prefill launches 4 ``selective_scan``s
+        at its channels and one flash kernel."""
+        import dataclasses
+        import os
+
+        from repro_torch.distributed import ranks
+        from repro_torch.models import transformer as tf
+
+        ranks.run("test_torch_cuda:_split_rank", 2,
+                  args=[str(tmp_path), str(dev)],
+                  path=[os.path.dirname(os.path.abspath(__file__))],
+                  timeout=300)
+        got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+        cpu = torch.device("cpu")
+        for arch, n_layers in (("jamba_1p5_large_398b", 5),
+                               ("xlstm_125m", 4)):
+            cfg = dataclasses.replace(
+                lm_serve.make_config(arch, reduced=True), n_layers=n_layers)
+            params = lm_serve.make_params(cfg, cpu, seed=1)
+            prompt = lm_serve.make_prompt(cfg, 2, 40, cpu)
+            with torch.no_grad():
+                logits, caches = tf.prefill(cfg, params, {"tokens": prompt},
+                                            max_len=44)
+                want = [logits]
+                for t in range(4):
+                    logits, caches = tf.decode_step(
+                        cfg, params, caches, prompt[:, t:t + 1], 40 + t)
+                    want.append(logits)
+            for r in range(2):
+                logs, counts = got[r][arch]
+                for a, b in zip(logs, want):
+                    rel = float((a.float() - b.float()).abs().max()
+                                / b.float().abs().max())
+                    assert rel <= 1e-4, (arch, r, rel)
+                if arch.startswith("jamba"):
+                    assert counts["selective_scan"] == 4
+                    assert counts["flash_attention"] == 1

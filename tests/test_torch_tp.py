@@ -27,7 +27,8 @@ port's one rank, and the multi-rank dry run, on the CPU.
   parameter and cache bytes of every cell the reference admits, at
   16x16 and 2x16x16, equal the reference's rule count (its dry run's two
   helpers, compiled from its source: importing ``repro.launch.dryrun``
-  would set ``XLA_FLAGS`` in this process).
+  would set ``XLA_FLAGS`` in this process), and so do the caches of the
+  port's own layout on the rank in every serve cell.
 
 Tolerances: relative error is ``max|port - ref| / max|ref|`` per tensor.
 Logits (prefill and decode) and losses 1e-5 against the JAX package
@@ -561,11 +562,16 @@ def test_rule_bytes_equal_the_reference_count(arch):
             class Stand:  # the reference reads only .shape
                 shape = dict(mesh.shape)
 
-            got = dryrun.rule_bytes(tcfg, tshape.batch, tshape.seq,
-                                    inputs.rules_for(tcfg, tshape), mesh)
+            trules = inputs.rules_for(tcfg, tshape)
+            got = dryrun.rule_bytes(tcfg, tshape.batch, tshape.seq, trules,
+                                    mesh)
             assert got["params"] == params_of(jcfg, jrules, Stand()), name
             assert got["caches"] == caches_of(jcfg, jshape, jrules,
                                               Stand()), name
+            if tshape.kind != "train":  # the port's own caches on the rank
+                mine = dryrun.resident_bytes(tcfg, tshape.kind, tshape.batch,
+                                             tshape.seq, trules, mesh)
+                assert mine["caches"] == got["caches"], name
 
 
 def test_multi_pod_cells_report_both_counts_and_collectives():
@@ -595,16 +601,6 @@ def test_moe_a2a_variant_traces_the_all_to_all():
             _cfg("qwen2_moe_a2p7b").moe, a2a=True)), "prefill", 2, 8,
         scale=False, mesh=MeshShape(("data", "model"), (1, 2)))
     assert st.coll_counts["all-to-all"] > 0
-
-
-def test_mamba_and_xlstm_stay_whole_and_the_record_says_so():
-    rec = dryrun.run_cell("jamba_1p5_large_398b", "decode_32k",
-                          verbose=False, mesh="16x16")
-    assert "1.6c" in rec["own_layout_note"]
-    spec = _flat(steps.tp_shardings(get_config("xlstm_125m"),
-                                    dryrun.MESHES["16x16"], BASE_RULES))
-    assert all("model" not in s.spec for k, s in spec.items()
-               if "/mixer/" in k)
 
 
 def test_restore_fills_a_ranks_slices(tmp_path):
