@@ -285,6 +285,21 @@ and no result line is printed):
    holding half the positions of every layer under
    ``long_decode_rules``, ``TPI_LONG_STEPS`` steps, no further from the
    float32 run's logits than ``TP_EXACT_FACTOR`` times one rank's.
+28. Ray backend — ``[ray]`` (after ``[process]``, in a child process, so
+   nothing of it stays in this one; the child starts with ``[process]``
+   and waits to be told to go, so that its torch import overlaps that
+   phase): the real ``ray`` where it imports,
+   else ``tests/torch_ray_standin.py`` (the first line names which); the
+   Jacobi main path on 4 CUDA actors that share the card at
+   ``SIDE_UPDATES`` updates with telemetry,
+   a ``RAY_SYNC_UPDATES``-update sync run of the same solve on the warm
+   pool, VI S = 10^6 async on 4 actors, and one actor's Jacobi run
+   (``RAY_1W_UPDATES`` updates) against one thread worker's bytes, cold
+   and then warm with no actor created; prints wall, updates, fires,
+   accepts, staleness p50/p95, each pool's cold start, and the actors'
+   launches (``jacobi_halo_sweeps``, ``bellman``) apart from the
+   coordinator's (``jacobi_sweep``, ``anderson_mix``), each of which
+   must be > 0; its launches join the kernels line.
 
 To fit a 900 s time limit on one H100, the runs that repeat a main path under
 another feature take ``SIDE_UPDATES`` updates (200 before ``[tp]`` was
@@ -1203,6 +1218,10 @@ def run_path(label, problem, cfg, run=None):
 #: limit (they ran 200 before [tp] was added, [recover] with checkpoints
 #: every 50)
 SIDE_UPDATES, RECOVER_EVERY = 100, 25
+#: [ray]'s sync Jacobi run (rounds of 4 updates) and its one-actor runs
+#: (the [process] phase's one-worker count), and the child process's time
+#: limit (s)
+RAY_SYNC_UPDATES, RAY_1W_UPDATES, RAY_TIMEOUT = 20, 20, 300
 #: [jacobi]'s one-worker runs, through the kernels and through the numpy
 #: oracle (20 before [tp] was added: the oracle run took 32 s on an H100
 #: host)
@@ -1388,6 +1407,154 @@ def phase_process(dev):
         if turn == "warm":
             check(spawned == 0, f"process: a warm run spawned {spawned}")
     return launches
+
+
+@contextlib.contextmanager
+def ray_child_proc():
+    """[ray]'s child process (:func:`ray_child`), started on entering the
+    block so that its interpreter start (a torch import, and the
+    stand-in's fork server importing torch again) overlaps the phases
+    before [ray]; it touches the card only once :func:`phase_ray` says
+    go.  Stopped on leaving the block if it still runs."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "ray.json"
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.ray_child(sys.argv[1]))", str(out)],
+            cwd=str(ROOT), stdin=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        proc.out = out
+        try:
+            yield proc
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_ray(proc):
+    """[ray]: the Ray backend's cells in the child process of
+    :func:`ray_child_proc`; returns the launches of its main-path runs."""
+    sys.stdout.flush()
+    proc.stdin.write("go\n")
+    proc.stdin.close()
+    rc = proc.wait(timeout=RAY_TIMEOUT)
+    check(rc == 0, f"ray: the child process exited {rc}")
+    return json.loads(proc.out.read_text())
+
+
+def ray_runtime():
+    """``ray`` where it imports, else ``tests/torch_ray_standin.py``
+    installed as ``ray`` (whose actors are processes of their own); with a
+    line that says which."""
+    try:
+        import ray
+
+        return ray, f"ray {ray.__version__}"
+    except ImportError:
+        sys.path.insert(0, str(ROOT / "tests"))
+        import torch_ray_standin
+
+        torch_ray_standin.install()
+        return torch_ray_standin, ("the stand-in tests/torch_ray_standin.py "
+                                   "(ray does not import here): each actor "
+                                   "a process of its own")
+
+
+def ray_child(out_path: str) -> int:
+    """Body of [ray]'s child: the Jacobi and VI main paths on 4 CUDA actors,
+    a sync Jacobi run, one actor against one thread worker cold and warm;
+    writes the runs' launches as JSON to ``out_path``."""
+    import torch
+
+    ray, runtime = ray_runtime()
+    # Started before the wait: the stand-in's fork server imports torch
+    # then, off the phase's clock.
+    ray.init(include_dashboard=False, log_to_driver=False)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import ray_pool_stats, shutdown_ray_pools
+    from repro_torch.kernels import ops
+
+    if sys.stdin.readline().strip() != "go":
+        return 1  # the smoke stopped before [ray]
+    print(f"[ray] runtime: {runtime}")
+    dev = torch.device("cuda", 0)
+    actor_side = {}
+    merge = ops.add_launch_counts
+
+    def tally(counts):
+        # The backend merges each actor's counts through here.
+        for k, c in counts.items():
+            actor_side[k] = actor_side.get(k, 0) + c
+        merge(counts)
+
+    ops.add_launch_counts = tally
+    launches = {}
+
+    def cell(label, prob, cfg):
+        actor_side.clear()
+        keys = set(ray_pool_stats())
+        res, got, _ = run_path(label, prob, cfg)
+        for k, c in got.items():
+            launches[k] = launches.get(k, 0) + c
+        coord = {k: c - actor_side.get(k, 0) for k, c in got.items()}
+        summ = res.telemetry_summary or {}
+        stale = (f"staleness p50 {summ['staleness_p50']:g} p95 "
+                 f"{summ['staleness_p95']:g}" if "staleness_p50" in summ
+                 else f"mean staleness {res.mean_staleness:.3f}")
+        boot = [f"{st['boot_s']:.3f} s" for k, st in ray_pool_stats().items()
+                if k not in keys]
+        print(f"[{label}] wall {res.wall_time:.3f} s, updates "
+              f"{res.worker_updates}, fires {res.accel_fires}, accepts "
+              f"{res.accel_accepts}, {stale}; pool cold start "
+              f"{', '.join(boot) or 'none (warm pool)'}; actor launches "
+              f"{json.dumps({k: c for k, c in actor_side.items() if c})}; "
+              f"coordinator launches "
+              f"{json.dumps({k: c for k, c in coord.items() if c})}")
+        return res, dict(actor_side), coord
+
+    try:
+        jac = jacobi_problem(dev)
+        _, act, coord = cell("ray-jacobi", jac, main_cfg(
+            executor="ray", max_updates=SIDE_UPDATES, telemetry=True))
+        check(act.get("jacobi_halo_sweeps", 0) > 0,
+              "ray: jacobi_halo_sweeps never launched in the actors")
+        for k in ("jacobi_sweep", "anderson_mix"):
+            check(coord[k] > 0, f"ray: the coordinator never launched {k}")
+        cell("ray-jacobi-sync", jac, main_cfg(
+            executor="ray", mode="sync", max_updates=RAY_SYNC_UPDATES))
+        _, act, coord = cell("ray-vi", vi_problem(dev), main_cfg(
+            executor="ray", telemetry=True))
+        check(act.get("bellman", 0) > 0,
+              "ray: bellman never launched in the actors")
+        check(coord["anderson_mix"] > 0,
+              "ray: the coordinator never launched anderson_mix on VI")
+        one = dict(n_workers=1, faults=None, max_updates=RAY_1W_UPDATES,
+                   device_plane="off")
+        rt = run_path("ray-1w-thread", jac, main_cfg(**one))[0]
+        for turn in ("cold", "warm"):
+            before = {p for st in ray_pool_stats().values()
+                      for p in st["pids"]}
+            rr = run_path(f"ray-1w-{turn}", jac,
+                          main_cfg(executor="ray", **one))[0]
+            created = len({p for st in ray_pool_stats().values()
+                           for p in st["pids"]} - before)
+            same = rr.x.tobytes() == rt.x.tobytes()
+            print(f"[ray] one-actor Jacobi, {turn} pool: {created} actors "
+                  f"created, iterate equal to the thread run's bytes: {same}")
+            check(same and rr.worker_updates == rt.worker_updates,
+                  f"ray: the one-actor {turn} run differs from the thread "
+                  f"run")
+            if turn == "warm":
+                check(created == 0, f"ray: a warm run created {created} "
+                                    f"actors")
+    finally:
+        shutdown_ray_pools()
+    check(ray_pool_stats() == {}, "ray: pools left after shutdown")
+    Path(out_path).write_text(json.dumps(launches))
+    return 0
 
 
 def pool_pids():
@@ -3871,9 +4038,10 @@ def _shard_gloo(torch, dev):
 # [tp]: tensor parallelism along "model"; [dryrun-mesh]
 # --------------------------------------------------------------------- #
 #: [tp]: the (data, model) mesh of its gloo processes on the one card,
-#: the decode steps after the prefill, the float32 run's depth, the train
-#: steps and the run's time limit (s)
-TP_MESH, TP_DECODE, TP_TRAIN_STEPS = (1, 2), 8, 5
+#: the decode steps after the prefill (8 before [ray] was added: the
+#: split runs' steps are gloo-bound), the train steps and the run's time
+#: limit (s)
+TP_MESH, TP_DECODE, TP_TRAIN_STEPS = (1, 2), 4, 5
 TP_TIMEOUT = 300
 #: [tp]'s serve runs: (label, weights' dtype, depth (None: the config's),
 #: limit of the logits' max|delta|/max|ref| against the one-rank run of
@@ -4172,8 +4340,9 @@ def phase_tp(torch, dev):
 # --------------------------------------------------------------------- #
 # [tp-inner]: the "inner" split of Mamba and xLSTM, sequence-split caches
 # --------------------------------------------------------------------- #
-#: [tp-inner]: its mesh, decode steps, time limit (s), Jamba's depth
-TPI_MESH, TPI_DECODE, TPI_TIMEOUT, TPI_JAMBA_DEPTH = (1, 2), 8, 420, 5
+#: [tp-inner]: its mesh, decode steps (8 before [ray] was added: gloo-
+#: bound), time limit (s), Jamba's depth
+TPI_MESH, TPI_DECODE, TPI_TIMEOUT, TPI_JAMBA_DEPTH = (1, 2), 4, 420, 5
 #: the parity runs: Jamba's widths at depth 2 with every sublayer kind
 #: (one (mamba, moe) and one (attn, mlp) layer), 4 experts (16 at depth
 #: 2 hold 39 GB in float32 alone), 2 x 2048 tokens; float32 within
@@ -4193,8 +4362,9 @@ TPI_BF16_FACTOR = 2.0
 #: float32 run's (the model amplifies float32 rounding: [lm-xlstm-parity])
 TPI_XLSTM_PROMPT, TPI_XLSTM_FACTOR = 1024, 2.0
 #: batch-1 long decode: Gemma-3-4B against caches of this many positions
-#: filled from a seed, this many steps
-TPI_LONG_ARCH, TPI_LONG_LEN, TPI_LONG_STEPS = "gemma3_4b", 524288, 4
+#: filled from a seed, this many steps (4 before [ray] was added; each
+#: split step takes ~0.48 s of gloo collectives)
+TPI_LONG_ARCH, TPI_LONG_LEN, TPI_LONG_STEPS = "gemma3_4b", 524288, 2
 
 
 def _barrier(torch, mesh, dev):
@@ -4747,8 +4917,9 @@ def main() -> int:
     from repro_torch.core import pool_stats, shutdown_pools
 
     try:
-        with dryrun_all() as all_proc:
+        with dryrun_all() as all_proc, ray_child_proc() as ray_proc:
             run("process", lambda: phase_process(dev))
+            run("ray", lambda: phase_ray(ray_proc))
             run("recover process", lambda: phase_recover(dev, "process"))
             jac, vi = jacobi_problem(dev), vi_problem(dev)
             run("telemetry", lambda: phase_telemetry(dev, jac, vi))

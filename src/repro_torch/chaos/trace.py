@@ -32,7 +32,9 @@ Known approximations (documented, not silent):
   *queues* the task, while the worker snapshots the iterate from shared
   memory slightly later — replay evaluates on the dispatch-time basis, so
   agreement there is close but not bit-exact.  Thread-backend traces
-  (snapshot under the coordinator lock) replay exactly.
+  (snapshot under the coordinator lock) and Ray-backend traces (the
+  iterate is ``ray.put`` into the object store at dispatch) replay
+  exactly.
 
 This is the port's copy of the reference's module: the same JSON format
 and version, so a trace captured by either package replays in the other.

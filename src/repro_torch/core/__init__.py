@@ -4,8 +4,8 @@
   interface (numpy-only, the coordinator contract)
 - :mod:`repro_torch.core.anderson`   — Anderson/DIIS with the Eq. 5
   safeguard, window on the device
-- :mod:`repro_torch.core.engine`     — coordinator, virtual-time, thread
-  and process backends, device plane, elastic membership, checkpoint,
+- :mod:`repro_torch.core.engine`     — coordinator, virtual-time, thread,
+  process and Ray backends, device plane, elastic membership, checkpoint,
   autoscale and telemetry hooks
 - :mod:`repro_torch.core.coupling`   — coupling-density analysis (paper
   §3.5)
@@ -17,6 +17,7 @@ from .engine import (
     Executor,
     FaultProfile,
     ProcessPoolExecutor,
+    RayExecutor,
     RunConfig,
     RunResult,
     SolveSession,
@@ -28,9 +29,12 @@ from .engine import (
     measure_compute,
     pool_stats,
     process_pools,
+    ray_pool_stats,
+    ray_pools,
     register_executor,
     run_fixed_point,
     shutdown_pools,
+    shutdown_ray_pools,
     submit_fixed_point,
 )
 from .coupling import (
@@ -55,9 +59,13 @@ __all__ = [
     "VirtualTimeExecutor",
     "ThreadPoolExecutor",
     "ProcessPoolExecutor",
+    "RayExecutor",
     "shutdown_pools",
     "process_pools",
     "pool_stats",
+    "ray_pool_stats",
+    "ray_pools",
+    "shutdown_ray_pools",
     "register_executor",
     "get_executor",
     "available_executors",

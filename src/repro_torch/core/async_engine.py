@@ -12,6 +12,7 @@ from .engine import (
     Executor,
     FaultProfile,
     ProcessPoolExecutor,
+    RayExecutor,
     RunConfig,
     RunResult,
     ThreadPoolExecutor,
@@ -36,6 +37,7 @@ __all__ = [
     "VirtualTimeExecutor",
     "ThreadPoolExecutor",
     "ProcessPoolExecutor",
+    "RayExecutor",
     "register_executor",
     "get_executor",
     "available_executors",

@@ -11,6 +11,8 @@
   backend, with the device-resident data plane
 - :mod:`repro_torch.core.engine.process`      — persistent process pools
   (spawned interpreters, CUDA workers), with the same data plane
+- :mod:`repro_torch.core.engine.ray_backend`  — Ray actors, the paper's
+  §4 runtime (optional dependency; CUDA actors share the card)
 - :mod:`repro_torch.core.engine.poolreg`      — the pools' LRU registry
 - :mod:`repro_torch.core.engine.device_plane` — the data-plane resolver
 
@@ -19,7 +21,8 @@ checkpoints (:mod:`repro_torch.recover`) hook into the coordinator and
 every backend.
 
 :func:`run_fixed_point` is the one-call API; the backend is selected with
-``RunConfig.executor`` (``"virtual"`` | ``"thread"`` | ``"process"``).
+``RunConfig.executor`` (``"virtual"`` | ``"thread"`` | ``"process"`` |
+``"ray"``).
 :func:`submit_fixed_point` returns a started :class:`SolveSession`.
 """
 
@@ -32,6 +35,7 @@ from .base import (
     get_executor,
     known_executors,
     register_executor,
+    register_unavailable,
 )
 from .coordinator import (
     AccelPlan,
@@ -53,6 +57,11 @@ from .threadpool import ThreadPoolExecutor
 from .types import CoordinatorCrash, FaultProfile, RunConfig, RunResult
 from .virtual_time import VirtualTimeExecutor
 
+from . import ray_backend as _ray_backend  # registers "ray" or its absence
+from .ray_backend import ray_pool_stats, ray_pools, shutdown_ray_pools
+
+RayExecutor = getattr(_ray_backend, "RayExecutor", None)
+
 __all__ = [
     "FaultProfile",
     "RunConfig",
@@ -66,6 +75,7 @@ __all__ = [
     "VirtualTimeExecutor",
     "ThreadPoolExecutor",
     "ProcessPoolExecutor",
+    "RayExecutor",
     "shutdown_pools",
     "process_pools",
     "pool_stats",
@@ -77,11 +87,15 @@ __all__ = [
     "AccelPlan",
     "RecordPlan",
     "register_executor",
+    "register_unavailable",
     "get_executor",
     "available_executors",
     "known_executors",
     "measure_compute",
     "worker_eval",
+    "ray_pool_stats",
+    "ray_pools",
+    "shutdown_ray_pools",
 ]
 
 

@@ -13,9 +13,15 @@ submit + execute inline).  Backends registered here are addressed by
 - ``"thread"``  — real concurrent workers in a thread pool (wall seconds);
 - ``"process"`` — persistent pools of spawned worker interpreters, each
   with its own CUDA context when the problem is on the card (wall
-  seconds).
+  seconds);
+- ``"ray"``     — Ray actors, the paper's §4 runtime (optional dependency;
+  actors ask Ray for a share of the card when the problem is on it).
 
-The reference's Ray backend is not ported yet (``RunConfig`` refuses it).
+Backends with an unsatisfied dependency register through
+:func:`register_unavailable` instead: they stay out of
+:func:`available_executors` (so parameterized tests and benchmarks skip
+them cleanly) but :func:`get_executor` explains what is missing rather
+than claiming the name is unknown.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ __all__ = [
     "Executor",
     "SolveSession",
     "register_executor",
+    "register_unavailable",
     "get_executor",
     "available_executors",
     "known_executors",
@@ -77,6 +84,7 @@ class Executor(abc.ABC):
 
 
 _REGISTRY: Dict[str, Type[Executor]] = {}
+_UNAVAILABLE: Dict[str, str] = {}
 
 
 def register_executor(cls: Type[Executor]) -> Type[Executor]:
@@ -84,13 +92,24 @@ def register_executor(cls: Type[Executor]) -> Type[Executor]:
     if not cls.name:
         raise ValueError(f"{cls.__name__} must define a non-empty .name")
     _REGISTRY[cls.name] = cls
+    _UNAVAILABLE.pop(cls.name, None)
     return cls
+
+
+def register_unavailable(name: str, reason: str) -> None:
+    """Declare a known backend whose dependency is missing in this env."""
+    if name not in _REGISTRY:
+        _UNAVAILABLE[name] = reason
 
 
 def get_executor(name: str) -> Executor:
     try:
         cls = _REGISTRY[name]
     except KeyError:
+        if name in _UNAVAILABLE:
+            raise ValueError(
+                f"executor {name!r} is unavailable: {_UNAVAILABLE[name]}"
+            ) from None
         raise ValueError(
             f"unknown executor {name!r}; available: {sorted(_REGISTRY)}"
         ) from None
@@ -103,11 +122,7 @@ def available_executors() -> List[str]:
 
 
 def known_executors() -> Dict[str, str]:
-    """All known backends: name -> "available" or why it is not (the
-    reference's backends this port has not ported yet)."""
-    from .types import _UNPORTED_EXECUTORS
-
+    """All known backends: name -> "available" or the unavailability reason."""
     out = {n: "available" for n in _REGISTRY}
-    for name, item in _UNPORTED_EXECUTORS.items():
-        out.setdefault(name, f"not ported to repro_torch yet: {item}")
+    out.update(_UNAVAILABLE)
     return dict(sorted(out.items()))

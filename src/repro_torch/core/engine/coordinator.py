@@ -72,6 +72,8 @@ __all__ = [
     "warm_problem",
     "problem_payload",
     "rebuild_problem",
+    "on_card",
+    "worker_cfg",
 ]
 
 
@@ -153,6 +155,22 @@ def rebuild_problem(payload) -> FixedPointProblem:
         factory, args, kwargs = data
         return factory(*args, **kwargs)
     return data
+
+
+def on_card(problem: FixedPointProblem) -> bool:
+    """True when ``problem`` lives on a CUDA device."""
+    dev = getattr(problem, "device", None)
+    return dev is not None and dev.type == "cuda"
+
+
+def worker_cfg(cfg: RunConfig) -> RunConfig:
+    """The config shipped to out-of-process workers.  Controllers live
+    coordinator-side only and may hold unpicklable hooks (the serve
+    layer's queue-depth closure); resume checkpoints carry the
+    coordinator's arrays, which the workers have no use for."""
+    if cfg.controller is None and cfg.resume_from is None:
+        return cfg
+    return _dc_replace(cfg, controller=None, resume_from=None)
 
 
 def _validate_layers(cfg: RunConfig) -> None:

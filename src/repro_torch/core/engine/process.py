@@ -110,16 +110,18 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 
 from ...kernels import _build, ops
-from ..fixedpoint import FixedPointProblem, as_block_slice
+from ..fixedpoint import as_block_slice
 from .base import Executor, register_executor
 from .coordinator import (
     AccelPlan,
     Coordinator,
     EvalItem,
     RecordPlan,
+    on_card,
     problem_payload,
     rebuild_problem,
     warm_problem,
+    worker_cfg,
     worker_eval,
 )
 from .device_plane import resolve_device_plane
@@ -144,11 +146,6 @@ _READY_TIMEOUT_S = 300.0  # interpreter + torch import + CUDA context
 _POLL_S = 5.0
 #: how many idle pools to keep alive (LRU beyond this is closed)
 _MAX_POOLS = max(1, int(os.environ.get("REPRO_PROCESS_POOLS", "4")))
-
-
-def _on_card(problem: FixedPointProblem) -> bool:
-    dev = getattr(problem, "device", None)
-    return dev is not None and dev.type == "cuda"
 
 
 def _attach_shm(name: str) -> shared_memory.SharedMemory:
@@ -221,7 +218,7 @@ def _worker_main(
     shm = slot = None
     try:
         problem = rebuild_problem(payload)
-        if _on_card(problem):
+        if on_card(problem):
             _build.load_library()  # raises: no plain-version fallback
         shm = _attach_shm(shm_name)
         slot = _attach_shm(slot_name)
@@ -447,15 +444,7 @@ class _WorkerPool:
         Each worker receives only its own block row — at large n the full
         partition is O(n) of int64 per queue."""
         seeds = np.random.SeedSequence(cfg.seed).spawn(cfg.n_workers)
-        if cfg.controller is not None or cfg.resume_from is not None:
-            # Controllers live coordinator-side only and may hold
-            # unpicklable hooks (the serve layer's queue-depth closure);
-            # resume checkpoints carry the coordinator's arrays, which the
-            # workers have no use for.  Strip both before the config
-            # crosses the process boundary.
-            import dataclasses as _dc
-
-            cfg = _dc.replace(cfg, controller=None, resume_from=None)
+        cfg = worker_cfg(cfg)
         for w, q in enumerate(self.task_qs):
             q.put(("run", cfg, seeds[w], blocks[w]))
         self._await(self.n_workers, {"ready"})
@@ -740,7 +729,7 @@ class ProcessPoolExecutor(Executor):
         if cfg.mode not in ("sync", "async"):
             raise ValueError(f"unknown mode {cfg.mode!r}")
         payload = problem_payload(problem)
-        if _on_card(problem):
+        if on_card(problem):
             # Build once here, before any worker could start nvcc.
             _build.load_library()
         coord = Coordinator(problem, cfg)

@@ -1,15 +1,12 @@
 """Shared engine datatypes: fault profiles, run configuration, run results.
 
 These are backend-agnostic: the same :class:`RunConfig` drives the
-deterministic virtual-time simulator and the real-concurrency thread and
-process backends (``cfg.executor`` selects which — see
+deterministic virtual-time simulator and the real-concurrency thread,
+process and Ray backends (``cfg.executor`` selects which — see
 :mod:`repro_torch.core.engine.base`).
 
 The port's engine carries the reference engine's fields so a config reads
-the same in both packages.  Chaos scenarios, trace capture, checkpoints,
-autoscale controllers and telemetry are ported; the Ray backend is not:
-``executor="ray"`` raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it.
+the same in both packages.
 """
 
 from __future__ import annotations
@@ -23,11 +20,6 @@ import numpy as np
 from ..anderson import AndersonConfig
 
 __all__ = ["FaultProfile", "RunConfig", "RunResult", "CoordinatorCrash"]
-
-_UNPORTED_EXECUTORS = {
-    "ray": "ROADMAP.md queue 1, item 5 (the Ray backend)",
-}
-
 
 class CoordinatorCrash(RuntimeError):
     """The control plane died mid-solve.
@@ -109,13 +101,12 @@ class FaultProfile:
 class RunConfig:
     """One (a)synchronous run of a fixed-point problem.
 
-    Field meanings follow the reference engine's ``RunConfig``.  The
-    ``"ray"`` executor, not ported yet, raises ``NotImplementedError``.
+    Field meanings follow the reference engine's ``RunConfig``.
     """
 
     n_workers: int = 4
     mode: str = "async"  # "sync" | "async"
-    executor: str = "virtual"  # "virtual" | "thread" | "process"
+    executor: str = "virtual"  # "virtual" | "thread" | "process" | "ray"
     # --- acceleration -------------------------------------------------- #
     accel: Optional[AndersonConfig] = None
     accel_mode: str = "coordinator"  # "monitor" | "coordinator" | "periodic"
@@ -210,12 +201,6 @@ class RunConfig:
     # RunResult.telemetry and a digest on RunResult.telemetry_summary.  The
     # recorder consumes no rng and touches no iterate floats.
     telemetry: Optional[object] = None
-
-    def __post_init__(self) -> None:
-        if self.executor in _UNPORTED_EXECUTORS:
-            raise NotImplementedError(
-                f"executor {self.executor!r} is not ported to repro_torch "
-                f"yet: {_UNPORTED_EXECUTORS[self.executor]}")
 
 
 @dataclass

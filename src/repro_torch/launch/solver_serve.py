@@ -11,8 +11,8 @@ Jacobi grid (``--problem jacobi``, default side 2048) or a Garnet value
 iteration (``--problem vi``, default S = 10^6 states, A = 4, b = 5), the
 sizes of ``chip_smoke.py``'s main paths; ``--grid`` and ``--states``
 shrink them (``--device cpu --grid 24`` runs in seconds).  Same-payload
-requests share one warm worker pool (zero respawns on the process
-backend).  The table shows per-request queueing delay vs service time,
+requests share one warm worker pool (zero respawns on the process and
+Ray backends).  The table shows per-request queueing delay vs service time,
 then aggregate throughput and the per-tenant served counts.
 """
 
@@ -39,7 +39,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="multiplex solve requests over a SolverService")
     ap.add_argument("--executor", default="virtual",
-                    choices=["virtual", "thread", "process"])
+                    choices=["virtual", "thread", "process", "ray"])
     ap.add_argument("--device", default="cuda",
                     help="where the problems live: cuda (default) or cpu")
     ap.add_argument("--problem", default="jacobi", choices=["jacobi", "vi"])
@@ -115,6 +115,13 @@ def main(argv=None):
             print(f"pool {key[0][:12]}… workers={st['n_workers']} "
                   f"runs_served={st['runs_served']} pids={st['pids']}")
         shutdown_pools()
+    if args.executor == "ray":
+        from repro_torch.core.engine import ray_pool_stats, shutdown_ray_pools
+
+        for key, st in ray_pool_stats().items():
+            print(f"actor pool {key[0][:12]}… actors={st['n_workers']} "
+                  f"runs_served={st['runs_served']} pids={st['pids']}")
+        shutdown_ray_pools()
     return 0
 
 

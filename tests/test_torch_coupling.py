@@ -78,6 +78,5 @@ def test_module_exports_and_shim():
     for name in coupling.__all__:
         assert getattr(tcore, name) is getattr(coupling, name)
     assert set(coupling.__all__) == set(j_coupling.__all__)
-    assert set(async_engine.__all__) == set(j_async_engine.__all__) - {
-        "RayExecutor"}
+    assert set(async_engine.__all__) == set(j_async_engine.__all__)
     assert async_engine.run_fixed_point is tcore.run_fixed_point

@@ -411,6 +411,20 @@ class TestProblemsOnTheCard:
         assert launches["jacobi_halo_sweeps"] >= 20
         assert rp.x.tobytes() == rt.x.tobytes()
 
+    def test_one_ray_actor_equals_one_thread_worker(self, dev):
+        """Jacobi on the Ray backend under ``tests/torch_ray_standin.py``
+        (in a child interpreter; the actor a process of its own that asks for
+        the card): its ``jacobi_halo_sweeps`` launches are merged into the
+        parent's counts, and its run equals the thread run byte for byte."""
+        from test_torch_ray import _ok, _run_children
+
+        got = _ok(_run_children({"card": ("process", {
+            "one": ("job_one_actor_card", {})})})["card"]["one"])
+        rr, rt = got["ray"], got["thread"]
+        assert rr["worker_updates"] == rt["worker_updates"] == 20
+        assert got["launches"]["jacobi_halo_sweeps"] >= 20
+        assert rr["x"].tobytes() == rt["x"].tobytes()
+
     @pytest.mark.parametrize("beta", [0.5, 1.0])
     def test_anderson_window_matches_cpu(self, dev, beta):
         r = np.random.default_rng(9)

@@ -27,10 +27,11 @@ problems on the port's side:
   (the measured difference is ~2e-15).
 
 Also here: the thread executor with the device plane against the JAX
-thread run, the device-plane resolver matrix, and the guard that refuses
-the knobs of layers the port does not carry yet (controllers, telemetry
-and the Ray backend; the chaos and recover knobs are ported and tested in
-``tests/test_torch_chaos.py`` and ``tests/test_torch_recover.py``).
+thread run, the device-plane resolver matrix, and the knobs of the ported
+layers passing ``RunConfig`` (the chaos and recover knobs are tested in
+``tests/test_torch_chaos.py`` and ``tests/test_torch_recover.py``; the
+Ray backend, which registers as unavailable without ``ray``, in
+``tests/test_torch_ray.py``).
 """
 
 import hashlib
@@ -382,9 +383,18 @@ class TestUnportedKnobs:
         (dict(executor="ray"), "item 5"),
     ])
     def test_raises_naming_the_roadmap_item(self, kw, item):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, "
-                                                      f"{item}"):
-            RunConfig(**kw)
+        """The Ray backend (ROADMAP.md queue 1, item 5) is ported: its
+        config passes, and without ``ray`` the registry refuses it with the
+        reference's message, which names the missing package, not the
+        item."""
+        from repro_torch.core import get_executor
+
+        cfg = RunConfig(**kw)
+        assert cfg.executor == "ray"
+        with pytest.raises(ValueError, match="unavailable.*ray") as err:
+            get_executor(cfg.executor)
+        assert item not in str(err.value)
+        assert "requires the optional 'ray' package" in str(err.value)
 
     @pytest.mark.parametrize("kw", [
         dict(scenario=object()),
@@ -412,19 +422,23 @@ class TestUnportedKnobs:
             assert getattr(cfg, name) is value
 
     def test_known_executors_name_the_unported_backend(self):
+        """Without ``ray`` the Ray backend is known and unavailable, with
+        the reference's reason (it is no longer unported)."""
         from repro_torch.core import known_executors
 
         known = known_executors()
         assert {k for k, v in known.items() if v == "available"} == {
             "virtual", "thread", "process"}
-        assert "item 5" in known["ray"]
+        assert known["ray"].startswith("requires")
+        assert "not ported" not in known["ray"]
 
     def test_process_executor_is_ported(self):
         from repro_torch.core import available_executors
 
         assert RunConfig(executor="process").executor == "process"
         assert "process" in available_executors()
-        assert "ray" not in available_executors()
+        assert RunConfig(executor="ray").executor == "ray"
+        assert "ray" not in available_executors()  # no ray installed here
 
     def test_defaults_pass(self):
         RunConfig()
