@@ -2460,6 +2460,7 @@ def _cell_prefill_split(torch, label, cfg, params, prompt, inputs):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import lm_profile, lm_serve
+    from repro_torch.telemetry.serving import SERVE_SPANS
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2470,7 +2471,7 @@ def _cell_prefill_split(torch, label, cfg, params, prompt, inputs):
     split = lm_profile.breakdown(
         f"{label} traced prefill", wall[0].elapsed_us() / 1e3,
         [e for e in events if e.device_type == DeviceType.CUDA
-         and e.name not in (lm_serve.PREFILL, lm_serve.DECODE)])
+         and e.name not in SERVE_SPANS])
     check(split["groups"].get("flash_attention", 0.0) > 0,
           f"{label}: the trace holds no flash-attention kernel")
     return split

@@ -67,6 +67,7 @@ from torch.profiler import ProfilerActivity, profile
 from .._device import resolve_device
 from ..kernels import ops
 from ..models import init_params
+from ..telemetry.serving import SERVE_SPANS
 from . import lm_serve
 from .inputs import WHISPER_DEC_LEN, WHISPER_FRAMES
 
@@ -246,9 +247,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                            f", expected {lm_serve.PREFILL} and "
                            f"{lm_serve.DECODE}")
     split = phases[lm_serve.DECODE].start
-    # (the profiler may mirror the two ranges on the device: not kernels)
+    # (the profiler may mirror the serving spans on the device: not
+    # kernels)
     device_events = [e for e in events if e.device_type == DeviceType.CUDA
-                     and e.name not in names]
+                     and e.name not in SERVE_SPANS]
     out = dict(arch=cfg.name, dtype=args.dtype, n_layers=cfg.n_layers,
                batch=args.batch, prompt_len=args.prompt_len,
                frames=WHISPER_FRAMES if encdec else None,

@@ -23,19 +23,21 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .._device import resolve_device
 from ..configs import ModelConfig, get_config
 from ..models import DecoderLM, decode_step, init_params, prefill
+from ..telemetry.serving import span
 from .inputs import STUB_DIV
 
-__all__ = ["ServeResult", "PREFILL", "DECODE", "make_config",
+__all__ = ["ServeResult", "PREFILL", "DECODE", "SYNC", "make_config",
            "make_params", "make_prompt", "audio_inputs", "vision_grid",
            "vision_inputs", "serve", "main"]
 
 #: names of the profiler ranges around the two phases of :func:`serve`
-PREFILL, DECODE = "lm_serve.prefill", "lm_serve.decode"
+#: and around each of its waits on the device
+#: (``telemetry.serving.SERVE_SPANS``)
+PREFILL, DECODE, SYNC = "lm_serve.prefill", "lm_serve.decode", "lm_serve.sync"
 
 
 @dataclass
@@ -116,8 +118,9 @@ def vision_inputs(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
 
 
 def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with span(SYNC):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def serve(cfg: ModelConfig, params: DecoderLM, prompt: torch.Tensor,
@@ -131,11 +134,12 @@ def serve(cfg: ModelConfig, params: DecoderLM, prompt: torch.Tensor,
     ``decode_positions`` (B, 3, >= gen - 1) the decode steps' M-RoPE ids.
     Times are host clock around work that ends in a device synchronise; a
     profiler sees the two phases as the ranges ``PREFILL`` and
-    ``DECODE``."""
+    ``DECODE``, each synchronise as ``SYNC``, and the model's parts as
+    the spans of ``telemetry.serving.SERVE_SPANS``."""
     device = prompt.device
     B, S0 = prompt.shape
     _sync(device)
-    with record_function(PREFILL):
+    with span(PREFILL):
         t0 = time.perf_counter()
         logits, caches = prefill(cfg, params,
                                  {"tokens": prompt, **(inputs or {})},
@@ -144,7 +148,7 @@ def serve(cfg: ModelConfig, params: DecoderLM, prompt: torch.Tensor,
         _sync(device)
         prefill_s = time.perf_counter() - t0
     out, steps = [toks], []
-    with record_function(DECODE):
+    with span(DECODE):
         t0 = time.perf_counter()
         for t in range(gen - 1):
             mrope = (None if decode_positions is None

@@ -30,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .._device import resolve_device
 from ..models import make_trainable
+from ..telemetry.serving import SERVE_SPANS
 from ..training.data import DataConfig, SyntheticLM
 from ..training.optimizer import AdamWConfig, adamw_init, adamw_update
 from . import lm_serve
@@ -62,8 +63,11 @@ def _traced(device, fn):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         wall_ms = _wall_ms(device, fn)
+    # (the profiler may mirror the model's spans on the device: not
+    # kernels)
     return wall_ms, [e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA]
+                     if e.device_type == DeviceType.CUDA
+                     and e.name not in SERVE_SPANS]
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

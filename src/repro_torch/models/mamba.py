@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
+from ..telemetry.serving import span
 from .common import ModelAxis, ParamSpec, enter, leave, model_axis
 
 __all__ = ["MambaState", "mamba_spec", "mamba_block",
@@ -165,16 +166,22 @@ def mamba_block_with_state(cfg: ModelConfig, params, x: torch.Tensor
     S = x.shape[1]
     _, _, d_conv, _ = _dims(cfg)
     ax = _split(cfg, params)
-    xi, z = _in_proj(params, enter(x, ax))
-    xc, xpad = _conv(params, xi, d_conv)
-    dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc, ax)
-    y, h = _scan(cfg, dt, A, Bm, Cm, xc)
-    y = y + params["D"].to(f32) * xc.to(f32)
-    y = y.to(x.dtype) * F.silu(z)
-    # the trailing d_conv - 1 raw inner inputs (copied: not a view that
-    # keeps the whole padded stream alive in the cache)
-    return leave(y @ params["out_proj"], ax), MambaState(
-        conv=xpad[:, S:].clone(), ssm=h)
+    with span("lm.mamba.proj"):
+        xi, z = _in_proj(params, enter(x, ax))
+    with span("lm.mamba.conv"):
+        xc, xpad = _conv(params, xi, d_conv)
+        # the trailing d_conv - 1 raw inner inputs (copied: not a view that
+        # keeps the whole padded stream alive in the cache)
+        conv_state = xpad[:, S:].clone()
+    with span("lm.mamba.ssm"):
+        dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc, ax)
+    with span("lm.mamba.scan"):
+        y, h = _scan(cfg, dt, A, Bm, Cm, xc)
+        y = y + params["D"].to(f32) * xc.to(f32)
+        y = y.to(x.dtype) * F.silu(z)
+    with span("lm.mamba.proj"):
+        out = leave(y @ params["out_proj"], ax)
+    return out, MambaState(conv=conv_state, ssm=h)
 
 
 def mamba_block(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -198,16 +205,21 @@ def mamba_decode(cfg: ModelConfig, params, x: torch.Tensor,
                  state: MambaState) -> Tuple[torch.Tensor, MambaState]:
     """One-token recurrent step, x (B, 1, d)."""
     ax = _split(cfg, params)
-    xi, z = _in_proj(params, enter(x[:, 0], ax))  # (B, d_inner)
-    window = torch.cat([state.conv, xi[:, None]], dim=1)  # (B, d_conv, di)
-    xc = F.silu(torch.einsum("bci,ci->bi", window, params["conv_w"])
-                + params["conv_b"])
-    dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc, ax)
-    a = torch.exp(dt.to(f32)[..., None] * A[None])  # (B, d_inner, d_state)
-    b = (dt * xc).to(f32)[..., None] * Bm.to(f32)[:, None, :]
-    new_ssm = a * state.ssm + b
-    y = torch.einsum("bin,bn->bi", new_ssm, Cm.to(f32))
-    y = y + params["D"].to(f32) * xc.to(f32)
-    y = y.to(x.dtype) * F.silu(z)
-    out = leave(y @ params["out_proj"], ax)[:, None, :]
+    with span("lm.mamba.proj"):
+        xi, z = _in_proj(params, enter(x[:, 0], ax))  # (B, d_inner)
+    with span("lm.mamba.conv"):
+        window = torch.cat([state.conv, xi[:, None]], dim=1)  # (B, dc, di)
+        xc = F.silu(torch.einsum("bci,ci->bi", window, params["conv_w"])
+                    + params["conv_b"])
+    with span("lm.mamba.ssm"):
+        dt, A, Bm, Cm = _ssm_inputs(cfg, params, xc, ax)
+    with span("lm.mamba.scan"):
+        a = torch.exp(dt.to(f32)[..., None] * A[None])  # (B, di, d_state)
+        b = (dt * xc).to(f32)[..., None] * Bm.to(f32)[:, None, :]
+        new_ssm = a * state.ssm + b
+        y = torch.einsum("bin,bn->bi", new_ssm, Cm.to(f32))
+        y = y + params["D"].to(f32) * xc.to(f32)
+        y = y.to(x.dtype) * F.silu(z)
+    with span("lm.mamba.proj"):
+        out = leave(y @ params["out_proj"], ax)[:, None, :]
     return out, MambaState(conv=window[:, 1:], ssm=new_ssm)

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed import collectives as coll
+from ..telemetry.serving import count, count_on_device, recording, span
 from .common import ParamSpec, model_axis
 from .layers import mlp, mlp_spec
 
@@ -80,18 +81,19 @@ def _expert_ffn(cfg: ModelConfig, params, xin: torch.Tensor) -> torch.Tensor:
     """xin: (E', C, d) -> (E', C, d) through each expert's (gated) MLP;
     ``params["wi"]``/``["wo"]`` hold the same E' experts in order."""
     wi, wo = params["wi"], params["wo"]
-    if cfg.ffn_act in ("swiglu", "geglu"):
-        E, d, _, f = wi.shape
-        h = torch.bmm(xin, wi.reshape(E, d, 2 * f)).unflatten(-1, (2, f))
-        gate, up = h[..., 0, :], h[..., 1, :]
-        g = (F.silu(gate) if cfg.ffn_act == "swiglu"
-             else F.gelu(gate, approximate="tanh"))
-        h = g * up
-    else:
-        h = torch.bmm(xin, wi)
-        h = (F.gelu(h, approximate="tanh") if cfg.ffn_act == "gelu"
-             else F.relu(h).square())
-    return torch.bmm(h, wo)
+    with span("lm.moe.experts"):
+        if cfg.ffn_act in ("swiglu", "geglu"):
+            E, d, _, f = wi.shape
+            h = torch.bmm(xin, wi.reshape(E, d, 2 * f)).unflatten(-1, (2, f))
+            gate, up = h[..., 0, :], h[..., 1, :]
+            g = (F.silu(gate) if cfg.ffn_act == "swiglu"
+                 else F.gelu(gate, approximate="tanh"))
+            h = g * up
+        else:
+            h = torch.bmm(xin, wi)
+            h = (F.gelu(h, approximate="tanh") if cfg.ffn_act == "gelu"
+                 else F.relu(h).square())
+        return torch.bmm(h, wo)
 
 
 class Routing(NamedTuple):
@@ -108,17 +110,18 @@ def route(cfg: ModelConfig, params, xt: torch.Tensor) -> Routing:
     rank and has entered through ``collectives.replicated_param``."""
     moe = cfg.moe
     E = moe.padded_experts
-    logits = xt.to(f32) @ params["router"].to(f32)
-    if logits.shape[-1] < E:  # this rank's experts' columns
-        ax = model_axis()
-        logits = coll.gather(logits.t().contiguous(), ax.group).t()
-    if E != moe.n_experts:  # mask the padding experts
-        pad = torch.arange(E, device=xt.device) >= moe.n_experts
-        logits = logits.masked_fill(pad, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.topk(probs, moe.top_k, dim=-1)
-    top_p = top_p / top_p.sum(-1, keepdim=True)
-    return Routing(logits, probs, top_p, top_e)
+    with span("lm.moe.route"):
+        logits = xt.to(f32) @ params["router"].to(f32)
+        if logits.shape[-1] < E:  # this rank's experts' columns
+            ax = model_axis()
+            logits = coll.gather(logits.t().contiguous(), ax.group).t()
+        if E != moe.n_experts:  # mask the padding experts
+            pad = torch.arange(E, device=xt.device) >= moe.n_experts
+            logits = logits.masked_fill(pad, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_e = torch.topk(probs, moe.top_k, dim=-1)
+        top_p = top_p / top_p.sum(-1, keepdim=True)
+        return Routing(logits, probs, top_p, top_e)
 
 
 def capacity(cfg: ModelConfig, T: int, dropless: bool = False) -> int:
@@ -162,28 +165,38 @@ def _capacity_combine(cfg: ModelConfig, params, xt: torch.Tensor,
     E, k = cfg.moe.padded_experts, cfg.moe.top_k
     E_loc = params["wi"].shape[0]
     C = capacity(cfg, T)
-    flat_e = r.top_e.reshape(-1)
-    order, sorted_e, pos_in_e = _slots(flat_e)
-    ok = pos_in_e < C
-    # gather table (E, C) -> source token (T: the padding row).  Every
-    # assignment writes its own index: a kept one its slot, a dropped one
-    # a place past the table's end, so no index repeats.
-    n = flat_e.numel()
-    dst = torch.where(ok, sorted_e * C + pos_in_e,
-                      E * C + torch.arange(n, device=xt.device))
-    table = torch.full((E * C + n,), T, dtype=torch.long, device=xt.device)
-    table = table.scatter_(0, dst, order // k)[e0 * C:(e0 + E_loc) * C]
-    xpad = torch.cat([xt, xt.new_zeros(1, d)])
-    out_e = _expert_ffn(cfg, params, xpad[table.view(E_loc, C)])
-    # combine: invert the slotting
-    inv_pos = torch.empty_like(pos_in_e).scatter_(0, order, pos_in_e)
-    e_loc = flat_e - e0
-    valid = ((inv_pos < C) & (e_loc >= 0) & (e_loc < E_loc))[:, None]
-    picked = out_e[e_loc.clamp(0, E_loc - 1), inv_pos.clamp(0, C - 1)]
-    picked = torch.where(valid, picked, picked.new_zeros(()))
-    combined = torch.einsum("tkd,tk->td", picked.view(T, k, d),
-                            top_p.to(picked.dtype))
-    return combined, (~ok).sum()
+    with span("lm.moe.dispatch"):
+        flat_e = r.top_e.reshape(-1)
+        order, sorted_e, pos_in_e = _slots(flat_e)
+        ok = pos_in_e < C
+        # gather table (E, C) -> source token (T: the padding row).  Every
+        # assignment writes its own index: a kept one its slot, a dropped
+        # one a place past the table's end, so no index repeats.
+        n = flat_e.numel()
+        dst = torch.where(ok, sorted_e * C + pos_in_e,
+                          E * C + torch.arange(n, device=xt.device))
+        table = torch.full((E * C + n,), T, dtype=torch.long,
+                           device=xt.device)
+        table = table.scatter_(0, dst, order // k)[e0 * C:(e0 + E_loc) * C]
+        xpad = torch.cat([xt, xt.new_zeros(1, d)])
+        xin = xpad[table.view(E_loc, C)]
+        dropped = (~ok).sum()
+        if E_loc == E:  # the whole layer's slots (not a rank's share)
+            count("moe.assignments", n)
+            count("moe.slots", E * C)
+            count_on_device("moe.dropped", dropped)
+    out_e = _expert_ffn(cfg, params, xin)
+    del xin  # freed as the experts return, as a temporary would be
+    with span("lm.moe.combine"):
+        # invert the slotting
+        inv_pos = torch.empty_like(pos_in_e).scatter_(0, order, pos_in_e)
+        e_loc = flat_e - e0
+        valid = ((inv_pos < C) & (e_loc >= 0) & (e_loc < E_loc))[:, None]
+        picked = out_e[e_loc.clamp(0, E_loc - 1), inv_pos.clamp(0, C - 1)]
+        picked = torch.where(valid, picked, picked.new_zeros(()))
+        combined = torch.einsum("tkd,tk->td", picked.view(T, k, d),
+                                top_p.to(picked.dtype))
+    return combined, dropped
 
 
 def _dropless_combine(cfg: ModelConfig, params, xt: torch.Tensor,
@@ -197,17 +210,23 @@ def _dropless_combine(cfg: ModelConfig, params, xt: torch.Tensor,
     T, d = xt.shape
     E_loc = params["wi"].shape[0]
     K = min(E_loc, r.top_e.numel())
-    e_loc = r.top_e - e0
-    mine = (e_loc >= 0) & (e_loc < E_loc)
-    used = torch.zeros(E_loc + 1, dtype=torch.int32, device=xt.device)
-    used.index_fill_(0, torch.where(mine, e_loc, E_loc).reshape(-1), 1)
-    sel = torch.argsort(used[:E_loc], descending=True, stable=True)[:K]
-    out = _expert_ffn(cfg, {"wi": params["wi"][sel], "wo": params["wo"][sel]},
-                      xt.expand(K, T, d))  # (K, T, d)
-    j = (e_loc[..., None] == sel).to(torch.int32).argmax(-1)  # (T, k)
-    picked = out[j, torch.arange(T, device=xt.device)[:, None]]  # (T, k, d)
-    picked = torch.where(mine[..., None], picked, picked.new_zeros(()))
-    return torch.einsum("tkd,tk->td", picked, top_p.to(picked.dtype))
+    with span("lm.moe.dispatch"):
+        e_loc = r.top_e - e0
+        mine = (e_loc >= 0) & (e_loc < E_loc)
+        used = torch.zeros(E_loc + 1, dtype=torch.int32, device=xt.device)
+        used.index_fill_(0, torch.where(mine, e_loc, E_loc).reshape(-1), 1)
+        sel = torch.argsort(used[:E_loc], descending=True, stable=True)[:K]
+        picked_w = {"wi": params["wi"][sel], "wo": params["wo"][sel]}
+        if E_loc == cfg.moe.padded_experts and recording():
+            count("moe.experts_gathered", K)
+            count_on_device("moe.experts_picked", used[:E_loc].sum())
+    out = _expert_ffn(cfg, picked_w, xt.expand(K, T, d))  # (K, T, d)
+    del picked_w  # the weights' copies, freed as the experts return
+    with span("lm.moe.combine"):
+        j = (e_loc[..., None] == sel).to(torch.int32).argmax(-1)  # (T, k)
+        picked = out[j, torch.arange(T, device=xt.device)[:, None]]
+        picked = torch.where(mine[..., None], picked, picked.new_zeros(()))
+        return torch.einsum("tkd,tk->td", picked, top_p.to(picked.dtype))
 
 
 def moe_ffn(cfg: ModelConfig, params, x: torch.Tensor,
@@ -244,8 +263,9 @@ def moe_ffn(cfg: ModelConfig, params, x: torch.Tensor,
     if ax is not None:
         combined = coll.reduce(combined, ax.group)
     if moe.n_shared:
-        combined = combined + mlp(params["shared"], xt, cfg.ffn_act,
-                                  d_ff=moe.n_shared * cfg.d_ff)
+        with span("lm.moe.shared"):
+            combined = combined + mlp(params["shared"], xt, cfg.ffn_act,
+                                      d_ff=moe.n_shared * cfg.d_ff)
     aux = {"moe_dropped": dropped}
     if losses:  # Switch-style load balance + router z
         me = r.probs.mean(0)  # (E,)

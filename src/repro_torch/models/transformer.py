@@ -68,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelConfig, Sublayer as SublayerKind
 from ..distributed import collectives as coll
+from ..telemetry.serving import MIXER_SPANS, span
 from . import attention as attn_mod
 from . import layers as layers_mod
 from . import mamba as mamba_mod
@@ -561,20 +562,24 @@ def _apply_ffn(cfg, params, sub, x, aux: Optional[Dict], decode=False):
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if ffn == "moe":
         mesh = current_mesh()
-        if (cfg.moe.a2a and mesh is not None and "model" in mesh.shape
-                and not decode):
-            from .moe_shard_map import moe_ffn_a2a
+        with span("lm.moe"):
+            if (cfg.moe.a2a and mesh is not None and "model" in mesh.shape
+                    and not decode):
+                from .moe_shard_map import moe_ffn_a2a
 
-            data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
-            out, a = moe_ffn_a2a(cfg, params["ffn"], h, mesh,
-                                 data_axes=data_axes)
-        else:
-            out, a = moe_mod.moe_ffn(cfg, params["ffn"], h, dropless=decode,
-                                     losses=aux is not None)
+                data_axes = tuple(a for a in ("pod", "data")
+                                  if a in mesh.shape)
+                out, a = moe_ffn_a2a(cfg, params["ffn"], h, mesh,
+                                     data_axes=data_axes)
+            else:
+                out, a = moe_mod.moe_ffn(cfg, params["ffn"], h,
+                                         dropless=decode,
+                                         losses=aux is not None)
         if aux is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     else:
-        out = mlp(params["ffn"], h, cfg.ffn_act, d_ff=cfg.d_ff)
+        with span("lm.ffn.mlp"):
+            out = mlp(params["ffn"], h, cfg.ffn_act, d_ff=cfg.d_ff)
     return x + out, aux
 
 
@@ -595,7 +600,30 @@ def apply_sublayer_full(
     that attention used (the same products as the reference's
     ``_precompute_cross_kv_all``)."""
     mixer, _ = sub
-    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    with span("lm.layer"):
+        h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+        with span(MIXER_SPANS[mixer]):
+            out, new_cache = _mixer_full(cfg, params, mixer, h, positions,
+                                         causal, collect_cache, max_len,
+                                         cache_dtype)
+        x = x + out
+        if cross_kv is not None:
+            hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+            ck, cv = attn_mod.project_cross_kv(cfg, params["cross"],
+                                               *cross_kv)
+            x = x + attn_mod.cross_attention(cfg, params["cross"], hx, ck, cv)
+            if collect_cache:
+                new_cache = CrossCache(new_cache, attn_mod.prefill_cache(
+                    cfg, params["cross"], cross_kv[0], None, ck, cv, None,
+                    ck.shape[1], name="enc_seq"))
+        x, aux = _apply_ffn(cfg, params, sub, x, aux)
+    return x, aux, new_cache
+
+
+def _mixer_full(cfg: ModelConfig, params, mixer: str, h: torch.Tensor,
+                positions: torch.Tensor, causal: bool, collect_cache: bool,
+                max_len: int, cache_dtype):
+    """A full-sequence mixer: ``(out, its decode cache or None)``."""
     new_cache = None
     if mixer == "mamba":
         if collect_cache:
@@ -624,17 +652,7 @@ def apply_sublayer_full(
             new_cache = attn_mod.prefill_cache(cfg, params["mixer"], h,
                                                positions, k, v, window,
                                                max_len, cache_dtype)
-    x = x + out
-    if cross_kv is not None:
-        hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
-        ck, cv = attn_mod.project_cross_kv(cfg, params["cross"], *cross_kv)
-        x = x + attn_mod.cross_attention(cfg, params["cross"], hx, ck, cv)
-        if collect_cache:
-            new_cache = CrossCache(new_cache, attn_mod.prefill_cache(
-                cfg, params["cross"], cross_kv[0], None, ck, cv, None,
-                ck.shape[1], name="enc_seq"))
-    x, aux = _apply_ffn(cfg, params, sub, x, aux)
-    return x, aux, new_cache
+    return out, new_cache
 
 
 def apply_sublayer_decode(
@@ -649,26 +667,35 @@ def apply_sublayer_decode(
     cross = cache.cross if isinstance(cache, CrossCache) else None
     if cross is not None:
         cache = cache.kv
-    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if mixer == "mamba":
-        out, new_cache = mamba_mod.mamba_decode(cfg, params["mixer"], h, cache)
-    elif mixer == "mlstm":
-        out, new_cache = xlstm_mod.mlstm_decode(cfg, params["mixer"], h, cache)
-    elif mixer == "slstm":
-        out, new_cache = xlstm_mod.slstm_decode(cfg, params["mixer"], h, cache)
-    else:
-        window = cfg.window if mixer == "local" else None
-        out, new_cache = attn_mod.decode_attention(
-            cfg, params["mixer"], h, cache, pos, window=window,
-            positions=mrope_positions)
-    x = x + out
-    if cross is not None:
-        hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
-        x = x + attn_mod.decode_cross_attention(cfg, params["cross"], hx,
-                                                cross.k, cross.v, cross)
-        new_cache = CrossCache(new_cache, cross)
-    x, _ = _apply_ffn(cfg, params, sub, x, None, decode=True)
+    with span("lm.layer"):
+        h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+        with span(MIXER_SPANS[mixer]):
+            out, new_cache = _mixer_decode(cfg, params, mixer, h, cache, pos,
+                                           mrope_positions)
+        x = x + out
+        if cross is not None:
+            hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+            x = x + attn_mod.decode_cross_attention(cfg, params["cross"], hx,
+                                                    cross.k, cross.v, cross)
+            new_cache = CrossCache(new_cache, cross)
+        x, _ = _apply_ffn(cfg, params, sub, x, None, decode=True)
     return x, new_cache
+
+
+def _mixer_decode(cfg: ModelConfig, params, mixer: str, h: torch.Tensor,
+                  cache: Cache, pos: int,
+                  mrope_positions: Optional[torch.Tensor]):
+    """A one-token mixer against its cache: ``(out, the cache)``."""
+    if mixer == "mamba":
+        return mamba_mod.mamba_decode(cfg, params["mixer"], h, cache)
+    if mixer == "mlstm":
+        return xlstm_mod.mlstm_decode(cfg, params["mixer"], h, cache)
+    if mixer == "slstm":
+        return xlstm_mod.slstm_decode(cfg, params["mixer"], h, cache)
+    window = cfg.window if mixer == "local" else None
+    return attn_mod.decode_attention(cfg, params["mixer"], h, cache, pos,
+                                     window=window,
+                                     positions=mrope_positions)
 
 
 # --------------------------------------------------------------------- #
@@ -866,13 +893,15 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict, max_len: int,
     encoder-decoder's hold the cross K/V of the encoder run on
     ``batch["audio_embeds"]``)."""
     cross_kv = _cross_context(cfg, params, batch)
-    x, positions = _input_embed(cfg, params, batch)
+    with span("lm.embed"):
+        x, positions = _input_embed(cfg, params, batch)
     x, caches = _run_stack(
         cfg, params, x, positions, causal=True, cross_kv=cross_kv,
         collect_cache=True, max_len=max_len,
         cache_dtype=cache_dtype or x.dtype)
-    x = rmsnorm(params.final_norm, x[:, -1:, :], cfg.norm_eps)
-    return compute_logits(params.embed, cfg, x), caches
+    with span("lm.head"):
+        x = rmsnorm(params.final_norm, x[:, -1:, :], cfg.norm_eps)
+        return compute_logits(params.embed, cfg, x), caches
 
 
 @torch.no_grad()
@@ -883,13 +912,15 @@ def decode_step(cfg: ModelConfig, params: DecoderLM, caches: List[Cache],
     slot, and the sinusoidal position); ``mrope_positions`` (B, 3, 1): an
     M-RoPE config's position ids of the token.  Returns the logits and the
     caches: KV caches updated in place, recurrent states replaced."""
-    x = embed(params.embed, cfg, tokens)
-    if cfg.pos_embed == "sinusoidal":
-        x = x + _decode_sinusoid(cfg.d_model, pos, x.dtype, x.device)
+    with span("lm.embed"):
+        x = embed(params.embed, cfg, tokens)
+        if cfg.pos_embed == "sinusoidal":
+            x = x + _decode_sinusoid(cfg.d_model, pos, x.dtype, x.device)
     new_caches = []
     for layer, cache in zip(params.layers, caches):
         x, c = apply_sublayer_decode(cfg, layer, layer.kind, x, cache, pos,
                                      mrope_positions)
         new_caches.append(c)
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return compute_logits(params.embed, cfg, x), new_caches
+    with span("lm.head"):
+        x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+        return compute_logits(params.embed, cfg, x), new_caches

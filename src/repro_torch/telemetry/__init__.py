@@ -19,6 +19,10 @@ Zero-overhead when off: the default ``RunConfig.telemetry=None`` never
 constructs a recorder, every hook is a single ``if ... is not None``
 guard, and the recorder consumes no rng and touches no floats — virtual
 runs stay byte-identical with telemetry off *or on*.
+
+The LM serving path has its own spans and counters (:mod:`.serving`:
+``SERVE_SPANS``, ``SERVE_COUNTERS``), recorded only while
+``torch.profiler`` records, as ranges on the profiler's clock.
 """
 
 from .recorder import (
@@ -32,6 +36,7 @@ from .recorder import (
     as_telemetry_config,
     worker_lane,
 )
+from .serving import SERVE_COUNTERS, SERVE_SPANS
 from .export import (
     to_chrome_trace,
     to_jsonl,
@@ -43,6 +48,8 @@ __all__ = [
     "METRICS",
     "SCENARIO_SPAN_MAP",
     "SPAN_KINDS",
+    "SERVE_SPANS",
+    "SERVE_COUNTERS",
     "TRACE_SPAN_MAP",
     "TelemetryCapture",
     "TelemetryConfig",
