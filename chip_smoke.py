@@ -49,7 +49,12 @@ and no result line is printed):
    float64 run of the plain scan (its max and RMS error at most
    ``SCAN_ERR_FACTOR`` times the plain float32 scan's), timed by events
    and CUPTI beside the plain scan at ``ssm_chunk`` 1024, with its byte
-   bound and the exponentials' floor;
+   bound and the exponentials' floor; ``moe_expert_ffn`` (the port's own
+   kernel: a MoE layer's dropless decode) at the jamba.decode cell's
+   shape (32 tokens, 16 experts, d 8192, f 24576, bfloat16), held to the
+   plain version in float32, timed by events and CUPTI beside the plain
+   version and the weight copy plus two ``torch.bmm`` it replaced, with
+   its byte bound, launches, registers and spills;
 4. Jacobi main path — g = 2048 (n = 4,194,304), 4 thread workers, the
    device plane on, Anderson(m=5), worker 0 a 100 ms straggler; then one
    worker through the kernels against one through the numpy oracle;
@@ -87,9 +92,9 @@ and no result line is printed):
    widths in bfloat16, the same prompt and generation as phase 8: one
    bfloat16 flash launch a layer a prefill, finite logits, tokens in the
    vocabulary; prefill seconds and tokens/s, decode ms/step, peak memory,
-   the assignments the prefill dropped by capacity (factor 1.25) and one
-   traced prefill's device time by kernel group (``moe_dispatch`` among
-   them); ``[lm-xlstm]`` (xLSTM-125M, 12 layers [m, m, m, s], bfloat16):
+   the assignments the prefill dropped by capacity (factor 1.25), one
+   ``moe_expert_ffn`` launch a layer and decode step, and one traced
+   prefill's device time by kernel group (``moe_dispatch`` among them); ``[lm-xlstm]`` (xLSTM-125M, 12 layers [m, m, m, s], bfloat16):
    no flash launch, finite logits, prefill and decode times, peak memory
    and the sLSTM loops' share of the prefill.  Then ``[lm-moe-parity]``
    (Qwen1.5-MoE widths at depth 1, vocab 32768, prompt 4 x 256, 8 decode
@@ -127,8 +132,9 @@ and no result line is printed):
    Mamba d_state 16 and d_inner 16384, vocab 65536 untied; ~24.05 B
    bfloat16 parameters; ``ssm_chunk`` 1024), the serve cell's prompt and
    generation after a warm-up at the same shapes: 1 bfloat16 flash
-   launch and 4 ``selective_scan`` launches a prefill, none in decode;
-   parameter count, prefill and decode times, peak memory and a traced
+   launch and 4 ``selective_scan`` launches a prefill, neither in decode,
+   one ``moe_expert_ffn`` launch a MoE layer and decode step; parameter
+   count, prefill and decode times, peak memory and a traced
    prefill's split by kernel group (``selective_scan`` among them).
    After ``[lm-vl-parity]``, ``[lm-jamba-parity]``: (a) Jamba's widths at
    depth 1 (its (mamba, mlp) layer), vocab 32768, prompt 2 x 256,
@@ -237,13 +243,16 @@ and no result line is printed):
    and ms a call beside the one-band call's; on a one-rank ``nccl``
    group, ``moe_ffn_a2a`` at Qwen1.5-MoE-A2.7B's layer widths on 2 x 8192
    bfloat16 tokens (capacity factor ``SHARD_MOE_CF``: nothing dropped)
-   against ``moe_ffn(dropless=True)``, bit-equal, and a
+   and ``moe_ffn(dropless=True)`` (the expert kernel), each against the
+   layer in float32 on the same bfloat16 inputs within ``SHARD_MOE_TOL``,
+   which two planted faults exceed (an expert's ``wo`` zeroed, the gate's
+   activation swapped), and a
    (1, 1)-mesh train step against the one-rank step at
    ``[train-parity]``'s size and tolerances; then two processes on the
    card over ``gloo`` (which takes CUDA tensors) run the (1, 2) mesh's
    all-to-all at the same widths (float32, ``SHARD_GLOO_TOKENS``), its
    output and token and router gradients against the one-rank dropless
-   layer within 1e-4, and the (2, 1) mesh's ZeRO train step (the
+   layer on the CPU within 1e-4, and the (2, 1) mesh's ZeRO train step (the
    reduce-scatter, chunked AdamW and all-gather) against the one-rank
    step on the whole batch within 1e-5;
 25. tensor parallelism — ``[tp]``: two processes on the card over
@@ -668,6 +677,7 @@ def phase_kernels(torch, dev, name):
 
     flash_row(torch, dev, record, bound, err_of, (fp32, bf16))
     rows_out["selective_scan"] = scan_row(torch, dev, bound, fp32)
+    rows_out["moe_expert_ffn"] = moe_row(torch, dev, bound, bf16)
     return rows_out
 
 
@@ -851,6 +861,131 @@ def scan_row(torch, dev, bound, fp32):
           f"time); exponentials' floor {rank['exp_floor_ms']:.4f} ms at "
           f"{sms} SMs")
     del dt, xc, Bm, Cm, A, Bv, Cv, rargs, y_rank
+    torch.cuda.empty_cache()
+    return row
+
+
+#: the [kernels] moe_expert_ffn row's tokens: jamba.decode's batch of 32
+MOE_DECODE_TOKENS = 32
+
+
+def moe_row(torch, dev, bound, bf16):
+    """moe_expert_ffn (the port's own kernel: MoE decode has no Pallas
+    kernel) at Jamba's decode shape: 32 tokens, its 16 experts, d 8192, f
+    24576, bfloat16, swiglu, the experts picked by each token's top 2 of a
+    seeded draw.  Held, expert by expert, to the plain version computed in
+    float32 on the same bfloat16 inputs: max error within 1e-2 of the
+    largest output and RMS error no larger than the plain bfloat16
+    version's (``ref.moe_expert_ffn``: the copy of the picked experts and
+    ``torch.bmm``).  Timed by events and CUPTI beside that plain version
+    and the library yardstick the port's decode ran before this kernel
+    (the copy of min(E, 2T) experts' weights, ``params["wi"][sel]``, and
+    two ``torch.bmm``), which the port never calls; bound by the picked
+    experts' bytes; with the launches a call and the registers and spills
+    ``ptxas`` gave the instantiations."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch.kernel_bench import (device_profile,
+                                                 moe_expert_ffn_work,
+                                                 ptxas_report, time_ms)
+
+    cfg = get_config(LM_JAMBA)
+    T, E, d, f = (MOE_DECODE_TOKENS, cfg.moe.padded_experts, cfg.d_model,
+                  cfg.d_ff)
+    k = cfg.moe.top_k
+    check(cfg.ffn_act == "swiglu", f"moe_expert_ffn: {cfg.ffn_act}")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bfl = dict(dtype=torch.bfloat16, device=dev)
+    x = torch.randn(T, d, generator=gen, **bfl)
+    wi = torch.randn(E, d, 2, f, generator=gen, **bfl).mul_(d ** -0.5)
+    wo = torch.randn(E, f, d, generator=gen, **bfl).mul_(f ** -0.5)
+    top_e = torch.rand(T, E, generator=gen, device=dev).topk(k).indices
+    used = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+    used.index_fill_(0, top_e.reshape(-1), 1)
+    picked = used[:E].nonzero().flatten().tolist()
+
+    def kernel():
+        return ops.moe_expert_ffn(x, wi, wo, used, act="swiglu")
+
+    def plain():
+        return ref.moe_expert_ffn(x, wi, wo, used, act="swiglu",
+                                  picks=T * k)
+
+    def library():  # the port's decode before this kernel, all on device
+        sel = torch.argsort(used[:E], descending=True,
+                            stable=True)[:min(E, T * k)]
+        n = sel.numel()
+        h = torch.bmm(x.expand(n, T, d), wi[sel].reshape(n, d, 2 * f))
+        h = h.unflatten(-1, (2, f))
+        return torch.bmm(F.silu(h[..., 0, :]) * h[..., 1, :], wo[sel])
+
+    ops.reset_launch_counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["moe_expert_ffn"] == 1,
+          "moe_expert_ffn: not one counted launch a call")
+    plain_out = plain()
+    errs = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0]}  # max, sum sq
+    top = 0.0
+    for e in picked:
+        xf = x.float()
+        hh = xf @ wi[e].float().reshape(d, 2 * f)
+        want = (F.silu(hh[:, :f]) * hh[:, f:]) @ wo[e].float()
+        del hh
+        top = max(top, float(want.abs().max()))
+        for key, o in (("kernel", got[e]), ("plain", plain_out[e])):
+            diff = o.float() - want
+            errs[key][0] = max(errs[key][0], float(diff.abs().max()))
+            errs[key][1] += float(diff.pow(2).sum())
+        del want, diff
+    count = len(picked) * T * d
+    err = {key: (m / top, math.sqrt(ss / count))
+           for key, (m, ss) in errs.items()}
+    check(err["kernel"][0] <= 1e-2 and err["kernel"][1] <= err["plain"][1],
+          f"moe_expert_ffn: rel max {err['kernel'][0]:.3e} (tol 1e-2), RMS "
+          f"{err['kernel'][1]:.3e} against the plain bfloat16 version's "
+          f"{err['plain'][1]:.3e}")
+    del got, plain_out
+    torch.cuda.empty_cache()
+    nbytes, flops = moe_expert_ffn_work(len(picked), T, d, f, 2)
+    b_ms, b_by = bound(nbytes, flops, bf16)
+    dev_ms, per_call = device_profile(torch, kernel)
+    regs = {name: (r, st + ld) for name, r, st, ld in ptxas_report(
+        _build.build_info().log, "moe_expert_ffn.cu")
+        if "moe_expert_gemm_bf16<32" in name}
+    row = dict(name="moe_expert_ffn", route="cuda",
+               source="src/repro_torch/csrc/moe_expert_ffn.cu",
+               replaces=None, pallas_kernel=None,
+               shape=[T, E, d, f, "bfloat16", "swiglu"],
+               picked=len(picked), max_rel_err=err["kernel"][0],
+               rms_err=err["kernel"][1], plain_max_rel_err=err["plain"][0],
+               plain_rms_err=err["plain"][1], tol=1e-2,
+               ms=time_ms(torch, kernel), device_ms=dev_ms,
+               cuda_launches_per_call=per_call,
+               plain_ms=time_ms(torch, plain, reps=3, warmup=1),
+               library_ms=time_ms(torch, library, reps=5, warmup=1),
+               library_device_ms=device_profile(torch, library, reps=5,
+                                                warmup=1)[0],
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+               registers={n: r for n, (r, _) in regs.items()},
+               spill_bytes={n: sp for n, (_, sp) in regs.items()})
+    row["kernel_ms"] = row["ms"]
+    row.update(bound_share=b_ms / row["ms"],
+               device_bound_share=b_ms / row["device_ms"])
+    print(f"[kernels] moe_expert_ffn {row['shape']}, {len(picked)} of {E} "
+          f"experts picked: vs float32 max {err['kernel'][0]:.3e} of the "
+          f"largest output, RMS {err['kernel'][1]:.3e} (the plain bfloat16 "
+          f"version's {err['plain'][0]:.3e} / {err['plain'][1]:.3e}); "
+          f"kernel {row['ms']:.4f} ms (device {dev_ms:.4f}, "
+          f"{per_call:g} CUDA launches a call); plain {row['plain_ms']:.3f} "
+          f"ms; library (weight copy + 2 bmm) {row['library_ms']:.3f} ms "
+          f"(device {row['library_device_ms']:.3f}); bound {b_ms:.4f} ms "
+          f"({b_by}, {nbytes / 1e9:.3f} GB; {100 * row['bound_share']:.1f}% "
+          f"by events, {100 * row['device_bound_share']:.1f}% by device "
+          f"time); registers, spill bytes {regs}")
+    del x, wi, wo, used
     torch.cuda.empty_cache()
     return row
 
@@ -2342,6 +2477,20 @@ def _rates(res) -> str:
             f"({LM_BATCH * 1e3 / res.decode_ms_per_step:.1f} tokens/s)")
 
 
+def _check_decode_experts(label, cfg, launches):
+    """One ``moe_expert_ffn`` launch a MoE layer and decode step of a
+    served ``LM_GEN`` tokens (none in the prefill, whose experts take the
+    capacity path); returns the launches."""
+    from repro_torch.models.transformer import layer_kinds
+
+    n_moe = sum(ffn == "moe" for _, ffn in layer_kinds(cfg))
+    n = launches["moe_expert_ffn"]
+    check(n == n_moe * (LM_GEN - 1),
+          f"{label}: moe_expert_ffn launched {n} times in a serve, expected "
+          f"{n_moe} MoE layers x {LM_GEN - 1} decode steps")
+    return n
+
+
 def phase_lm_moe(torch, dev, label, arch):
     """An MoE config at its published widths in bfloat16 through lm_serve's
     ``serve``: prefill attention through the bfloat16 flash kernel once per
@@ -2385,6 +2534,7 @@ def phase_lm_moe(torch, dev, label, arch):
     check(launches["flash_attention"] == cfg.n_layers == len(seen),
           f"{label}: flash_attention launched {launches['flash_attention']} "
           f"times in one prefill, expected {cfg.n_layers}")
+    n_expert = _check_decode_experts(label, cfg, launches)
     check(all(d == (torch.bfloat16,) * 3 for d in seen),
           f"{label}: flash_attention inputs {set(seen)}, expected bfloat16")
     check(len(dropped) == cfg.n_layers,
@@ -2395,7 +2545,8 @@ def phase_lm_moe(torch, dev, label, arch):
     split = _cell_prefill_split(torch, label, cfg, params, prompt, None)
     print(f"[{label}] {_rates(res)}; max_memory_allocated "
           f"{peak / 2**30:.2f} GiB; flash_attention launches "
-          f"{launches['flash_attention']}, all bfloat16; assignments dropped "
+          f"{launches['flash_attention']}, all bfloat16; moe_expert_ffn "
+          f"launches {n_expert} in decode; assignments dropped "
           f"by capacity in the prefill {n_drop} of {n_assign} "
           f"({n_drop / n_assign:.4f}); traced prefill device time "
           f"{split['device_ms']:.3f} ms: {_shares(split)}")
@@ -2657,8 +2808,8 @@ def phase_lm_jamba(torch, dev):
     greedy tokens, after a warm-up at the same shapes with one decode
     step.  Each prefill launches the bfloat16 flash kernel once (the
     attention layer: hd 128, 8:1 GQA, causal) and ``selective_scan`` once
-    a Mamba layer (4); decode launches neither kernel (the Mamba step is
-    plain PyTorch).  Prints the parameter count, prefill and decode times,
+    a Mamba layer (4); decode launches neither (the Mamba step is plain
+    PyTorch) and ``moe_expert_ffn`` once a MoE layer and step.  Prints the parameter count, prefill and decode times,
     peak memory and a traced prefill's split by kernel group."""
     from repro_torch.kernels import ops
     from repro_torch.launch import lm_serve
@@ -2708,19 +2859,25 @@ def phase_lm_jamba(torch, dev):
     roles = _prefill_roles(torch, label, cfg, params, prompt, None,
                            {"self": n_attn})
     in_prefill = ops.launch_counts()
-    want = {"flash_attention": n_attn, "selective_scan": n_mamba}
+    want = {"flash_attention": n_attn, "selective_scan": n_mamba,
+            "moe_expert_ffn": 0}
     for k, n in want.items():
-        check(in_prefill[k] == n and launches[k] == n,
-              f"{label}: {k} launched {in_prefill[k]} times in a prefill and "
-              f"{launches[k]} in a serve, expected {n} in each (none in "
-              f"decode)")
+        check(in_prefill[k] == n,
+              f"{label}: {k} launched {in_prefill[k]} times in a prefill, "
+              f"expected {n}")
+    for k in ("flash_attention", "selective_scan"):
+        check(launches[k] == want[k],
+              f"{label}: {k} launched {launches[k]} times in a serve, "
+              f"expected {want[k]} (none in decode)")
+    n_expert = _check_decode_experts(label, cfg, launches)
     split = _cell_prefill_split(torch, label, cfg, params, prompt, None)
     scan_ms = split["groups"].get("selective_scan", 0.0)
     check(scan_ms > 0, f"{label}: the trace holds no selective_scan kernel")
     print(f"[{label}] {_rates(res)}; max_memory_allocated "
           f"{peak / 2**30:.2f} GiB; launches a prefill: flash_attention "
           f"{in_prefill['flash_attention']} ({_roles_line(roles)}), "
-          f"selective_scan {in_prefill['selective_scan']}; none in decode; "
+          f"selective_scan {in_prefill['selective_scan']}, neither in "
+          f"decode; moe_expert_ffn {n_expert} in decode; "
           f"traced prefill device time {split['device_ms']:.3f} ms: "
           f"{_shares(split)}; selective_scan {scan_ms / n_mamba:.3f} ms a "
           f"layer")
@@ -3808,9 +3965,44 @@ def _one_rank_group(backend):
             dist.destroy_process_group()
 
 
+#: the one-rank all-to-all and the dropless layer in bfloat16, each
+#: against the layer in float32 on the same bfloat16 inputs,
+#: max|delta|/max|ref|: on an H100 the sound runs read 7.67e-3 (a2a) and
+#: 7.34e-3 (dropless), the planted faults 2.48e-2 (geglu for swiglu) and
+#: 0.81 (an expert's wo zeroed); the limit is their geometric middle,
+#: 1.8x from each
+SHARD_MOE_TOL = 1.4e-2
+
+
+def _moe_layer_f32(torch, cfg, params, x):
+    """The dropless MoE layer in float32 from bfloat16 ``params`` and ``x``
+    (B, S, d): the layer's own routing, each expert through
+    ``moe._expert_ffn`` on the tokens that picked it, weighted by their
+    probabilities, plus the shared experts' MLP."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp
+
+    m = cfg.moe
+    xt = x.reshape(-1, cfg.d_model)
+    r = moe.route(cfg, params, xt)
+    xf = xt.float()
+    out = torch.zeros_like(xf)
+    for e in range(m.padded_experts):
+        t, j = (r.top_e == e).nonzero(as_tuple=True)
+        if t.numel():
+            one = {k: params[k][e:e + 1].float() for k in ("wi", "wo")}
+            y = moe._expert_ffn(cfg.ffn_act, one, xf[t][None])[0]
+            out.index_add_(0, t, y * r.top_p[t, j, None])
+    if m.n_shared:
+        shared = {k: v.float() for k, v in params["shared"].items()}
+        out += mlp(shared, xf, cfg.ffn_act, d_ff=m.n_shared * cfg.d_ff)
+    return out.reshape(x.shape), r
+
+
 def _shard_moe(torch, dev):
-    """moe_ffn_a2a on a one-rank nccl mesh at Qwen1.5-MoE's widths against
-    moe_ffn(dropless=True)."""
+    """moe_ffn_a2a on a one-rank nccl mesh at Qwen1.5-MoE's widths and
+    moe_ffn(dropless=True), each against the layer in float32; then two
+    planted faults in the dropless layer against the same limit."""
     from repro_torch.distributed.sharding import make_mesh
     from repro_torch.launch.kernel_bench import time_ms
     from repro_torch.models import moe
@@ -3819,16 +4011,30 @@ def _shard_moe(torch, dev):
     mesh = make_mesh((1, 1), ("data", "model"))
     cfg, params, x = _shard_moe_inputs(torch, dev, torch.bfloat16,
                                        (LM_BATCH, LM_PROMPT))
+
+    def rel(got):
+        return float((got.float() - want).abs().max() / want.abs().max())
+
     with torch.no_grad():
+        want, r = _moe_layer_f32(torch, cfg, params, x)
         out, aux = moe_ffn_a2a(cfg, params, x, mesh)
-        want, _ = moe.moe_ffn(cfg, params, x, dropless=True)
+        drop, _ = moe.moe_ffn(cfg, params, x, dropless=True)
+        sound = {"a2a": rel(out), "dropless": rel(drop)}
+        del out, drop
+        busiest = int(torch.bincount(r.top_e.reshape(-1)).argmax())
+        cut = dict(params, wo=params["wo"].clone())
+        cut["wo"][busiest] = 0
+        swapped = dataclasses.replace(cfg, ffn_act="geglu")
+        faults = {f"expert {busiest} zeroed": rel(moe.moe_ffn(
+                      cfg, cut, x, dropless=True)[0]),
+                  "geglu for swiglu": rel(moe.moe_ffn(
+                      swapped, params, x, dropless=True)[0])}
+        del cut
         a2a_ms = time_ms(torch, lambda: moe_ffn_a2a(cfg, params, x, mesh),
                          reps=5, warmup=1)
         plain_ms = time_ms(torch, lambda: moe.moe_ffn(cfg, params, x,
                                                       dropless=True),
                            reps=5, warmup=1)
-    rel = float((out.float() - want.float()).abs().max()
-                / want.float().abs().max())
     dropped = int(aux["moe_dropped"])
     m = cfg.moe
     print(f"[shard] moe_ffn_a2a on a one-rank nccl mesh (1, 1): "
@@ -3836,13 +4042,17 @@ def _shard_moe(torch, dev):
           f"{m.top_k}, {m.n_shared} shared, d {cfg.d_model}, "
           f"{LM_BATCH} x {LM_PROMPT} bfloat16 tokens, capacity factor "
           f"{SHARD_MOE_CF:g}: dropped {dropped}; max|delta|/max|ref| against"
-          f" moe_ffn(dropless=True) {rel:.3e} (tol 0: one rank's exchange "
-          f"is the identity and the experts see the same rows); "
-          f"{a2a_ms:.2f} ms a call against the dropless layer's "
-          f"{plain_ms:.2f} ms")
+          f" the layer in float32: a2a {sound['a2a']:.3e}, dropless "
+          f"{sound['dropless']:.3e}; planted faults in the dropless layer: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (tol {SHARD_MOE_TOL:g}); {a2a_ms:.2f} ms a call against the "
+          f"dropless layer's {plain_ms:.2f} ms")
     check(dropped == 0, f"shard: the all-to-all dropped {dropped}")
-    check(rel == 0.0, f"shard: a2a differs by {rel:.3e}")
-    del params, x, out, want
+    for k, v in sound.items():
+        check(v <= SHARD_MOE_TOL, f"shard: {k} differs by {v:.3e}")
+    for k, v in faults.items():
+        check(v > SHARD_MOE_TOL, f"shard: the fault '{k}' reads {v:.3e}")
+    del params, x, want
     torch.cuda.empty_cache()
 
 
@@ -3978,7 +4188,9 @@ def _shard_gloo_rank(rank, world, out_dir, device):
 
 def _shard_gloo(torch, dev):
     """Two processes on the card over gloo run the (1, 2) mesh; their
-    output and gradients against the one-rank dropless layer."""
+    output and gradients against the one-rank dropless layer on the CPU
+    (the card's takes the expert kernel, which has no backward), on the
+    weights and tokens the ranks drew."""
     import tempfile
 
     from repro_torch.distributed import ranks
@@ -3993,6 +4205,10 @@ def _shard_gloo(torch, dev):
     run_s = time.perf_counter() - t0
     cfg, params, x = _shard_moe_inputs(torch, dev, torch.float32,
                                        SHARD_GLOO_TOKENS)
+    params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.cpu())
+              for k, v in params.items()}
+    x = x.cpu()
     params["router"].requires_grad_(True)
     x.requires_grad_(True)
     want, _ = moe.moe_ffn(cfg, params, x, dropless=True)
@@ -4007,7 +4223,8 @@ def _shard_gloo(torch, dev):
           f"moe_ffn_a2a at {cfg.name}'s widths, "
           f"{SHARD_GLOO_TOKENS[0]} x {SHARD_GLOO_TOKENS[1]} float32 tokens: "
           f"dropped {got[0]['dropped']}; max|delta|/max|ref| against the "
-          f"one-rank moe_ffn(dropless=True): output {rels['out']:.2e}, "
+          f"one-rank moe_ffn(dropless=True) on the CPU: output "
+          f"{rels['out']:.2e}, "
           f"token gradient {rels['x']:.2e}, router gradient "
           f"{rels['router']:.2e} (tol 1e-4), the collectives on CUDA "
           f"tensors; {run_s:.1f} s for the two processes")

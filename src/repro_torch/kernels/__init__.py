@@ -4,7 +4,8 @@
   launches)
 - :mod:`repro_torch.kernels.ref`  — plain PyTorch versions, numpy oracles
 - :mod:`repro_torch.kernels.jacobi_stencil`, ``bellman``, ``anderson_mix``,
-  ``flash_attention``, ``selective_scan`` — ctypes launchers of
+  ``flash_attention``, ``selective_scan``, ``moe_expert_ffn`` — ctypes
+  launchers of
   ``csrc/*.cu``
 - :mod:`repro_torch.kernels._build` — builds ``csrc/`` with ``nvcc`` on
   first use (never at import)

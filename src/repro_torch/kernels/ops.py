@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.kernels.ops``: the same shape checks and
 ``ValueError``s; ``selective_scan`` is the port's own (Mamba's scan, which
-the reference leaves to ``jax.lax.associative_scan``).  The device of the
+the reference leaves to ``jax.lax.associative_scan``), as is
+``moe_expert_ffn`` (a MoE layer's picked experts, whose dropless decode the
+reference leaves to einsums over all experts).  The device of the
 tensors picks the route, and nothing else does: CPU tensors take the
 plain PyTorch version in
 :mod:`repro_torch.kernels.ref`; CUDA tensors launch the hand-written
@@ -22,18 +24,20 @@ from . import anderson_mix as _mix
 from . import bellman as _bellman
 from . import flash_attention as _flash
 from . import jacobi_stencil as _jacobi
+from . import moe_expert_ffn as _moe
 from . import ref
 from . import selective_scan as _scan
 
 __all__ = ["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
            "anderson_mix", "flash_attention", "selective_scan",
-           "launch_counts", "reset_launch_counts", "add_launch_counts",
-           "KERNELS"]
+           "moe_expert_ffn", "launch_counts", "reset_launch_counts",
+           "add_launch_counts", "KERNELS"]
 
 #: the wrappers that count launches, in the order of the kernel tables
 #: (the Pallas kernels', then the port's own)
 KERNELS = ("jacobi_halo_sweeps", "jacobi_sweep", "bellman_block", "bellman",
-           "anderson_mix", "flash_attention", "selective_scan")
+           "anderson_mix", "flash_attention", "selective_scan",
+           "moe_expert_ffn")
 
 _count_lock = threading.Lock()
 _counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -207,4 +211,43 @@ def selective_scan(dt, xc, Bm, Cm, A, h0=None, *, chunk=None):
             "repro_torch.kernels.ref.selective_scan)")
     out = _scan.selective_scan(dt, xc, Bm, Cm, A, h0)
     _counted("selective_scan")
+    return out
+
+
+def moe_expert_ffn(x, wi, wo, used, *, act: str,
+                   picks: Optional[int] = None):
+    """A MoE layer's experts on every token, each picked expert's weights
+    read once where they lie (``ref.moe_expert_ffn``): x (T, d), wi (E, d,
+    2, f) for a gated ``act`` (swiglu, geglu) or (E, d, f) (gelu, relu2),
+    wo (E, f, d), ``used`` int32 of at least E entries (non-zero: the
+    expert was picked), ``picks`` a bound on the picked experts (the
+    assignments, T*k) that sizes the plain version's copy.  Returns (E, T,
+    d) in x's type; the rows of the experts with ``used`` 0 are zero from
+    the plain version and unwritten by the kernel, so a caller reads only
+    the picked experts' rows.  On CUDA it refuses inputs that require grad
+    while autograd records: the kernel has no backward."""
+    if act not in ref.MOE_ACTS:
+        raise ValueError(f"act must be one of {ref.MOE_ACTS}, got {act!r}")
+    if x.ndim != 2:
+        raise ValueError(f"expected x of shape (T, d), got {tuple(x.shape)}")
+    T, d = x.shape
+    E, f = wo.shape[0], wo.shape[1]
+    gated = act in ("swiglu", "geglu")
+    want = (E, d, 2, f) if gated else (E, d, f)
+    if tuple(wi.shape) != want or tuple(wo.shape) != (E, f, d):
+        raise ValueError(f"expected wi {want} and wo {(E, f, d)} for {act}, "
+                         f"got {tuple(wi.shape)} and {tuple(wo.shape)}")
+    if used.ndim != 1 or used.shape[0] < E:
+        raise ValueError(f"expected a used mask of at least {E} entries, got "
+                         f"{tuple(used.shape)}")
+    if _on_cpu(x, wi, wo, used):
+        return ref.moe_expert_ffn(x, wi, wo, used, act=act, picks=picks)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wi, wo)):
+        raise RuntimeError(
+            "moe_expert_ffn has no backward: its CUDA kernel's output is "
+            "invisible to autograd, so x, wi and wo must not require grad "
+            "(run under torch.no_grad(); a gradient of a dropless MoE layer "
+            "is taken on the CPU)")
+    out = _moe.moe_expert_ffn(x, wi, wo, used, act)
+    _counted("moe_expert_ffn")
     return out

@@ -25,6 +25,10 @@ rows, kv head ``h // (nq / nkv)``.
 ``_combine`` by a doubling scan along time within each chunk, the carried
 state injected as ``b_cum + a_cum * h0``.
 
+``moe_expert_ffn`` runs ``models/moe.py``'s ``_expert_ffn`` (batched
+products in the inputs' type, the activation between them) on a copy of
+the experts a ``used`` mask names, on every token.
+
 The ``oracle_*`` functions are numpy copies of the reference's
 ``ref_jacobi_halo_sweeps``/``ref_bellman_block``: the device plane's
 ``"ref"`` mode runs them, for differential tests.
@@ -32,13 +36,16 @@ The ``oracle_*`` functions are numpy copies of the reference's
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["JACOBI_ORDERS", "jacobi_sweep", "jacobi_halo_sweeps", "bellman",
            "bellman_block", "anderson_mix", "flash_attention",
-           "selective_scan", "oracle_jacobi_halo_sweeps",
+           "selective_scan", "MOE_ACTS", "moe_expert_ffn",
+           "oracle_jacobi_halo_sweeps",
            "oracle_bellman_block"]
 
 
@@ -171,6 +178,32 @@ def selective_scan(dt: torch.Tensor, xc: torch.Tensor, Bm: torch.Tensor,
         h = hs[:, -1].clone()
         del hs
     return torch.cat(ys, dim=1), h
+
+
+#: activations of :func:`moe_expert_ffn`: gated (``wi`` (E, d, 2, f)),
+#: then not (``wi`` (E, d, f)); GELU is the tanh approximation
+MOE_ACTS = ("swiglu", "geglu", "gelu", "relu2")
+
+
+def moe_expert_ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                   used: torch.Tensor, *, act: str,
+                   picks: Optional[int] = None) -> torch.Tensor:
+    """Every expert ``e`` of ``wi``/``wo`` with ``used[e] != 0`` through
+    its FFN on all tokens ``x`` (T, d): ``models.moe._expert_ffn`` on a
+    copy of the weights of ``min(E, picks)`` experts (all E when ``picks``
+    is None) that hold every picked one, a size known before the data, as
+    autograd and the meta device need.  Returns (E, T, d) in x's type; the
+    other experts' rows are zero."""
+    from ..models import moe  # the layer's own experts, not a second copy
+
+    E = wi.shape[0]
+    T, d = x.shape
+    K = E if picks is None else min(E, picks)
+    sel = torch.argsort(used[:E], descending=True, stable=True)[:K]
+    h = moe._expert_ffn(act, {"wi": wi[sel], "wo": wo[sel]},
+                        x.expand(K, T, d))
+    out = x.new_zeros((E, T, d)).index_copy(0, sel, h)
+    return torch.where(used[:E, None, None] != 0, out, out.new_zeros(()))
 
 
 def oracle_jacobi_halo_sweeps(xb, top, bot, b, *, sweeps: int):

@@ -238,6 +238,18 @@ def selective_scan_work(B, S, di, ds, itemsize):
     return nbytes, B * S * di * (6 * ds + 1), B * S * di * ds
 
 
+def moe_expert_ffn_work(picked, T, d, f, itemsize, gated=True):
+    """Bytes and operations of one ``moe_expert_ffn`` call whose tokens
+    picked ``picked`` experts: those experts' ``wi`` (d x 2f gated, else
+    d x f) and ``wo`` (f x d) read once, the tokens (T, d) read once and
+    their rows of the output (T, d) written once (h, the products' (T, f)
+    intermediate, need not leave the chip: it is not counted); two
+    operations a weight element and token."""
+    w = d * f * (3 if gated else 2)
+    nbytes = (picked * w + T * d + picked * T * d) * itemsize
+    return nbytes, 2 * picked * T * w
+
+
 #: the [lm-jamba] prefill's scan (B, S, d_inner, d_state), bfloat16, and
 #: the width of the x_proj output whose last 2 d_state columns are B and C
 SCAN_SHAPE = (2, 8192, 16384, 16)

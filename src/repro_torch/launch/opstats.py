@@ -29,9 +29,9 @@ wrapper is replaced for the trace by a function that counts the work of
 its kernel (the formulas of :mod:`repro_torch.launch.kernel_bench`, which
 the kernel table's bounds use) and returns outputs of the right shapes
 without running anything, so the plain version, which does other work
-(the doubling scan, the per-group flash loop), is never counted.  A
-flash leaf's products count as product FLOPs; the scan's are elementwise
-(``leaf_flops``).
+(the doubling scan, the per-group flash loop, the MoE experts' weight
+copy), is never counted.  A flash or MoE-experts leaf's products count as
+product FLOPs; the scan's are elementwise (``leaf_flops``).
 
 ``torch.utils.flop_counter.FlopCounterMode`` can run beside it as a
 diagnostic (``flop_counter=True``), as ``cost_analysis()`` does in the
@@ -211,6 +211,20 @@ def leaf_work(name: str, args, kwargs) -> Tuple[float, float, float]:
         h, N = args[0].shape
         nbytes, flops = kb.anderson_work(h, N)
         return nbytes, 0.0, flops
+    if name == "moe_expert_ffn":
+        x, wi, _, used = args
+        T, d = x.shape
+        E, f = wi.shape[0], wi.shape[-1]
+        # the picked experts (a meta tensor has no values: the copy's
+        # bound, as the plain version sizes it)
+        picks = kwargs.get("picks")
+        picked = (min(E, E if picks is None else picks)
+                  if used.device.type == "meta"
+                  else int((used[:E] != 0).sum()))
+        nbytes, flops = kb.moe_expert_ffn_work(picked, T, d, f,
+                                               x.element_size(),
+                                               gated=wi.ndim == 4)
+        return nbytes, flops, 0.0
     raise KeyError(name)
 
 

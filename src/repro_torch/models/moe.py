@@ -20,7 +20,11 @@ port's result equals the reference's on every other token.
 Decode (``dropless=True``) is the reference's ``C = T`` path, computed on
 the experts the batch picked only: the other experts' rows are padding and
 contribute exactly 0, so the function is the same while at most ``T * k``
-experts' weights are read (all ``E`` in the reference).
+experts' weights are read (all ``E`` in the reference).  On the card the
+expert-indexed kernel (``kernels.ops.moe_expert_ffn``) reads each picked
+expert's weights once, where they lie, picked by a mask on the card; on
+the CPU its plain version copies the picked experts' weights and runs
+:func:`_expert_ffn` on the copy.
 
 The expert-parallel all-to-all is :mod:`repro_torch.models.moe_shard_map`
 (taken under a mesh with a ``"model"`` axis); ``cfg.moe.a2a`` without a
@@ -51,6 +55,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed import collectives as coll
+from ..kernels import ops
 from ..telemetry.serving import count, count_on_device, recording, span
 from .common import ParamSpec, model_axis
 from .layers import mlp, mlp_spec
@@ -77,23 +82,23 @@ def moe_spec(cfg: ModelConfig) -> Dict:
     return s
 
 
-def _expert_ffn(cfg: ModelConfig, params, xin: torch.Tensor) -> torch.Tensor:
-    """xin: (E', C, d) -> (E', C, d) through each expert's (gated) MLP;
-    ``params["wi"]``/``["wo"]`` hold the same E' experts in order."""
+def _expert_ffn(act: str, params, xin: torch.Tensor) -> torch.Tensor:
+    """xin: (E', C, d) -> (E', C, d) through each expert's (gated) MLP
+    with the activation ``act`` (``cfg.ffn_act``); ``params["wi"]``/
+    ``["wo"]`` hold the same E' experts in order."""
     wi, wo = params["wi"], params["wo"]
-    with span("lm.moe.experts"):
-        if cfg.ffn_act in ("swiglu", "geglu"):
-            E, d, _, f = wi.shape
-            h = torch.bmm(xin, wi.reshape(E, d, 2 * f)).unflatten(-1, (2, f))
-            gate, up = h[..., 0, :], h[..., 1, :]
-            g = (F.silu(gate) if cfg.ffn_act == "swiglu"
-                 else F.gelu(gate, approximate="tanh"))
-            h = g * up
-        else:
-            h = torch.bmm(xin, wi)
-            h = (F.gelu(h, approximate="tanh") if cfg.ffn_act == "gelu"
-                 else F.relu(h).square())
-        return torch.bmm(h, wo)
+    if act in ("swiglu", "geglu"):
+        E, d, _, f = wi.shape
+        h = torch.bmm(xin, wi.reshape(E, d, 2 * f)).unflatten(-1, (2, f))
+        gate, up = h[..., 0, :], h[..., 1, :]
+        g = (F.silu(gate) if act == "swiglu"
+             else F.gelu(gate, approximate="tanh"))
+        h = g * up
+    else:
+        h = torch.bmm(xin, wi)
+        h = (F.gelu(h, approximate="tanh") if act == "gelu"
+             else F.relu(h).square())
+    return torch.bmm(h, wo)
 
 
 class Routing(NamedTuple):
@@ -185,7 +190,8 @@ def _capacity_combine(cfg: ModelConfig, params, xt: torch.Tensor,
             count("moe.assignments", n)
             count("moe.slots", E * C)
             count_on_device("moe.dropped", dropped)
-    out_e = _expert_ffn(cfg, params, xin)
+    with span("lm.moe.experts"):
+        out_e = _expert_ffn(cfg.ffn_act, params, xin)
     del xin  # freed as the experts return, as a temporary would be
     with span("lm.moe.combine"):
         # invert the slotting
@@ -203,28 +209,32 @@ def _dropless_combine(cfg: ModelConfig, params, xt: torch.Tensor,
                       r: Routing, top_p: torch.Tensor,
                       e0: int = 0) -> torch.Tensor:
     """The reference's ``C = T`` combine on the experts the tokens picked:
-    every token through each of ``min(E', T*k)`` experts that include all
-    picked ones (the rest get no weight), then each assignment's row.
-    ``params`` may hold the experts ``[e0, e0 + E')`` only, as
-    :func:`_capacity_combine`'s."""
+    every token through each picked expert (``ops.moe_expert_ffn``, at
+    most ``T*k`` of them), then each assignment's row.  ``params`` may
+    hold the experts ``[e0, e0 + E')`` only, as :func:`_capacity_combine`'s."""
     T, d = xt.shape
     E_loc = params["wi"].shape[0]
-    K = min(E_loc, r.top_e.numel())
     with span("lm.moe.dispatch"):
         e_loc = r.top_e - e0
         mine = (e_loc >= 0) & (e_loc < E_loc)
         used = torch.zeros(E_loc + 1, dtype=torch.int32, device=xt.device)
         used.index_fill_(0, torch.where(mine, e_loc, E_loc).reshape(-1), 1)
-        sel = torch.argsort(used[:E_loc], descending=True, stable=True)[:K]
-        picked_w = {"wi": params["wi"][sel], "wo": params["wo"][sel]}
         if E_loc == cfg.moe.padded_experts and recording():
-            count("moe.experts_gathered", K)
-            count_on_device("moe.experts_picked", used[:E_loc].sum())
-    out = _expert_ffn(cfg, picked_w, xt.expand(K, T, d))  # (K, T, d)
-    del picked_w  # the weights' copies, freed as the experts return
+            n_used = used[:E_loc].sum()
+            if xt.is_cuda:  # the kernel reads them in place
+                count_on_device("moe.experts_streamed", n_used)
+            else:  # the plain version copies min(E', T*k) experts
+                count("moe.experts_gathered", min(E_loc, r.top_e.numel()))
+                count_on_device("moe.experts_picked", n_used)
+    with span("lm.moe.experts"):
+        out = ops.moe_expert_ffn(xt.contiguous(), params["wi"], params["wo"],
+                                 used, act=cfg.ffn_act,
+                                 picks=r.top_e.numel())  # (E', T, d)
     with span("lm.moe.combine"):
-        j = (e_loc[..., None] == sel).to(torch.int32).argmax(-1)  # (T, k)
-        picked = out[j, torch.arange(T, device=xt.device)[:, None]]
+        picked = out[e_loc.clamp(0, E_loc - 1),
+                     torch.arange(T, device=xt.device)[:, None]]
+        # an assignment to another rank's expert reads a row it never uses
+        # (from the kernel, possibly one no launch wrote): it weighs 0
         picked = torch.where(mine[..., None], picked, picked.new_zeros(()))
         return torch.einsum("tkd,tk->td", picked, top_p.to(picked.dtype))
 

@@ -58,6 +58,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..distributed import collectives as coll
+from ..telemetry.serving import span
 from .layers import mlp
 from .moe import _expert_ffn, _slots, route
 
@@ -136,7 +137,8 @@ def moe_ffn_a2a(cfg: ModelConfig, params, x: torch.Tensor, mesh,
     n_rx = rx.shape[0]
     table2, inv2 = _slot_table(re, E_loc, C2, n_rx)
     rxpad = torch.cat([rx, rx.new_zeros(1, d)])
-    out_e = _expert_ffn(cfg, p, rxpad[table2])
+    with span("lm.moe.experts"):
+        out_e = _expert_ffn(cfg.ffn_act, p, rxpad[table2])
 
     # 6. back to the receive slots, the reverse exchange and the combine
     v2 = (inv2 < C2) & (re < E_loc)

@@ -65,9 +65,10 @@ SERVE_SPANS: Dict[str, str] = {
     "lm.moe.route": "the float32 router product, softmax, top-k and "
                     "renormalisation",
     "lm.moe.dispatch": "capacity slots, the gather table and the (E, C, d) "
-                       "gather; in decode the picked experts' selection "
-                       "and the copy of their weights",
-    "lm.moe.experts": "the experts' batched products and activation",
+                       "gather; in decode the mask of the picked experts "
+                       "(off the card also the copy of their weights)",
+    "lm.moe.experts": "the experts' batched products and activation (in "
+                      "decode on the card the expert-indexed kernel)",
     "lm.moe.combine": "the inverse gather and the weighted sum of each "
                       "token's assignments",
     "lm.moe.shared": "the shared experts' MLP",
@@ -88,8 +89,12 @@ SERVE_COUNTERS: Dict[str, str] = {
                  "E x C a layer",
     "moe.dropped": "assignments dropped by capacity",
     "moe.experts_gathered": "experts whose weights a dropless (decode) MoE "
-                            "layer copies, min(E, T x k) a layer",
+                            "layer copies off the card, min(E, T x k) a "
+                            "layer",
     "moe.experts_picked": "of those, the experts the tokens picked",
+    "moe.experts_streamed": "experts whose weights a dropless (decode) MoE "
+                            "layer's kernel reads in place on the card: "
+                            "the picked ones, summed on the card",
     "alloc.retries": "the CUDA allocator's retries (cached blocks freed, "
                      "the device synchronised), num_alloc_retries' delta",
     "alloc.device_allocs": "cudaMalloc calls, num_device_alloc's delta",

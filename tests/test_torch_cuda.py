@@ -16,7 +16,10 @@ relative (per-CTA partial sums); ``flash_attention`` 2e-5 in float32 and
 2e-2 in bfloat16 (an online softmax against the plain version's one-shot
 softmax, as ``tests/test_kernels.py`` holds the Pallas kernel);
 ``selective_scan`` 1e-5 relative (time in order against the plain
-version's doubling scan); the LM serving path on the card against the
+version's doubling scan); ``moe_expert_ffn`` 1e-5 relative in float32
+and, in bfloat16, 1e-2 of the float32 answer with an RMS error no larger
+than the plain bfloat16 version's (the kernel rounds h and out once
+each); the LM serving path on the card against the
 same weights on the CPU 1e-4 relative in the logits (float32 matmuls in
 other orders through a stack of layers) with identical greedy tokens; a
 train step on the card against the CPU 1e-4 relative in the loss and
@@ -1108,13 +1111,184 @@ class TestSelectiveScanKernel:
             ops.selective_scan(dt, xc, Bm, Cm, A)
 
 
+class TestMoeExpertKernel:
+    """``moe_expert_ffn`` (``csrc/moe_expert_ffn.cu``) against its plain
+    version at shapes with ragged K, column and token tiles: d 264 (four
+    64-wide K tiles and 8 more), f 200 (gate and up in 64-column tiles, 8
+    left over), 5 experts of which 3 are picked."""
+
+    E, D, F = 5, 264, 200
+    USED = (1, 0, 1, 1, 0)
+
+    @classmethod
+    def _inputs(cls, dev, T, act, dtype, seed=0):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        wi_shape = ((cls.E, cls.D, 2, cls.F) if act in ("swiglu", "geglu")
+                    else (cls.E, cls.D, cls.F))
+        x = torch.randn(T, cls.D, generator=g, device=dev).to(dtype)
+        wi = (torch.randn(*wi_shape, generator=g, device=dev)
+              / cls.D ** 0.5).to(dtype)
+        wo = (torch.randn(cls.E, cls.F, cls.D, generator=g, device=dev)
+              / cls.F ** 0.5).to(dtype)
+        used = torch.tensor(cls.USED + (1,), dtype=torch.int32, device=dev)
+        return x, wi, wo, used
+
+    @staticmethod
+    def _err(got, want):
+        """(max |got - want| / max |want|, RMS of got - want) over the
+        picked experts' rows."""
+        d = got.float() - want.float()
+        return (float(d.abs().max() / want.float().abs().max()),
+                float(d.pow(2).mean().sqrt()))
+
+    @pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+    @pytest.mark.parametrize("T", [1, 2, 5, 32, 33, 64, 70, 200])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_matches_plain(self, dev, act, T, dtype):
+        """float32: within 1e-5 of the plain version (FFMA along K in
+        order against cuBLAS's blocked sums).  bfloat16: within 1e-2 of
+        the plain version run in float32 on the same bfloat16 inputs, and
+        its RMS error no larger than the plain bfloat16 version's: the
+        kernel sums in float32 and rounds h and out once each (2^-9
+        relative), where the plain version also rounds gate, up, the
+        activation and their product."""
+        x, wi, wo, used = self._inputs(dev, T, act, dtype)
+        ops.reset_launch_counts()
+        got = ops.moe_expert_ffn(x, wi, wo, used, act=act)
+        assert ops.launch_counts()["moe_expert_ffn"] == 1
+        assert got.shape == (self.E, T, self.D) and got.dtype == dtype
+        picked = [e for e, u in enumerate(self.USED) if u]
+        want = ref.moe_expert_ffn(x.float(), wi.float(), wo.float(), used,
+                                  act=act)[picked]
+        rel, rms = self._err(got[picked], want)
+        if dtype == torch.float32:
+            assert rel <= 1e-5
+        else:
+            plain = ref.moe_expert_ffn(x, wi, wo, used, act=act)[picked]
+            assert rel <= 1e-2
+            assert rms <= self._err(plain, want)[1]
+
+    def test_a_ranks_slice_of_the_experts(self, dev):
+        """``_dropless_combine`` on experts [e0, e0 + E') of a layer (a
+        ``"model"`` rank's slice, e0 > 0) against the CPU run of the same
+        slice: the kernel reads the slice in place; the assignments to
+        other ranks' experts weigh 0."""
+        import dataclasses
+
+        from repro_torch.models import moe
+        from repro_torch.models.common import materialize
+
+        cfg = get_config("olmoe_1b_7b").reduced()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=2))
+        p = materialize(moe.moe_spec(cfg), torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+        xt = torch.randn(6, cfg.d_model,
+                         generator=torch.Generator().manual_seed(1))
+        r = moe.route(cfg, p, xt)
+        e0, n = 4, 2  # a (1, 4) mesh's third rank
+        part = {k: p[k][e0:e0 + n] for k in ("wi", "wo")}
+        want = moe._dropless_combine(cfg, part, xt, r, r.top_p, e0)
+        on = {k: v.to(dev) for k, v in part.items()}
+        r_dev = moe.Routing(*(t.to(dev) for t in r))
+        ops.reset_launch_counts()
+        got = moe._dropless_combine(cfg, on, xt.to(dev), r_dev,
+                                    r_dev.top_p, e0)
+        assert ops.launch_counts()["moe_expert_ffn"] == 1
+        mine = ((r.top_e >= e0) & (r.top_e < e0 + n)).any(-1)
+        assert mine.any() and not mine.all()
+        assert not want[~mine].any() and not got.cpu()[~mine].any()
+        assert float((got.cpu() - want).abs().max()
+                     / want.abs().max()) <= 1e-5
+
+    def test_reads_only_the_picked_experts(self, dev):
+        """One token picks 2 of 8 experts: the other 6 experts' weights
+        are NaN on the card, and the layer still equals the CPU's on clean
+        weights; ``moe.experts_streamed`` counts the 2 (none gathered),
+        under a profiler, without a synchronise."""
+        import dataclasses
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import moe
+        from repro_torch.models.common import materialize
+        from repro_torch.telemetry import serving
+
+        cfg = get_config("olmoe_1b_7b").reduced()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=2))
+        p = materialize(moe.moe_spec(cfg), torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+        x = torch.randn(1, 1, cfg.d_model,
+                        generator=torch.Generator().manual_seed(2))
+        want, _ = moe.moe_ffn(cfg, p, x, dropless=True, losses=False)
+        top = moe.route(cfg, p, x.reshape(1, -1)).top_e.reshape(-1)
+        pd = {k: v.to(dev) for k, v in p.items()}
+        other = torch.ones(8, dtype=torch.bool)
+        other[top] = False
+        for k in ("wi", "wo"):
+            pd[k][other.to(dev)] = float("nan")
+        xd = x.to(dev)
+        torch.cuda.synchronize()
+        serving.reset_serve_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, _ = moe.moe_ffn(cfg, pd, xd, dropless=True,
+                                     losses=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counters = serving.serve_counters()
+        serving.reset_serve_counters()
+        assert counters["moe.experts_streamed"] == 2
+        assert "moe.experts_gathered" not in counters
+        assert torch.isfinite(got).all()
+        assert float((got.cpu() - want).abs().max()
+                     / want.abs().max()) <= 1e-5
+
+    def test_launches_are_counted_and_grad_refused(self, dev):
+        x, wi, wo, used = self._inputs(dev, 3, "swiglu", torch.bfloat16)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.moe_expert_ffn(x, wi, wo, used, act="swiglu")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ops.launch_counts()["moe_expert_ffn"] == 1
+        wi.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.moe_expert_ffn(x, wi, wo, used, act="swiglu")
+        with torch.no_grad():
+            ops.moe_expert_ffn(x, wi, wo, used, act="swiglu")
+        assert ops.launch_counts()["moe_expert_ffn"] == 2
+
+    @pytest.mark.parametrize("change", ["dtype", "contiguous", "width",
+                                        "used"])
+    def test_rejects_what_the_kernel_does_not_take(self, dev, change):
+        x, wi, wo, used = self._inputs(dev, 3, "swiglu", torch.bfloat16)
+        if change == "dtype":
+            x, wi, wo = x.half(), wi.half(), wo.half()
+        elif change == "contiguous":  # the same shape, experts innermost
+            wo = wo.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+        elif change == "width":  # d not a whole number of 16-byte chunks
+            x, wi, wo = x[:, :260], wi[:, :260].contiguous(), wo[..., :260]
+            x, wo = x.contiguous(), wo.contiguous()
+        else:
+            used = used.long()
+        with pytest.raises(ValueError):
+            ops.moe_expert_ffn(x, wi, wo, used, act="swiglu")
+
+
 class TestJambaOnTheCard:
     def test_serve_matches_cpu_at_depth_5(self, dev):
         """Reduced Jamba's first 5 layers ((mamba, mlp), (mamba, moe),
         (mamba, mlp), (mamba, moe), (attn, mlp)) served on the card
         against the CPU on the same float32 weights: logits within 1e-4
         relative with identical greedy tokens; one flash launch and 4
-        ``selective_scan`` launches a prefill, none in decode."""
+        ``selective_scan`` launches a prefill, none in decode; one
+        ``moe_expert_ffn`` launch a MoE layer in decode."""
         import dataclasses
 
         cfg = dataclasses.replace(
@@ -1130,6 +1304,7 @@ class TestJambaOnTheCard:
         counts = ops.launch_counts()
         assert counts["flash_attention"] == 1
         assert counts["selective_scan"] == 4
+        assert counts["moe_expert_ffn"] == 2 * 5  # 2 MoE layers a step
         assert torch.equal(got.tokens.cpu(), want.tokens)
         for a, b in zip([got.prefill_logits] + got.step_logits,
                         [want.prefill_logits] + want.step_logits):

@@ -236,8 +236,11 @@ def no_plain(monkeypatch):
                                   S(1, 8, 2, 16), window=4, softcap=50.0),
     lambda S: ops.selective_scan(S(2, 5, 32), S(2, 5, 32), S(2, 5, 16),
                                  S(2, 5, 16), S(32, 16), chunk=4),
+    lambda S: ops.moe_expert_ffn(S(3, 16), S(4, 16, 2, 8), S(4, 8, 16),
+                                 S(5), act="swiglu"),
 ], ids=["jacobi_sweep", "jacobi_halo_sweeps", "bellman", "bellman_block",
-        "anderson_mix", "flash_attention", "selective_scan"])
+        "anderson_mix", "flash_attention", "selective_scan",
+        "moe_expert_ffn"])
 def test_cuda_inputs_never_take_the_plain_version(no_plain, call):
     before = ops.launch_counts()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -269,6 +272,20 @@ def test_selective_scan_refuses_cuda_inputs_that_require_grad(no_plain):
         ops.selective_scan(dt, dt, bc, bc, A)
     with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA"):
         ops.selective_scan(dt, dt, bc, bc, A)
+    assert ops.launch_counts() == before
+
+
+def test_moe_expert_ffn_refuses_cuda_inputs_that_require_grad(no_plain):
+    """As flash: the expert kernel has no backward, so a CUDA call that
+    autograd would record raises before anything launches (a gradient of
+    a dropless MoE layer is taken on the CPU)."""
+    x = _CudaStub(3, 16, requires_grad=True)
+    wi, wo, used = _CudaStub(4, 16, 2, 8), _CudaStub(4, 8, 16), _CudaStub(5)
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.moe_expert_ffn(x, wi, wo, used, act="swiglu")
+    with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA"):
+        ops.moe_expert_ffn(x, wi, wo, used, act="swiglu")
     assert ops.launch_counts() == before
 
 

@@ -194,7 +194,8 @@ class TestMoeFFN:
         for t, j in lost:
             e = int(top_e[t, j])
             one = {"wi": tp["wi"][e:e + 1], "wo": tp["wo"][e:e + 1]}
-            out_e = moe._expert_ffn(tcfg, one, xt[t][None, None])[0, 0]
+            out_e = moe._expert_ffn(tcfg.ffn_act, one,
+                                    xt[t][None, None])[0, 0]
             expected[t] += float(r.top_p[t, j]) * _np(out_e)
         got = _np(got).reshape(T, -1)
         assert _rel(got, expected) <= RTOL
@@ -245,6 +246,49 @@ class TestMoeFFN:
         moe.moe_ffn(tcfg, tp, torch.as_tensor(_x(tcfg, 1, 1)), dropless=True)
         moe.moe_ffn(tcfg, tp, torch.as_tensor(_x(tcfg, 2, 1)), dropless=True)
         assert [s[0] for s in shapes] == [2, 4]
+
+    @pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+    def test_expert_kernel_takes_the_plain_version_on_the_cpu(self, act):
+        """``ops.moe_expert_ffn`` on CPU tensors is its plain version: a
+        picked expert's rows are ``_expert_ffn`` of that expert on every
+        token, the other experts' rows zero, and nothing is launched."""
+        jcfg, tcfg = _cfgs("olmoe_1b_7b", n_experts=8, top_k=2, ffn_act=act)
+        _, tp = _layer(jcfg)
+        x = torch.as_tensor(_x(tcfg, 1, 5, seed=7)).reshape(5, -1)
+        # E + 1 entries, the last the dispatch's sink for other ranks'
+        used = torch.tensor([1, 0, 0, 1, 1, 0, 0, 1, 1], dtype=torch.int32)
+        ops.reset_launch_counts()
+        got = ops.moe_expert_ffn(x, tp["wi"], tp["wo"], used, act=act)
+        assert ops.launch_counts()["moe_expert_ffn"] == 0
+        assert got.shape == (8, 5, tcfg.d_model)
+        for e in range(8):
+            if used[e]:
+                one = {"wi": tp["wi"][e:e + 1], "wo": tp["wo"][e:e + 1]}
+                want = moe._expert_ffn(act, one, x[None])[0]
+                assert _rel(_np(got[e]), _np(want)) <= RTOL
+            else:
+                assert not got[e].any()
+
+    @pytest.mark.parametrize("bad", ["act", "gated_wi", "wo", "used", "x"])
+    def test_expert_kernel_refuses_inconsistent_inputs(self, bad):
+        jcfg, tcfg = _cfgs("olmoe_1b_7b", n_experts=8, top_k=2)
+        _, tp = _layer(jcfg)
+        x = torch.as_tensor(_x(tcfg, 1, 3)).reshape(3, -1)
+        wi, wo = tp["wi"], tp["wo"]
+        used = torch.ones(9, dtype=torch.int32)
+        act = "swiglu"
+        if bad == "act":
+            act = "tanh"
+        elif bad == "gated_wi":  # a non-gated act's layout
+            act = "gelu"
+        elif bad == "wo":
+            wo = wo.transpose(1, 2)
+        elif bad == "used":
+            used = used[:7]
+        else:
+            x = x[None]
+        with pytest.raises(ValueError):
+            ops.moe_expert_ffn(x, wi, wo, used, act=act)
 
     def test_backward_matches_reference(self):
         """Gradients through the gathers, the router and the aux losses

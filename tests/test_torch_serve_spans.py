@@ -203,6 +203,18 @@ def test_decode_counters_hold_to_the_routing(monkeypatch):
     assert "moe.slots" not in got
 
 
+def test_the_streamed_experts_are_counted_on_the_card_only():
+    """``moe.experts_streamed`` is registered; a CPU decode copies the
+    picked experts and counts them as gathered, never as streamed."""
+    assert "in place" in SERVE_COUNTERS["moe.experts_streamed"]
+    cfg, params, prompt = _model("jamba")
+    _, caches = prefill(cfg, params, {"tokens": prompt}, max_len=16)
+    _traced(lambda: decode_step(cfg, params, caches, prompt[:, -1:], 12))
+    got = serving.serve_counters()
+    assert got["moe.experts_gathered"] > 0
+    assert "moe.experts_streamed" not in got
+
+
 @pytest.mark.cuda
 def test_spans_and_counters_take_no_synchronise():
     """A prefill and a decode step on the card, untraced and then traced
@@ -235,4 +247,6 @@ def test_spans_and_counters_take_no_synchronise():
     serving.reset_serve_counters()
     run(True)
     got = serving.serve_counters()
-    assert got["moe.assignments"] > 0 and got["moe.experts_gathered"] > 0
+    # the card's decode reads the picked experts in place: none is copied
+    assert got["moe.assignments"] > 0 and got["moe.experts_streamed"] > 0
+    assert "moe.experts_gathered" not in got
